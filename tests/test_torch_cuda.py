@@ -7,23 +7,30 @@ a machine without JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances: ROI patches 1e-5 absolute (the kernel's 4-tap form and the
-plain version's hat-weight matmuls sum the same two nonzero products per
-axis in another order); auction col_of and iters exactly equal (sums and
-differences only); the tracker on the card against the tracker on the
-CPU: ids and valid exact, boxes 1e-3 (cuFFT against pocketfft).
+Tolerances: ROI patches (K1, K3) 1e-5 absolute (the kernel's 4-tap form
+and the plain version's hat-weight matmuls sum the same two nonzero
+products per axis in another order); auction col_of and iters exactly
+equal (sums and differences only); fused KCF (K4, K5) against the
+torch.fft chain, relative to the largest magnitude of each tensor: 1e-4
+for the response and xf, 1e-3 for alphaf (the divide by k^ + lambda
+amplifies float32 error where k^ is small); the tracker on the card
+against the tracker on the CPU: ids and valid exact, boxes 1e-3 (cuFFT
+and the kernels' direct DFTs against pocketfft).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tpu_mot.config import TrackerConfig
-from tpu_mot.data import synthetic
+from tpu_mot_torch.config import TrackerConfig
+from tpu_mot_torch.data import synthetic
+from tpu_mot_torch.config import KCFConfig
 from tpu_mot_torch.kernels import auction as t_auction
+from tpu_mot_torch.kernels import kcf as t_kcfk
 from tpu_mot_torch.kernels import roi as t_roi
 from tpu_mot_torch.ops import assignment as t_assign
 from tpu_mot_torch.ops import iou as t_iou
+from tpu_mot_torch.ops import kcf as t_kcf
 from tpu_mot_torch.tracker import api as t_api
 from tpu_mot_torch.tracker import bank as t_bank
 from tpu_mot_torch.tracker import scan as t_scan
@@ -142,14 +149,142 @@ def test_tracker_on_card_matches_cpu(cuda):
     cfg = TrackerConfig(max_tracks=32, max_detections=16, frame_height=h,
                         frame_width=w)
     cpu_cfg = cfg.replace(roi_impl="pallas", assign_impl="pallas")
-    _, want = t_scan.run_sequence(t_bank.empty_bank(cpu_cfg), frames_u8, d, v,
-                                  cpu_cfg)
+    _, want = t_scan.run_sequence(t_bank.empty_bank(cpu_cfg, device="cpu"),
+                                  frames_u8, d, v, cpu_cfg)
     roi0, auc0 = t_roi.launches, t_auction.launches
     _, got = t_scan.run_sequence(t_bank.empty_bank(cfg, device=cuda),
                                  frames_u8.to(cuda), d.to(cuda), v.to(cuda),
                                  cfg)
     torch.cuda.synchronize()
     assert (t_roi.launches - roi0, t_auction.launches - auc0) == (8, 8)
+    assert torch.equal(got.ids.cpu(), want.ids)
+    assert torch.equal(got.valid.cpu(), want.valid)
+    assert (got.boxes.cpu() - want.boxes).abs().max().item() <= 1e-3
+
+
+SCALES = (1 / 1.05, 1.0, 1.05)
+
+
+@pytest.mark.parametrize("pyramid", [torch.uint8, torch.float32])
+def test_roi_scales_kernel_matches_plain_version(cuda, pyramid):
+    frame = torch.as_tensor(np.random.default_rng(8).integers(
+        0, 256, (H, W), dtype=np.uint8), device=cuda)
+    if pyramid == torch.float32:
+        frame = frame.float() / 255.0
+    levels = t_roi.build_pyramid(frame)
+    # Straddling box: 2.5 * 50 = 125 px at unit scale, 131 px at 1.05.
+    boxes = torch.as_tensor(np.concatenate(
+        [BOXES, [[300.0, 240.0, 50.0, 50.0]]]).astype(np.float32),
+        device=cuda)
+    before = t_roi.launches_scales
+    got = t_roi.extract_patches_scales(None, boxes, 2.5, 64, SCALES,
+                                       levels=levels, frame_hw=(H, W))
+    want = t_roi.extract_patches_scales_ref(None, boxes, 2.5, 64, SCALES,
+                                            levels=levels, frame_hw=(H, W))
+    torch.cuda.synchronize()
+    assert t_roi.launches_scales == before + 1
+    assert got.shape == (3, boxes.shape[0], 64, 64)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def _rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _kcf_inputs(dev, t, c, s, k=1, seed=0):
+    rng = np.random.default_rng(seed)
+    feat0 = torch.as_tensor(
+        rng.standard_normal((t, c, s, s)).astype(np.float32) * 0.3,
+        device=dev)
+    feat = torch.as_tensor(
+        rng.standard_normal((k * t, c, s, s)).astype(np.float32) * 0.3,
+        device=dev)
+    yf = t_kcf.make_yf(s, 2.5, 0.125, device=dev)
+    # The wrappers take contiguous spectra; cuFFT's may be strided.
+    model = t_kcf.KCFModel(*[x.contiguous() for x in
+                             t_kcf.train(feat0, yf, 0.2, 1e-4)])
+    return model, feat, yf
+
+
+# The slice's shapes: HF (3 scales x 128 tracks, fHOG-31 at S=16) and the
+# default gray shape (128 tracks, S=64), plus one in between.
+@pytest.mark.parametrize("c,s,k", [(31, 16, 3), (1, 64, 1), (3, 32, 2)])
+def test_kcf_detect_kernel_matches_plain_version(cuda, c, s, k):
+    model, feat, _ = _kcf_inputs(cuda, 128, c, s, k)
+    before = t_kcfk.launches_detect
+    got = t_kcfk.detect_fused(model, feat, 0.2)
+    want = t_kcfk.detect_fused_ref(model, feat, 0.2)
+    torch.cuda.synchronize()
+    assert t_kcfk.launches_detect == before + 1
+    assert got.shape == (k * 128, s, s)
+    assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("c,s", [(31, 16), (1, 64), (3, 32)])
+def test_kcf_train_kernel_matches_plain_version(cuda, c, s):
+    model, feat, yf = _kcf_inputs(cuda, 128, c, s, seed=1)
+    lr = torch.tensor([1.0, 0.075, 0.0, 0.5], device=cuda).repeat(32)
+    before = t_kcfk.launches_train
+    got = t_kcfk.train_fused(model, feat, yf, 0.2, 1e-4, lr)
+    want = t_kcfk.train_fused_ref(model, feat, yf, 0.2, 1e-4, lr)
+    torch.cuda.synchronize()
+    assert t_kcfk.launches_train == before + 1
+    assert _rel_err(got.xf, want.xf) <= 1e-4
+    assert _rel_err(got.alphaf, want.alphaf) <= 1e-3
+    assert torch.equal(got.xf[2], model.xf[2])            # lr = 0 keeps
+
+
+def test_kcf_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    model, feat, yf = _kcf_inputs(cuda, 4, 1, 16)
+    lr = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        t_kcfk.detect_fused(model, feat[:3], 0.2)
+    with pytest.raises(ValueError, match="feat"):
+        t_kcfk.detect_fused(model, feat.double(), 0.2)
+    with pytest.raises(ValueError, match="yf"):
+        t_kcfk.train_fused(model, feat, yf[:, :4], 0.2, 1e-4, lr)
+    big, feat_big, _ = _kcf_inputs(cuda, 2, 31, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        t_kcfk.detect_fused(big, feat_big, 0.2)
+
+
+@pytest.mark.parametrize("kcf_impl,train_site", [("pallas", "refined"),
+                                                 ("auto", "detect")])
+def test_heavy_tracker_on_card_matches_cpu(cuda, kcf_impl, train_site):
+    """The heavy configuration (fHOG-31, 3-scale search) on a small u8
+    fixture: the kernels on the card against their plain versions on the
+    CPU, frame by frame."""
+    h, w = 120, 160
+    rng = np.random.default_rng(11)
+    objs = synthetic.make_objects(6, h, w, rng, min_size=12, max_size=24,
+                                  max_speed=2.0)
+    frames, boxes, vis = synthetic.render_sequence(objs, 8, h, w, seed=2,
+                                                   noise=0.01)
+    dets = synthetic.detections_from_gt(boxes, vis, seed=2, frame_hw=(h, w))
+    frames_u8 = torch.as_tensor((frames * 255).astype(np.uint8))
+    d = np.zeros((8, 8, 5), np.float32)
+    v = np.zeros((8, 8), bool)
+    for f in range(8):
+        d[f], v[f] = t_api.pad_detections(dets[f], 8)
+    d, v = torch.as_tensor(d), torch.as_tensor(v)
+    cfg = TrackerConfig(
+        kcf=KCFConfig(template_size=32, feature_type="hog", cell_size=4,
+                      scale_step=1.05),
+        max_tracks=8, max_detections=8, frame_height=h, frame_width=w,
+        kcf_impl=kcf_impl, train_site=train_site)
+    cpu_cfg = cfg.replace(roi_impl="pallas", assign_impl="pallas")
+    _, want = t_scan.run_sequence(t_bank.empty_bank(cpu_cfg, device="cpu"),
+                                  frames_u8, d, v, cpu_cfg)
+    k0 = (t_roi.launches_scales, t_kcfk.launches_detect,
+          t_kcfk.launches_train, t_roi.launches)
+    _, got = t_scan.run_sequence(t_bank.empty_bank(cfg, device=cuda),
+                                 frames_u8.to(cuda), d.to(cuda), v.to(cuda),
+                                 cfg)
+    torch.cuda.synchronize()
+    fused = int(kcf_impl == "pallas")
+    assert (t_roi.launches_scales - k0[0], t_kcfk.launches_detect - k0[1],
+            t_kcfk.launches_train - k0[2], t_roi.launches - k0[3]) == (
+                8, 8 * fused, 8 * fused, 8 * fused)
     assert torch.equal(got.ids.cpu(), want.ids)
     assert torch.equal(got.valid.cpu(), want.valid)
     assert (got.boxes.cpu() - want.boxes).abs().max().item() <= 1e-3

@@ -1,0 +1,140 @@
+"""The fused KCF wrappers' plain versions (tpu_mot_torch.kernels.kcf:
+detect_fused_ref, train_fused_ref, and the wrappers on CPU tensors)
+against the JAX package's Pallas kernels run in interpret mode on the CPU
+(tpu_mot.kernels.kcf.detect_fused / train_fused).
+
+Tolerances, as tests/test_kcf_fused.py states them for the Pallas kernel
+against the XLA chain: rtol 1e-4 with atol 1e-5 for the response, atol
+5e-5 for the spectra (magnitudes up to ~25; the alphaf entries are
+quotients y^/(k^+lambda) and differ most where k^ is small).  Inputs are
+seeded NumPy features ~N(0, 0.09) handed to both packages; the model is
+trained by each package from the same features.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_mot.kernels import kcf as j_fused
+from tpu_mot.ops import kcf as j_kcf
+from tpu_mot.ops.cfloat import CF
+from tpu_mot_torch import interop
+from tpu_mot_torch.kernels import kcf as t_fused
+from tpu_mot_torch.ops import kcf as t_kcf
+
+torch.set_num_threads(1)
+
+RESP = dict(rtol=1e-4, atol=1e-5)
+SPEC = dict(rtol=1e-4, atol=5e-5)
+
+
+def _jc(cf: CF) -> np.ndarray:
+    return np.asarray(cf.re) + 1j * np.asarray(cf.im)
+
+
+def _models(rng, t, c, s):
+    """The same trained bank in both packages: JAX trains it, interop
+    carries it over (so the comparison isolates the fused functions)."""
+    feat0 = rng.standard_normal((t, c, s, s)).astype(np.float32) * 0.3
+    yf = j_kcf.make_yf(s, 2.5, 0.125, backend="matmul")
+    jm = j_kcf.train(jnp.asarray(feat0), yf, 0.2, 1e-4, backend="matmul")
+    tm = t_kcf.KCFModel(
+        xf=interop.cf_to_complex(jm.xf.re, jm.xf.im),
+        alphaf=interop.cf_to_complex(jm.alphaf.re, jm.alphaf.im))
+    return jm, tm, yf
+
+
+SHAPES = [(1, 16), (3, 16), (31, 16), (1, 32), (3, 32), (31, 32)]
+
+
+@pytest.mark.parametrize("c,s", SHAPES)
+def test_detect_plain_matches_pallas_interpret(c, s):
+    rng = np.random.default_rng(c * 100 + s)
+    jm, tm, _ = _models(rng, 4, c, s)
+    feat = rng.standard_normal((4, c, s, s)).astype(np.float32) * 0.3
+    want = np.asarray(j_fused.detect_fused(jm, jnp.asarray(feat), 0.2,
+                                           interpret=True))
+    got = t_fused.detect_fused(tm, torch.as_tensor(feat), 0.2).numpy()
+    np.testing.assert_allclose(got, want, **RESP)
+    np.testing.assert_array_equal(
+        got, t_fused.detect_fused_ref(tm, torch.as_tensor(feat), 0.2))
+
+
+@pytest.mark.parametrize("c,s", SHAPES)
+def test_train_plain_matches_pallas_interpret(c, s):
+    rng = np.random.default_rng(c * 100 + s + 1)
+    jm, tm, yf = _models(rng, 6, c, s)
+    feat = rng.standard_normal((6, c, s, s)).astype(np.float32) * 0.3
+    lr = np.array([0.0, 1.0, 0.075, 0.0, 0.075, 1.0], np.float32)
+    want = j_fused.train_fused(jm, jnp.asarray(feat), yf, 0.2, 1e-4,
+                               jnp.asarray(lr), interpret=True)
+    tyf = interop.cf_to_complex(yf.re, yf.im)
+    got = t_fused.train_fused(tm, torch.as_tensor(feat), tyf, 0.2, 1e-4,
+                              torch.as_tensor(lr))
+    np.testing.assert_allclose(got.xf.numpy(), _jc(want.xf), **SPEC)
+    np.testing.assert_allclose(got.alphaf.numpy(), _jc(want.alphaf), **SPEC)
+    # lr = 0 keeps the old model exactly, lr = 1 replaces it.
+    assert torch.equal(got.xf[0], tm.xf[0])
+    fresh = t_kcf.train(torch.as_tensor(feat), tyf, 0.2, 1e-4)
+    assert torch.equal(got.xf[1], fresh.xf[1])
+
+
+def test_fused_roundtrip_tracks_shift():
+    """tests/test_kcf_fused.py's round trip on the port: train from an
+    empty bank at lr = 1, detect on a circularly shifted copy; the peak
+    sits at the shift."""
+    rng = np.random.default_rng(2)
+    s = 32
+    patch = rng.standard_normal((s, s)).astype(np.float32)
+    yf = t_kcf.make_yf(s, 2.5, 0.125)
+    empty = t_kcf.KCFModel(
+        xf=torch.zeros((1, 1, s, s // 2 + 1), dtype=torch.complex64),
+        alphaf=torch.zeros((1, s, s // 2 + 1), dtype=torch.complex64))
+    model = t_fused.train_fused(empty, torch.as_tensor(patch[None, None]), yf,
+                                0.2, 1e-4, torch.ones(1))
+    shifted = np.roll(np.roll(patch, 3, axis=0), -2, axis=1)
+    resp = t_fused.detect_fused(model, torch.as_tensor(shifted[None, None]),
+                                0.2)
+    dy, dx, peak = t_kcf.peak_displacement(resp)
+    assert abs(float(dy[0]) - 3) < 0.5, float(dy[0])
+    assert abs(float(dx[0]) + 2) < 0.5, float(dx[0])
+    assert float(peak[0]) > 0.5
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_detect_scales_auto_matches_jax(impl):
+    """detect_scales_auto over [3, T]: scale-major items against one bank
+    (the fused path reads model row item % T, JAX tiles the model)."""
+    rng = np.random.default_rng(5)
+    c, s, t = 31, 16, 4
+    jm, tm, _ = _models(rng, t, c, s)
+    feat = rng.standard_normal((3, t, c, s, s)).astype(np.float32) * 0.3
+    want = np.asarray(j_kcf.detect_scales_auto(jm, jnp.asarray(feat), 0.2,
+                                               impl=impl))
+    got = t_kcf.detect_scales_auto(tm, torch.as_tensor(feat), 0.2,
+                                   impl=impl).numpy()
+    assert got.shape == (3, t, s, s)
+    np.testing.assert_allclose(got, want, **RESP)
+
+
+def test_dispatch_and_cpu_wrappers_launch_nothing():
+    rng = np.random.default_rng(6)
+    _, tm, yf = _models(rng, 2, 3, 16)
+    tyf = interop.cf_to_complex(yf.re, yf.im)
+    feat = torch.as_tensor(
+        rng.standard_normal((4, 3, 16, 16)).astype(np.float32) * 0.3)
+    counts = (t_fused.launches_detect, t_fused.launches_train)
+    assert t_kcf._resolve_impl("auto") == "xla"
+    assert torch.equal(t_kcf.detect_auto(tm, feat[:2], 0.2, "pallas"),
+                       t_fused.detect_fused_ref(tm, feat[:2], 0.2))
+    assert torch.equal(t_kcf.detect_auto(tm, feat[:2], 0.2, "auto"),
+                       t_kcf.detect(tm, feat[:2], 0.2))
+    lr = torch.tensor([0.5, 1.0])
+    for impl in ("pallas", "auto"):
+        got = t_kcf.train_blend_auto(tm, feat[:2], tyf, 0.2, 1e-4, lr, impl)
+        want = t_fused.train_fused_ref(tm, feat[:2], tyf, 0.2, 1e-4, lr)
+        assert torch.equal(got.xf, want.xf)
+    with pytest.raises(ValueError, match="multiple"):
+        t_fused.detect_fused(tm, feat[:3], 0.2)
+    assert (t_fused.launches_detect, t_fused.launches_train) == counts

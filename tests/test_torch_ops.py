@@ -15,6 +15,7 @@ Tolerances:
 """
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -26,6 +27,7 @@ import torch
 
 import oracles
 from tpu_mot.config import KalmanConfig, KCFConfig
+from tpu_mot_torch import config as t_config
 from tpu_mot.ops import assignment as j_assign
 from tpu_mot.ops import features as j_feat
 from tpu_mot.ops import fft as j_fft
@@ -95,15 +97,15 @@ def test_window_constants_identical():
 
 
 def test_gray_features_match_and_hog_raises():
+    """Gray features match JAX's; fHOG, which raised before the heavy path
+    was ported, now matches too (tests/test_torch_hog.py covers it)."""
     rng = np.random.default_rng(0)
     p = rng.random((3, 64, 64)).astype(np.float32)
-    cfg = KCFConfig()
-    np.testing.assert_allclose(
-        t_feat.extract_features(_t(p), cfg).numpy(),
-        np.asarray(j_feat.extract_features(jnp.asarray(p), cfg)), **LEAF)
-    with pytest.raises(NotImplementedError, match="hog"):
-        t_feat.extract_features(_t(p), KCFConfig(feature_type="hog",
-                                                 cell_size=4))
+    for kw in (dict(), dict(feature_type="hog", cell_size=4)):
+        np.testing.assert_allclose(
+            t_feat.extract_features(_t(p), t_config.KCFConfig(**kw)).numpy(),
+            np.asarray(j_feat.extract_features(jnp.asarray(p),
+                                               KCFConfig(**kw))), **LEAF)
 
 
 @pytest.mark.parametrize("shape,dtype", [((24, 32), np.uint8),
@@ -177,18 +179,19 @@ def test_iou_and_association_cost():
 def test_kalman_init_predict_correct():
     rng = np.random.default_rng(5)
     cfg = KalmanConfig()
+    tcfg = t_config.KalmanConfig()
     boxes = _boxes(rng, 6, 1080, 1920)
-    tm, tc = t_kalman.init(_t(boxes), cfg)
+    tm, tc = t_kalman.init(_t(boxes), tcfg)
     jm, jc = j_kalman.init(jnp.asarray(boxes), cfg)
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), **LEAF)
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **LEAF)
     for _ in range(2):
-        tm, tc = t_kalman.predict(tm, tc, cfg)
+        tm, tc = t_kalman.predict(tm, tc, tcfg)
         jm, jc = j_kalman.predict(jm, jc, cfg)
         z = (np.asarray(jm)[:, :4]
              + rng.normal(0, 2, (6, 4))).astype(np.float32)
         gate = np.array([1, 0, 1, 1, 0, 1], bool)
-        tm, tc = t_kalman.correct(tm, tc, _t(z), _t(gate), cfg)
+        tm, tc = t_kalman.correct(tm, tc, _t(z), _t(gate), tcfg)
         jm, jc = j_kalman.correct(jm, jc, jnp.asarray(z), jnp.asarray(gate),
                                   cfg)
         np.testing.assert_allclose(tm.numpy(), np.asarray(jm), **LEAF)
@@ -226,9 +229,10 @@ def _kcf_inputs(seed, t=3):
     cfg = KCFConfig()
     xj = j_feat.extract_features(jnp.asarray(p), cfg)
     zj = j_feat.extract_features(jnp.asarray(z), cfg)
+    tcfg = t_config.KCFConfig()
     return (j_fft.rfft2(xj), j_fft.rfft2(zj),
-            t_fft.rfft2(t_feat.extract_features(_t(p), cfg)),
-            t_fft.rfft2(t_feat.extract_features(_t(z), cfg)))
+            t_fft.rfft2(t_feat.extract_features(_t(p), tcfg)),
+            t_fft.rfft2(t_feat.extract_features(_t(z), tcfg)))
 
 
 def test_kcf_train_detect_chain_matches_jax():
@@ -290,7 +294,7 @@ def test_alphaf_vs_float64_oracle():
     4.7e-4 on the same kind of input)."""
     rng = np.random.default_rng(9)
     p = rng.random((2, 64, 64)).astype(np.float32)
-    feat = t_feat.extract_features(_t(p), KCFConfig())
+    feat = t_feat.extract_features(_t(p), t_config.KCFConfig())
     model = t_kcf.train_from_spectrum(t_fft.rfft2(feat),
                                       t_kcf.make_yf(64, 2.5, 0.125),
                                       0.2, 1e-4, 64)
@@ -379,8 +383,9 @@ def test_interop_cf_roundtrip():
 
 
 def test_port_imports_without_jax():
-    """Every tpu_mot_torch module and chip_smoke.py's imports load in a
-    process where importing jax fails; no port module names jax."""
+    """Every tpu_mot_torch module and chip_smoke.py load in a process where
+    importing jax, flax or anything of the JAX package (tpu_mot) fails; no
+    port module names jax or tpu_mot."""
     pkg = os.path.join(_REPO, "tpu_mot_torch")
     mods = []
     for root, dirs, files in os.walk(pkg):
@@ -391,6 +396,7 @@ def test_port_imports_without_jax():
                 with open(path) as fh:
                     src = fh.read()
                 assert "import jax" not in src and "from jax" not in src, path
+                assert not re.search(r"(from|import) tpu_mot[ .]", src), path
                 rel = os.path.relpath(path, _REPO)[:-3].replace(os.sep, ".")
                 mods.append(rel[:-len(".__init__")]
                             if rel.endswith(".__init__") else rel)
@@ -398,9 +404,10 @@ def test_port_imports_without_jax():
         import importlib, sys
         sys.modules["jax"] = None
         sys.modules["flax"] = None
+        sys.modules["tpu_mot"] = None
         for m in {sorted(mods)!r} + ["chip_smoke"]:
             importlib.import_module(m)
-        assert not any(k == "jax" or k.startswith("jax.")
+        assert not any(k.split(".")[0] in ("jax", "flax", "tpu_mot")
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
     """)

@@ -127,3 +127,88 @@ def test_cpu_wrapper_is_the_plain_version_and_launches_nothing():
     got = t_roi.extract_patches(frame, boxes, 2.5, 64)
     assert torch.equal(got, t_roi.extract_patches_ref(frame, boxes, 2.5, 64))
     assert t_roi.launches == before
+
+
+SCALES = (1 / 1.05, 1.0, 1.05)
+
+
+def _smooth_frame(seed, h, w):
+    rng = np.random.default_rng(seed)
+    return np.kron(rng.random((h // 8, w // 8)),
+                   np.ones((8, 8))).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["level0", "straddling", "u8"])
+def test_scales_plain_matches_pallas_interpret(case):
+    """K3's plain version against extract_patches_scales_pallas in
+    interpret mode, on the inputs of tests/test_roi_kernel.py: small boxes
+    (every scale at level 0), a box whose scales straddle the level 0/1
+    boundary (K3 takes the largest scale's level for all three), and a u8
+    pyramid.  atol 1e-5."""
+    if case == "level0":
+        frame = np.random.default_rng(1).random((240, 320)).astype(
+            np.float32)
+        boxes = np.array([[70.0, 50.0, 20.0, 26.0], [150.0, 120.0, 40.0, 30.0],
+                          [250.0, 60.0, 16.0, 16.0]], np.float32)
+    elif case == "straddling":
+        frame = _smooth_frame(2, 480, 640)
+        boxes = np.array([[300.0, 240.0, 50.0, 50.0]], np.float32)
+    else:
+        frame = (np.random.default_rng(3).random((240, 320)) * 255).astype(
+            np.uint8)
+        boxes = np.array([[70.0, 50.0, 20.0, 26.0],
+                          [150.0, 120.0, 40.0, 30.0]], np.float32)
+    hw = frame.shape
+    if case == "u8":
+        want = j_roi.extract_patches_scales_pallas(
+            jnp.asarray(frame), jnp.asarray(boxes), 2.5, 64, SCALES,
+            interpret=True, levels=j_roi.build_pyramid(jnp.asarray(frame)),
+            frame_hw=hw)
+    else:
+        want = j_roi.extract_patches_scales_pallas(
+            jnp.asarray(frame), jnp.asarray(boxes), 2.5, 64, SCALES,
+            interpret=True, dtype=jnp.float32)
+    levels = t_roi.build_pyramid(_t(frame))
+    assert levels[0].dtype == (torch.uint8 if case == "u8"
+                               else torch.float32)
+    got = t_roi.extract_patches_scales_ref(None, _t(boxes), 2.5, 64, SCALES,
+                                           levels=levels, frame_hw=hw)
+    assert got.shape == (3, boxes.shape[0], 64, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+    lvl = t_roi.sample_coords_scales(_t(boxes), 2.5, 64, SCALES, hw)[0]
+    assert lvl.tolist() == ([1] if case == "straddling"
+                            else [0] * boxes.shape[0])
+
+
+def test_scales_on_big_frame_every_level():
+    """K3's plain version on the 1160 x 2100 frame with every edge case of
+    BOXES (levels 0-3, truncated windows) against interpret mode."""
+    frame = _frame_u8(4)
+    want = j_roi.extract_patches_scales_pallas(
+        jnp.asarray(frame), jnp.asarray(BOXES), 2.5, 32, SCALES,
+        interpret=True, levels=j_roi.build_pyramid(jnp.asarray(frame)),
+        frame_hw=(H, W))
+    got = t_roi.extract_patches_scales(_t(frame), _t(BOXES), 2.5, 32,
+                                       SCALES).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_cpu_scales_wrapper_is_the_plain_version_and_launches_nothing():
+    frame = _t(_frame_u8(5)[:480, :640])
+    boxes = _t(BOXES[:6] * 0.3)
+    before = t_roi.launches_scales
+    got = t_roi.extract_patches_scales(frame, boxes, 2.5, 64, SCALES)
+    assert torch.equal(got, t_roi.extract_patches_scales_ref(
+        frame, boxes, 2.5, 64, SCALES))
+    assert t_roi.launches_scales == before
+    # The scale axis leads: scale k equals K1 at the scaled box wherever K3
+    # keeps K1's level (small boxes: level 0 at every scale).
+    small = _t(np.array([[100.0, 90.0, 20.0, 24.0]], np.float32))
+    three = t_roi.extract_patches_scales(frame, small, 2.5, 64, SCALES)
+    for k, sv in enumerate(SCALES):
+        one = t_roi.extract_patches(frame, small, 2.5, 64,
+                                    scales=torch.full((1,), sv))
+        np.testing.assert_allclose(three[k].numpy(), one.numpy(), rtol=0,
+                                   atol=1e-5)

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from test_golden import GOLDEN, _check
-from tpu_mot.config import KCFConfig, TrackerConfig
+from test_torch_config import both_configs
 from tpu_mot.data import synthetic
 from tpu_mot.ops.cfloat import CF
 from tpu_mot.ops.kcf import KCFModel as JKCFModel
@@ -30,6 +30,7 @@ from tpu_mot.tracker import bank as j_bank
 from tpu_mot.tracker import scan as j_scan
 from tpu_mot.tracker import step as j_step
 from tpu_mot.tracker.api import pad_detections as j_pad
+from tpu_mot_torch import config as t_config
 from tpu_mot_torch import interop
 from tpu_mot_torch.kernels import auction as t_auction
 from tpu_mot_torch.kernels import roi as t_roi
@@ -62,17 +63,20 @@ def _padded(dets, cap):
 
 
 def _golden_inputs():
+    """test_golden.py's fixture and config: (frames, dets, JAX config, the
+    port's config)."""
     frames, dets = _fixture(42, 10, 25, 240, 320, max_speed=2.5)
-    cfg = TrackerConfig(max_tracks=32, max_detections=16, frame_height=240,
-                        frame_width=320, roi_impl="xla", kcf=KCFConfig())
-    return frames, dets, cfg
+    jcfg, tcfg = both_configs(max_tracks=32, max_detections=16,
+                              frame_height=240, frame_width=320,
+                              roi_impl="xla")
+    return frames, dets, jcfg, tcfg
 
 
 def _run_port(frames, dets, cfg):
     d, v = _padded(dets, cfg.max_detections)
     return t_scan.run_sequence(
-        t_bank.empty_bank(cfg), torch.as_tensor(frames), torch.as_tensor(d),
-        torch.as_tensor(v), cfg)
+        t_bank.empty_bank(cfg, device="cpu"), torch.as_tensor(frames),
+        torch.as_tensor(d), torch.as_tensor(v), cfg)
 
 
 def _np_out(out):
@@ -82,7 +86,7 @@ def _np_out(out):
 
 
 def test_golden_mot_dump():
-    frames, dets, cfg = _golden_inputs()
+    frames, dets, _, cfg = _golden_inputs()
     _, out = _run_port(frames, dets, cfg)
     assert out.valid.numpy().any()
     _check(_np_out(out), GOLDEN)
@@ -102,20 +106,20 @@ def _assert_spectral(got, want, rel):
 
 
 def test_step_from_mid_sequence_jax_bank():
-    frames, dets, cfg = _golden_inputs()
+    frames, dets, jcfg, cfg = _golden_inputs()
     d, v = _padded(dets, cfg.max_detections)
     k = 12
-    jb = j_bank.empty_bank(cfg)
+    jb = j_bank.empty_bank(jcfg)
     for f in range(k):         # the jitted step, compiled once for all k + 1
         jb, _ = j_step.step(jb, jnp.asarray(frames[f]), jnp.asarray(d[f]),
-                            jnp.asarray(v[f]), cfg)
+                            jnp.asarray(v[f]), jcfg)
     tb = interop.bank_from_jax(jb)
     # interop round trip is lossless in both directions
     back = _jax_bank(interop.bank_to_numpy(tb))
     for a, b in zip(jax_leaves(back), jax_leaves(jb)):
         np.testing.assert_array_equal(a, b)
     jb2, jo = j_step.step(jb, jnp.asarray(frames[k]), jnp.asarray(d[k]),
-                          jnp.asarray(v[k]), cfg)
+                          jnp.asarray(v[k]), jcfg)
     tb2, to = t_step.step(tb, torch.as_tensor(frames[k]),
                           torch.as_tensor(d[k]), torch.as_tensor(v[k]), cfg)
     for name in ("ids", "valid", "matched_det", "cls", "n_alive",
@@ -151,15 +155,15 @@ def test_kernel_paths_match_jax_interpret_on_u8_fixture():
     h, w = 240, 320
     frames, dets = _fixture(5, 8, 8, h, w, max_speed=2.0)
     frames_u8 = (frames * 255).astype(np.uint8)
-    cfg = TrackerConfig(max_tracks=32, max_detections=16, frame_height=h,
-                        frame_width=w, roi_impl="pallas",
-                        assign_impl="pallas")
+    jcfg, cfg = both_configs(max_tracks=32, max_detections=16,
+                             frame_height=h, frame_width=w, roi_impl="pallas",
+                             assign_impl="pallas")
     d, v = _padded(dets, cfg.max_detections)
-    _, jo = j_scan.run_sequence(j_bank.empty_bank(cfg),
+    _, jo = j_scan.run_sequence(j_bank.empty_bank(jcfg),
                                 jnp.asarray(frames_u8), jnp.asarray(d),
-                                jnp.asarray(v), cfg)
+                                jnp.asarray(v), jcfg)
     roi_before, auc_before = t_roi.launches, t_auction.launches
-    _, to = t_scan.run_sequence(t_bank.empty_bank(cfg),
+    _, to = t_scan.run_sequence(t_bank.empty_bank(cfg, device="cpu"),
                                 torch.as_tensor(frames_u8),
                                 torch.as_tensor(d), torch.as_tensor(v), cfg)
     assert (t_roi.launches, t_auction.launches) == (roi_before, auc_before)
@@ -173,17 +177,17 @@ def test_kernel_paths_match_jax_interpret_on_u8_fixture():
 def test_frame_valid_masking_and_class_column():
     """frame_valid=False frames are no-ops; a 6th detection column becomes
     StepOutput.cls (as in JAX)."""
-    frames, dets, cfg = _golden_inputs()
+    frames, dets, jcfg, cfg = _golden_inputs()
     n = 6
     d, v = _padded(dets[:n], cfg.max_detections)
     d6 = np.concatenate([d, np.full(d.shape[:2] + (1,), 3.0, np.float32)],
                         axis=2)
     fv = np.array([1, 1, 0, 1, 0, 1], bool)
-    jb, jo = j_scan.run_sequence(j_bank.empty_bank(cfg),
+    jb, jo = j_scan.run_sequence(j_bank.empty_bank(jcfg),
                                  jnp.asarray(frames[:n]), jnp.asarray(d6),
-                                 jnp.asarray(v), cfg,
+                                 jnp.asarray(v), jcfg,
                                  frame_valid=jnp.asarray(fv))
-    tb, to = t_scan.run_sequence(t_bank.empty_bank(cfg),
+    tb, to = t_scan.run_sequence(t_bank.empty_bank(cfg, device="cpu"),
                                  torch.as_tensor(frames[:n]),
                                  torch.as_tensor(d6), torch.as_tensor(v),
                                  cfg, frame_valid=torch.as_tensor(fv))
@@ -197,9 +201,9 @@ def test_frame_valid_masking_and_class_column():
 
 
 def test_multitracker_matches_run_sequence_and_save_load():
-    frames, dets, cfg = _golden_inputs()
+    frames, dets, _, cfg = _golden_inputs()
     _, seq = _run_port(frames[:8], dets[:8], cfg)
-    mt = t_api.MultiTracker(cfg)
+    mt = t_api.MultiTracker(cfg, device="cpu")
     got = [mt.init(frames[0], dets[0])]
     for f in range(1, 5):
         got.append(mt.update(frames[f], dets[f]))
@@ -212,37 +216,67 @@ def test_multitracker_matches_run_sequence_and_save_load():
     assert mt.counters()["alive"] > 0
     snap = mt.save_state()
     after = [mt.update(frames[f], dets[f]) for f in (5, 6)]
-    mt2 = t_api.MultiTracker(cfg)
+    mt2 = t_api.MultiTracker(cfg, device="cpu")
     mt2.load_state(snap)
     assert [mt2.update(frames[f], dets[f]) for f in (5, 6)] == after
     # Snapshots are host copies: the live bank moved on, the snapshot did not.
     assert int(snap["bank"].frame_idx) == 5 and int(mt.bank.frame_idx) == 7
     with pytest.raises(RuntimeError):
-        t_api.MultiTracker(cfg).update(frames[0], dets[0])
-    assert t_api.reset(cfg).state.sum() == 0
+        t_api.MultiTracker(cfg, device="cpu").update(frames[0], dets[0])
+    assert t_api.reset(cfg, device="cpu").state.sum() == 0
     np.testing.assert_array_equal(t_api.pad_detections(dets[3], 16)[0],
                                   j_pad(dets[3], 16)[0])
 
 
 @pytest.mark.parametrize("change", [
-    dict(kcf=KCFConfig(scale_step=1.05)),
-    dict(kcf=KCFConfig(feature_type="hog", cell_size=4)),
-    dict(train_site="refined"),
     dict(appearance_weight=0.3),
     dict(class_aware=True),
     dict(assoc_box="best"),
     dict(auction_warm_start=True),
-    dict(kcf_impl="pallas"),
 ])
 def test_unported_branches_raise(change):
-    cfg = TrackerConfig(max_tracks=4, max_detections=4, **change)
+    cfg = t_config.TrackerConfig(max_tracks=4, max_detections=4, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_api.MultiTracker(cfg)
+        t_api.MultiTracker(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(kcf=t_config.KCFConfig(scale_step=1.05)),
+    dict(kcf=t_config.KCFConfig(feature_type="hog", cell_size=4)),
+    dict(train_site="refined"),
+    dict(kcf_impl="pallas"),
+])
+def test_heavy_branches_are_ported(change):
+    """The branches that raised before the heavy path was ported build a
+    tracker and run a step (tests/test_torch_heavy.py holds them to JAX)."""
+    cfg = t_config.TrackerConfig(max_tracks=4, max_detections=4,
+                                 frame_height=48, frame_width=64, **change)
+    mt = t_api.MultiTracker(cfg, device="cpu")
+    frame = np.zeros((48, 64), np.float32)
+    mt.init(frame, np.array([[20.0, 20.0, 8.0, 8.0, 1.0]], np.float32))
+    assert mt.counters()["births"] == 1
+    mt.update(frame, np.zeros((0, 5), np.float32))
+    assert mt.counters()["alive"] == 1
+
+
+def test_entry_points_default_to_the_card():
+    """Without a device the entry points take the CUDA card and raise when
+    there is none; they never fall back to the CPU."""
+    cfg = t_config.TrackerConfig(max_tracks=4, max_detections=4)
+    assert t_bank.resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert t_api.MultiTracker(cfg).device.type == "cuda"
+        return
+    for make in (lambda: t_api.MultiTracker(cfg), lambda: t_api.reset(cfg),
+                 lambda: t_bank.empty_bank(cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
 
 
 def test_kernel_path_checks_frame_shape():
-    cfg = TrackerConfig(max_tracks=4, max_detections=4, frame_height=48,
-                        frame_width=64, roi_impl="pallas")
+    cfg = t_config.TrackerConfig(max_tracks=4, max_detections=4,
+                                 frame_height=48, frame_width=64,
+                                 roi_impl="pallas")
     frame = torch.zeros((40, 64), dtype=torch.uint8)
     with pytest.raises(ValueError, match="frame shape"):
         t_step.init(frame, torch.zeros((4, 5)),

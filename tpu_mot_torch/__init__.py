@@ -1,16 +1,20 @@
-"""tpu-mot on PyTorch and CUDA: the bench main path of `tpu_mot`, ported.
+"""tpu-mot on PyTorch and CUDA: the tracker of `tpu_mot`, ported.
 
 The package mirrors `tpu_mot`'s module names (`ops/`, `kernels/`,
-`tracker/`) so each function has an obvious counterpart, and it reads the
-same `tpu_mot.config.TrackerConfig`, so one config drives both packages.
-It imports `torch` and never `jax`: the JAX-free modules of `tpu_mot`
-(`config`, `data.synthetic`, `utils.metrics`) are imported, not copied.
+`tracker/`, `config`, `data/`, `utils/`) so each function has an obvious
+counterpart.  It imports `torch` and nothing of `jax` or of `tpu_mot`: the
+JAX-free modules it needs (`config`, `data.synthetic`, the CLEAR-MOT and
+HOTA metrics) are its own copies.
 
-What runs today is the default tracker step (gray 64x64 features, unit
-scale, detect-site training, PSR gate, IoU-only cost) through
-`tracker.scan.run_sequence` and `tracker.api.MultiTracker`.  Its two
-kernels are hand-written CUDA for Hopper (`csrc/roi.cu`, `csrc/auction.cu`),
-built with nvcc at first use; every other op is plain torch.
+What runs today is the tracker step through `tracker.scan.run_sequence`
+and `tracker.api.MultiTracker`: the default configuration (gray 64x64
+features, unit scale, detect-site training, PSR gate, IoU-only cost) and
+the heavy one (fHOG-31 features over 4x4 cells, the 3-scale search, and
+optionally the fused KCF kernels with refined-site training).  The five
+kernels are hand-written CUDA for Hopper (`csrc/roi.cu`, `csrc/auction.cu`,
+`csrc/kcf.cu`), built with nvcc at first use; every other op is plain
+torch.  Entry points run on the card unless the caller passes
+device="cpu".
 
 Precision policy: fp32 everywhere, TF32 off.  bf16 forward spectra
 collapsed the bounce fixture's IDF1 from 0.987 to ~0.70 on the TPU

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Every `.cu` file under tpu_mot_torch/csrc/ is compiled by nvcc for Hopper
-(`sm_90a`) into one shared library with a plain C interface, loaded with
-ctypes.  The library is built at first use into tpu_mot_torch/_build/,
-named by a hash of the sources, so an edit rebuilds and an unchanged
-checkout reuses its build.  Compiling is seconds: no source includes
-PyTorch's headers.
+(`sm_90a`), one nvcc process per source, all started together, and the
+objects are linked into one shared library with a plain C interface,
+loaded with ctypes.  The library is built at first use into
+tpu_mot_torch/_build/, named by a hash of the sources, so an edit rebuilds
+and an unchanged checkout reuses its build.  Compiling is seconds: no
+source includes PyTorch's headers.
 
 Each C entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` turns a nonzero code into an exception.
@@ -24,8 +25,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +39,14 @@ SIGNATURES = {
     "tpu_mot_roi_extract": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                             _P),
+    "tpu_mot_roi_extract_scales": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                                   _I, _I, _I, _I, _F, _P),
+    "tpu_mot_kcf_smem_bytes": (_I, _I),
+    "tpu_mot_kcf_smem_limit": (),
+    "tpu_mot_kcf_detect": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "tpu_mot_kcf_train": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                          _F, _P),
 }
 
 
@@ -68,26 +78,45 @@ def source_hash() -> str:
 
 def build(build_dir: Path | None = None) -> tuple[Path, float, str]:
     """Compile csrc/*.cu into build_dir unless a build of these exact
-    sources exists.  Returns (library path, seconds spent compiling (0.0
-    when reused), compiler output)."""
+    sources exists.  Returns (library path, seconds spent compiling and
+    linking (0.0 when reused), compiler output)."""
     build_dir = Path(build_dir or BUILD_DIR)
-    lib = build_dir / f"libtpu_mot_kernels_{source_hash()}.so"
+    tag = source_hash()
+    lib = build_dir / f"libtpu_mot_kernels_{tag}.so"
     log = lib.with_suffix(".log")
     if lib.is_file():
         return lib, 0.0, log.read_text() if log.is_file() else ""
     nvcc = find_nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    pid = os.getpid()
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [build_dir / f"{p.stem}_{tag}.{pid}.o" for p in srcs]
+    tmp = lib.with_name(f"{lib.name}.{pid}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+                                str(obj)], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True), src)
+             for src, obj in zip(srcs, objs)]
+    outputs, failed = [], []
+    for proc, src in procs:
+        out, _ = proc.communicate()
+        outputs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (rc {proc.returncode})")
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        outputs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link (rc {link.returncode})")
     seconds = time.perf_counter() - t0
-    output = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    output = "".join(outputs)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n{output}")
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{output}")
     log.write_text(output)
     os.replace(tmp, lib)          # atomic: concurrent builders both succeed
     return lib, seconds, output
@@ -103,6 +132,17 @@ def load() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def on_card(what: str, t) -> bool:
+    """Which version a kernel wrapper runs for tensor t: False (the plain
+    version) on the CPU, True (the kernel) on a CUDA card; raises for any
+    other device."""
+    if t.device.type == "cpu":
+        return False
+    if not t.is_cuda:
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return True
 
 
 def check(rc: int, what: str) -> None:

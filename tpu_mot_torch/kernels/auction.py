@@ -70,10 +70,8 @@ def auction_solve(b: torch.Tensor, eps: float, max_iters: int
     plain version for a CPU tensor.  Raises on anything the kernel does not
     take; never falls back."""
     global launches
-    if b.device.type == "cpu":
+    if not _build.on_card("auction_solve", b):
         return auction_solve_ref(b, eps, max_iters)
-    if not b.is_cuda:
-        raise ValueError(f"auction_solve: unsupported device {b.device}")
     if b.dtype != torch.float32 or b.ndim != 2 or b.shape[0] != b.shape[1]:
         raise ValueError("auction_solve: b must be a square float32 matrix, "
                          f"got {tuple(b.shape)} {b.dtype}")

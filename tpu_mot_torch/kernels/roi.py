@@ -1,5 +1,8 @@
-"""ROI extraction through a mip pyramid: the CUDA kernel (csrc/roi.cu) and
-its plain torch version (counterpart of tpu_mot/kernels/roi.py).
+"""ROI extraction through a mip pyramid: the CUDA kernels K1 and K3
+(csrc/roi.cu) and their plain torch versions (counterpart of
+tpu_mot/kernels/roi.py).  K1 (`extract_patches`) resamples one window per
+track; K3 (`extract_patches_scales`) resamples K scaled windows per track
+from one block, its level chosen from the largest scale.
 
 Per track, the pyramid level is the one where the context window is at
 most MAX_WIN px (`clip(ceil(log2(max(win/128, 1))), 0, 3)`), the sample
@@ -7,9 +10,10 @@ coordinates map to that level as `(y + .5)/2^lvl - .5` clamped to its true
 extent, and the TPU kernel's (8,128)-aligned 144 x 256 block origin is
 kept: taps outside that block get zero weight, so windows over 1024 px
 are truncated exactly as on the TPU.  All of that coordinate math is
-`sample_coords`, shared by both versions; they differ only in the
-resample.  The plain version forms the TPU kernel's one-hot hat-weight
-matmuls W_y . block . W_x^T; the kernel evaluates the equal 4-tap form.
+`sample_coords` (`sample_coords_scales` for K3), shared by the kernel and
+its plain version; they differ only in the resample.  The plain version
+forms the TPU kernel's one-hot hat-weight matmuls W_y . block . W_x^T; the
+kernel evaluates the equal 4-tap form.
 
 u8 frames keep a u8 pyramid with the 1/255 dequantization folded into the
 resample weights, as in JAX.  Float frames get a float32 pyramid (the JAX
@@ -32,9 +36,11 @@ BLK_ROWS = 144      # rows of the TPU kernel's window block
 BLK_COLS = 256      # cols of the TPU kernel's window block
 MAX_WIN = 128.0     # level chosen so the window is <= this many px
 
-# Kernel launches made by `extract_patches` (a plain count; reset it to 0
-# to measure a run).
+# Kernel launches made by `extract_patches` (K1) and by
+# `extract_patches_scales` (K3): plain counts; reset them to 0 to measure a
+# run.
 launches = 0
+launches_scales = 0
 
 
 def _ceil_mult(x: int, m: int) -> int:
@@ -107,19 +113,35 @@ def build_pyramid(gray: torch.Tensor) -> list[torch.Tensor]:
     return levels
 
 
-def sample_coords(boxes: torch.Tensor, padding: float, size: int,
-                  frame_hw: tuple[int, int]):
-    """Per-track level, block origin and level sample coordinates, ported
-    exactly from tpu_mot/kernels/roi.py:493-517.
+def _block_origin(y0: torch.Tensor, x0: torch.Tensor,
+                  max_origin: torch.Tensor):
+    """The (8, 128)-aligned block origin at or before the first sample
+    row/col y0, x0 [T], clamped to [0, max_origin [T, 2]] -> int32 r0, c0."""
+    r0 = torch.div(torch.floor(y0).to(torch.int32), 8,
+                   rounding_mode="floor") * 8
+    c0 = torch.div(torch.floor(x0).to(torch.int32), 128,
+                   rounding_mode="floor") * 128
+    r0 = torch.minimum(torch.clamp_min(r0, 0), max_origin[:, 0])
+    c0 = torch.minimum(torch.clamp_min(c0, 0), max_origin[:, 1])
+    return r0.to(torch.int32), c0.to(torch.int32)
 
-    boxes [T, 4] (cx, cy, w, h) -> lvl, r0, c0 int32 [T]; ys, xs float32
-    [T, size].
+
+def sample_coords(boxes: torch.Tensor, padding: float, size: int,
+                  frame_hw: tuple[int, int], scales=None):
+    """Per-track level, block origin and level sample coordinates, ported
+    exactly from tpu_mot/kernels/roi.py:449-517.
+
+    boxes [T, 4] (cx, cy, w, h), scales optional [T] per-track factors ->
+    lvl, r0, c0 int32 [T]; ys, xs float32 [T, size].
     """
     h, w = frame_hw
     ext, max_origin = _level_tables(h, w, str(boxes.device))
     cx, cy, bw, bh = boxes.unbind(1)
     bw = torch.clamp_min(bw, 1.0)
     bh = torch.clamp_min(bh, 1.0)
+    if scales is not None:
+        bw = bw * scales
+        bh = bh * scales
     win_w = bw * padding
     win_h = bh * padding
     win = torch.maximum(win_w, win_h)
@@ -138,33 +160,69 @@ def sample_coords(boxes: torch.Tensor, padding: float, size: int,
     xs = torch.minimum(torch.clamp_min(
         (cx[:, None] + u[None, :] * win_w[:, None] + 0.5) / scale[:, None]
         - 0.5, 0.0), (lw - 1.0)[:, None])
-    r0 = torch.div(torch.floor(ys[:, 0]).to(torch.int32), 8,
-                   rounding_mode="floor") * 8
-    c0 = torch.div(torch.floor(xs[:, 0]).to(torch.int32), 128,
-                   rounding_mode="floor") * 128
-    r0 = torch.minimum(torch.clamp_min(r0, 0), max_origin[li, 0])
-    c0 = torch.minimum(torch.clamp_min(c0, 0), max_origin[li, 1])
-    return lvl, r0.to(torch.int32), c0.to(torch.int32), ys, xs
+    return (lvl, *_block_origin(ys[:, 0], xs[:, 0], max_origin[li]), ys,
+            xs)
 
 
-def _prepare(gray, boxes, padding, size, levels, frame_hw):
+def sample_coords_scales(boxes: torch.Tensor, padding: float, size: int,
+                         scale_vals: tuple, frame_hw: tuple[int, int]):
+    """K3's coordinates, ported exactly from tpu_mot/kernels/roi.py:378-410:
+    one level per track, chosen from the LARGEST scale's window, and one
+    block origin, at the smallest first row/col over the scales, so one
+    block covers every scale's window.
+
+    boxes [T, 4], scale_vals K Python floats -> lvl, r0, c0 int32 [T]; ys,
+    xs float32 [K, T, size].
+    """
+    h, w = frame_hw
+    ext, max_origin = _level_tables(h, w, str(boxes.device))
+    cx, cy, bw, bh = boxes.unbind(1)
+    bw = torch.clamp_min(bw, 1.0)
+    bh = torch.clamp_min(bh, 1.0)
+    smax = float(max(scale_vals))
+    win_max = torch.maximum(bw, bh) * (padding * smax)
+    lvl = torch.clamp(
+        torch.ceil(torch.log2(torch.clamp_min(win_max / MAX_WIN, 1.0))),
+        0, N_LEVELS - 1).to(torch.int32)
+    li = lvl.long()
+    scale = torch.exp2(lvl.to(torch.float32))[:, None]
+    lh = (ext[li, 0] - 1.0)[:, None]
+    lw = (ext[li, 1] - 1.0)[:, None]
+    u = (torch.arange(size, dtype=torch.float32, device=boxes.device)
+         + 0.5) / size - 0.5
+    ys_k, xs_k = [], []
+    for sv in scale_vals:
+        win_w = bw * (padding * float(sv))
+        win_h = bh * (padding * float(sv))
+        ys_k.append(torch.minimum(torch.clamp_min(
+            (cy[:, None] + u[None, :] * win_h[:, None] + 0.5) / scale - 0.5,
+            0.0), lh))
+        xs_k.append(torch.minimum(torch.clamp_min(
+            (cx[:, None] + u[None, :] * win_w[:, None] + 0.5) / scale - 0.5,
+            0.0), lw))
+    ys = torch.stack(ys_k)                                   # [K, T, S]
+    xs = torch.stack(xs_k)
+    return (lvl, *_block_origin(ys[:, :, 0].amin(dim=0),
+                                xs[:, :, 0].amin(dim=0), max_origin[li]),
+            ys, xs)
+
+
+def _pyramid(gray, levels, frame_hw):
     if levels is None:
-        frame_hw = tuple(gray.shape)
-        levels = build_pyramid(gray)
-    elif frame_hw is None:
+        return build_pyramid(gray), tuple(gray.shape)
+    if frame_hw is None:
         raise ValueError("frame_hw is required with a prebuilt pyramid")
-    coords = sample_coords(boxes, padding, size, frame_hw)
-    return levels, tuple(frame_hw), coords
+    return levels, tuple(frame_hw)
 
 
-def _resample_ref(levels, frame_hw, lvl, r0, c0, ys, xs) -> torch.Tensor:
-    """The TPU kernel's math in plain torch: gather each track's block from
-    its (zero-padded) level and apply the hat-weight matmuls."""
-    dev = ys.device
+def _gather_blocks(levels, frame_hw, lvl, r0, c0) -> torch.Tensor:
+    """Each track's 144 x 256 block of its (zero-padded) level, float32
+    [T, BLK_ROWS, BLK_COLS]."""
+    dev = lvl.device
     shapes = _level_shapes(*frame_hw)
     rows = r0.long()[:, None] + torch.arange(BLK_ROWS, device=dev)
     cols = c0.long()[:, None] + torch.arange(BLK_COLS, device=dev)
-    t = ys.shape[0]
+    t = lvl.shape[0]
     blk = torch.zeros((t, BLK_ROWS, BLK_COLS), dtype=torch.float32,
                       device=dev)
     for lv, level in enumerate(levels):
@@ -176,80 +234,147 @@ def _resample_ref(levels, frame_hw, lvl, r0, c0, ys, xs) -> torch.Tensor:
                    cols.clamp_max(pw - 1)[:, None, :]]
         blk = torch.where((lvl == lv)[:, None, None],
                           g.to(torch.float32), blk)
+    return blk
+
+
+def _hat_resample(blk, r0, c0, ys, xs, u8: bool) -> torch.Tensor:
+    """The TPU kernel's one-hot hat-weight matmuls W_y . blk . W_x^T on
+    [T, S] block coordinates -> [T, S, S]."""
+    dev = ys.device
     row_iota = torch.arange(BLK_ROWS, dtype=torch.float32, device=dev)
     col_iota = torch.arange(BLK_COLS, dtype=torch.float32, device=dev)
     ysl = ys - r0.to(torch.float32)[:, None]
     xsl = xs - c0.to(torch.float32)[:, None]
     wy = torch.clamp_min(1.0 - torch.abs(ysl[:, :, None] - row_iota), 0.0)
     wx = torch.clamp_min(1.0 - torch.abs(xsl[:, :, None] - col_iota), 0.0)
-    if levels[0].dtype == torch.uint8:
+    if u8:
         wy = wy * (1.0 / 255.0)
     return torch.bmm(torch.bmm(wy, blk), wx.transpose(1, 2))
 
 
-def _resample_cuda(levels, frame_hw, lvl, r0, c0, ys, xs) -> torch.Tensor:
-    global launches
+def _resample_ref(levels, frame_hw, lvl, r0, c0, ys, xs) -> torch.Tensor:
+    """The TPU kernel's math in plain torch: gather each track's block from
+    its (zero-padded) level and apply the hat-weight matmuls."""
+    blk = _gather_blocks(levels, frame_hw, lvl, r0, c0)
+    return _hat_resample(blk, r0, c0, ys, xs,
+                         levels[0].dtype == torch.uint8)
+
+
+def _resample_scales_ref(levels, frame_hw, lvl, r0, c0, ys, xs
+                         ) -> torch.Tensor:
+    """K3's math in plain torch: one block per track, K resamples of it."""
+    blk = _gather_blocks(levels, frame_hw, lvl, r0, c0)
+    u8 = levels[0].dtype == torch.uint8
+    return torch.stack([_hat_resample(blk, r0, c0, ys[k], xs[k], u8)
+                        for k in range(ys.shape[0])])
+
+
+def _launch(what, entry, levels, frame_hw, lvl, r0, c0, ys, xs, out,
+            *dims) -> None:
+    """Check what the kernels take and launch `entry` on the current
+    stream; raises on anything else (no fallback)."""
     dev = ys.device
-    t, s = ys.shape
     dtype = levels[0].dtype
     if dtype not in (torch.uint8, torch.float32):
-        raise ValueError(f"extract_patches: pyramid dtype {dtype} is not "
-                         "uint8 or float32")
+        raise ValueError(f"{what}: pyramid dtype {dtype} is not uint8 or "
+                         "float32")
     ext = level_extents(*frame_hw)
     if len(levels) != N_LEVELS:
-        raise ValueError(f"extract_patches: need {N_LEVELS} levels")
+        raise ValueError(f"{what}: need {N_LEVELS} levels")
     for lv, level in enumerate(levels):
         if (level.device != dev or level.dtype != dtype
                 or tuple(level.shape) != ext[lv]
                 or not level.is_contiguous()):
             raise ValueError(
-                f"extract_patches: level {lv} must be a contiguous {dtype} "
+                f"{what}: level {lv} must be a contiguous {dtype} "
                 f"{ext[lv]} tensor on {dev}, got {level.dtype} "
                 f"{tuple(level.shape)} on {level.device}")
-    out = torch.empty((t, s, s), dtype=torch.float32, device=dev)
-    if t == 0:
-        return out
-    ys = ys.contiguous()
-    xs = xs.contiguous()
-    lvl = lvl.contiguous()
-    r0 = r0.contiguous()
-    c0 = c0.contiguous()
+    ints = [x.to(torch.int32).contiguous() for x in (lvl, r0, c0)]
+    ys = ys.to(torch.float32).contiguous()
+    xs = xs.to(torch.float32).contiguous()
     scale = 1.0 / 255.0 if dtype == torch.uint8 else 1.0
-    lib = _build.load()
+    fn = getattr(_build.load(), entry)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tpu_mot_roi_extract(
-            int(dtype == torch.uint8), *[lv.data_ptr() for lv in levels],
-            *[e[0] for e in ext], *[e[1] for e in ext],
-            lvl.data_ptr(), r0.data_ptr(), c0.data_ptr(), ys.data_ptr(),
-            xs.data_ptr(), out.data_ptr(), t, s, BLK_ROWS, BLK_COLS, scale,
-            stream)
-    _build.check(rc, "extract_patches")
+        rc = fn(int(dtype == torch.uint8), *[lv.data_ptr() for lv in levels],
+                *[e[0] for e in ext], *[e[1] for e in ext],
+                *[x.data_ptr() for x in ints], ys.data_ptr(), xs.data_ptr(),
+                out.data_ptr(), *dims, BLK_ROWS, BLK_COLS, scale, stream)
+    _build.check(rc, what)
+
+
+def _resample_cuda(levels, frame_hw, lvl, r0, c0, ys, xs) -> torch.Tensor:
+    """K1 on the card: [T, S] coordinates -> [T, S, S]."""
+    global launches
+    t, s = ys.shape
+    out = torch.empty((t, s, s), dtype=torch.float32, device=ys.device)
+    if t == 0:
+        return out
+    _launch("extract_patches", "tpu_mot_roi_extract", levels, frame_hw, lvl,
+            r0, c0, ys, xs, out, t, s)
     launches += 1
     return out
 
 
+def _resample_scales_cuda(levels, frame_hw, lvl, r0, c0, ys, xs
+                          ) -> torch.Tensor:
+    """K3 on the card: [K, T, S] coordinates -> [K, T, S, S]."""
+    global launches_scales
+    k, t, s = ys.shape
+    out = torch.empty((k, t, s, s), dtype=torch.float32, device=ys.device)
+    if t == 0 or k == 0:
+        return out
+    _launch("extract_patches_scales", "tpu_mot_roi_extract_scales", levels,
+            frame_hw, lvl, r0, c0, ys, xs, out, t, k, s)
+    launches_scales += 1
+    return out
+
+
 def extract_patches_ref(gray, boxes, padding: float, size: int, levels=None,
-                        frame_hw=None) -> torch.Tensor:
+                        frame_hw=None, scales=None) -> torch.Tensor:
     """Plain torch version of `extract_patches`, on any device."""
-    levels, frame_hw, coords = _prepare(gray, boxes, padding, size, levels,
-                                        frame_hw)
+    levels, frame_hw = _pyramid(gray, levels, frame_hw)
+    coords = sample_coords(boxes, padding, size, frame_hw, scales)
     return _resample_ref(levels, frame_hw, *coords)
 
 
 def extract_patches(gray, boxes, padding: float, size: int, levels=None,
-                    frame_hw=None) -> torch.Tensor:
-    """ROI extraction [H, W] frame + [T, 4] boxes -> [T, size, size].
-    Pass a prebuilt pyramid (`levels`, `frame_hw`) to share it across
-    calls.
+                    frame_hw=None, scales=None) -> torch.Tensor:
+    """ROI extraction [H, W] frame + [T, 4] boxes (+ optional [T] per-track
+    scales) -> [T, size, size].  Pass a prebuilt pyramid (`levels`,
+    `frame_hw`) to share it across calls.
 
-    The CUDA kernel for CUDA tensors, the plain version for CPU tensors;
-    raises on anything the kernel does not take."""
-    levels, frame_hw, coords = _prepare(gray, boxes, padding, size, levels,
-                                        frame_hw)
-    if boxes.device.type == "cpu":
-        return _resample_ref(levels, frame_hw, *coords)
-    if not boxes.is_cuda:
-        raise ValueError(f"extract_patches: unsupported device "
-                         f"{boxes.device}")
-    return _resample_cuda(levels, frame_hw, *coords)
+    K1 for CUDA tensors, the plain version for CPU tensors; raises on
+    anything the kernel does not take."""
+    levels, frame_hw = _pyramid(gray, levels, frame_hw)
+    coords = sample_coords(boxes, padding, size, frame_hw, scales)
+    if _build.on_card("extract_patches", boxes):
+        return _resample_cuda(levels, frame_hw, *coords)
+    return _resample_ref(levels, frame_hw, *coords)
+
+
+def extract_patches_scales_ref(gray, boxes, padding: float, size: int,
+                               scale_vals: tuple, levels=None, frame_hw=None
+                               ) -> torch.Tensor:
+    """Plain torch version of `extract_patches_scales`, on any device."""
+    levels, frame_hw = _pyramid(gray, levels, frame_hw)
+    coords = sample_coords_scales(boxes, padding, size, scale_vals, frame_hw)
+    return _resample_scales_ref(levels, frame_hw, *coords)
+
+
+def extract_patches_scales(gray, boxes, padding: float, size: int,
+                           scale_vals: tuple, levels=None, frame_hw=None
+                           ) -> torch.Tensor:
+    """Scale-pyramid ROI extraction, one block per track: [H, W] frame +
+    [T, 4] boxes + K scales -> [K, T, size, size] (scale-major).
+
+    Against K separate `extract_patches` calls it differs only in the
+    level: one per track, from the largest scale's window (tracks whose
+    windows straddle a level boundary sample the coarser level at every
+    scale), as tpu_mot/kernels/roi.extract_patches_scales_pallas does.
+    K3 for CUDA tensors, the plain version for CPU tensors."""
+    levels, frame_hw = _pyramid(gray, levels, frame_hw)
+    coords = sample_coords_scales(boxes, padding, size, scale_vals, frame_hw)
+    if _build.on_card("extract_patches_scales", boxes):
+        return _resample_scales_cuda(levels, frame_hw, *coords)
+    return _resample_scales_ref(levels, frame_hw, *coords)

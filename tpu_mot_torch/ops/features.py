@@ -1,12 +1,14 @@
 """Patch -> feature maps for the correlation filter (counterpart of
 tpu_mot/ops/features.py): raw grayscale features, zero-centred and
-cosine-windowed (arXiv:1404.7584 §8, "raw pixels")."""
+cosine-windowed (arXiv:1404.7584 §8, "raw pixels"), or fHOG-31 over
+cell x cell cells with a Hann window on the cell grid."""
 
 from __future__ import annotations
 
 import torch
 
-from tpu_mot.config import KCFConfig
+from tpu_mot_torch.config import KCFConfig
+from tpu_mot_torch.ops import hog
 from tpu_mot_torch.ops import window as window_ops
 
 
@@ -18,9 +20,11 @@ def raw_gray_features(patches: torch.Tensor) -> torch.Tensor:
 
 
 def extract_features(patches: torch.Tensor, cfg: KCFConfig) -> torch.Tensor:
-    """Patch bank [T, P, P] -> features [T, C, F, F] per cfg.feature_type."""
+    """Patch bank [T, P, P] -> cosine-windowed features [T, C, F, F] per
+    cfg.feature_type ("gray": C=1, F=P; "hog": C=31, F=P/cell)."""
     if cfg.feature_type == "hog":
-        raise NotImplementedError(
-            "tpu_mot_torch does not port feature_type='hog' yet (ROADMAP.md "
-            "§1 item 6, step branches off the main path)")
+        feat = hog.hog_features(patches, cfg.cell_size)        # [T, 31, F, F]
+        f = feat.shape[-1]
+        hann = window_ops.hann2d(f, f, device=patches.device)
+        return feat * hann[None, None]
     return raw_gray_features(patches)

@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-from tpu_mot.config import KalmanConfig
+from tpu_mot_torch.config import KalmanConfig
 
 _DIM = 8
 

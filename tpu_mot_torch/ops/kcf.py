@@ -67,6 +67,13 @@ def div_real_shifted(y: torch.Tensor, k: torch.Tensor,
                          (y.imag * dr - y.real * ki) * inv)
 
 
+def train(feat: torch.Tensor, yf: torch.Tensor, sigma: float,
+          lambda_: float) -> KCFModel:
+    """Ridge training (eq. 17) on features [T, C, S, S]; no blending."""
+    return train_from_spectrum(fft_ops.rfft2(feat), yf, sigma, lambda_,
+                               feat.shape[-1])
+
+
 def train_from_spectrum(xf: torch.Tensor, yf: torch.Tensor, sigma: float,
                         lambda_: float, width: int) -> KCFModel:
     """Ridge training (eq. 17) on feature spectra xf [T, C, S, Sf] against
@@ -119,6 +126,57 @@ def detect_from_spectrum(model: KCFModel, zf: torch.Tensor, sigma: float,
     zf [T, C, S, Sf] -> [T, S, S] real."""
     kf = gaussian_correlation(zf, model.xf, sigma, width)
     return fft_ops.irfft2(kf * model.alphaf, width)
+
+
+def detect(model: KCFModel, feat: torch.Tensor, sigma: float
+           ) -> torch.Tensor:
+    """Correlation response (eq. 22) of the model bank on features
+    [..., T, C, S, S] -> [..., T, S, S]."""
+    return detect_from_spectrum(model, fft_ops.rfft2(feat), sigma,
+                                feat.shape[-1])
+
+
+def _resolve_impl(impl: str) -> str:
+    """"auto" resolves to the FFT chain ("xla"), as in the JAX package;
+    "pallas" selects the fused kernels K4/K5."""
+    return "xla" if impl == "auto" else impl
+
+
+def detect_auto(model: KCFModel, feat: torch.Tensor, sigma: float,
+                impl: str = "auto") -> torch.Tensor:
+    """detect() with implementation dispatch: "pallas" = the fused kernel
+    wrapper (kernels/kcf.detect_fused: K4 on the card, its plain version on
+    the CPU), "xla"/"auto" = the FFT chain here."""
+    if _resolve_impl(impl) == "pallas":
+        from tpu_mot_torch.kernels import kcf as kcf_kernels
+        return kcf_kernels.detect_fused(model, feat, sigma)
+    return detect(model, feat, sigma)
+
+
+def detect_scales_auto(model: KCFModel, feat: torch.Tensor, sigma: float,
+                       impl: str = "auto") -> torch.Tensor:
+    """Multi-scale detect: ONE model bank against K feature banks, feat
+    [K, T, C, S, S] -> responses [K, T, S, S].  The fused kernel takes the
+    scales folded scale-major into its item axis (item k*T + t reads model
+    row t); the FFT chain broadcasts the model over the scale axis."""
+    if _resolve_impl(impl) == "pallas":
+        from tpu_mot_torch.kernels import kcf as kcf_kernels
+        k, t = feat.shape[:2]
+        flat = kcf_kernels.detect_fused(
+            model, feat.reshape((k * t,) + feat.shape[2:]), sigma)
+        return flat.reshape((k, t) + flat.shape[1:])
+    return detect(model, feat, sigma)
+
+
+def train_blend_auto(model: KCFModel, feat: torch.Tensor, yf: torch.Tensor,
+                     sigma: float, lambda_: float, lr: torch.Tensor,
+                     impl: str = "auto") -> KCFModel:
+    """blend(model, train(feat), lr) with implementation dispatch (same
+    convention as detect_auto; "pallas" = kernels/kcf.train_fused)."""
+    if _resolve_impl(impl) == "pallas":
+        from tpu_mot_torch.kernels import kcf as kcf_kernels
+        return kcf_kernels.train_fused(model, feat, yf, sigma, lambda_, lr)
+    return blend(model, train(feat, yf, sigma, lambda_), lr)
 
 
 def peak_displacement(response: torch.Tensor
@@ -178,8 +236,8 @@ def psr(response: torch.Tensor, peak: torch.Tensor,
 def _make_yf_cached(size: int, padding: float, output_sigma_factor: float,
                     device: str) -> torch.Tensor:
     sigma = window_ops.output_sigma(size, size, padding, output_sigma_factor)
-    return fft_ops.rfft2(window_ops.gaussian_peak(size, size, sigma,
-                                                  device=device))
+    return fft_ops.rfft2(window_ops.gaussian_peak(
+        size, size, sigma, device=device)).contiguous()
 
 
 def make_yf(size: int, padding: float, output_sigma_factor: float,

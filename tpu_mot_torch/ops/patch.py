@@ -42,8 +42,10 @@ def bilinear_sample(img: torch.Tensor, ys: torch.Tensor,
 
 
 def extract_patches(img: torch.Tensor, boxes: torch.Tensor, padding: float,
-                    size: int) -> torch.Tensor:
-    """Per-track context windows (padding * box) resized to [size, size].
+                    size: int, scales: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """Per-track context windows (padding * box, times an optional [T]
+    per-track scale) resized to [size, size].
 
     img [H, W] float32, boxes [T, 4] -> [T, size, size] float32.
     Degenerate boxes (w or h <= 0) are clamped to 1 px.
@@ -51,6 +53,9 @@ def extract_patches(img: torch.Tensor, boxes: torch.Tensor, padding: float,
     cx, cy, w, h = boxes.unbind(1)
     w = torch.clamp_min(w, 1.0)
     h = torch.clamp_min(h, 1.0)
+    if scales is not None:
+        w = w * scales
+        h = h * scales
     win_w = w * padding
     win_h = h * padding
     u = (torch.arange(size, dtype=torch.float32, device=boxes.device)
@@ -61,8 +66,10 @@ def extract_patches(img: torch.Tensor, boxes: torch.Tensor, padding: float,
 
 
 def extract_patches_auto(img: torch.Tensor, boxes: torch.Tensor,
-                         padding: float, size: int, impl: str = "auto",
-                         levels=None, frame_hw=None) -> torch.Tensor:
+                         padding: float, size: int,
+                         scales: torch.Tensor | None = None,
+                         impl: str = "auto", levels=None,
+                         frame_hw=None) -> torch.Tensor:
     """ROI extraction with implementation dispatch.
 
     impl: "pallas" (pyramid + the ROI kernel wrapper, which launches the
@@ -74,8 +81,9 @@ def extract_patches_auto(img: torch.Tensor, boxes: torch.Tensor,
         impl = "pallas" if img.is_cuda else "xla"
     if impl == "pallas":
         return roi.extract_patches(img, boxes, padding, size,
-                                   levels=levels, frame_hw=frame_hw)
-    return extract_patches(img, boxes, padding, size)
+                                   levels=levels, frame_hw=frame_hw,
+                                   scales=scales)
+    return extract_patches(img, boxes, padding, size, scales)
 
 
 def to_gray(frame: torch.Tensor) -> torch.Tensor:

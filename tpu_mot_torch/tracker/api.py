@@ -10,9 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_mot.config import DEFAULT_CONFIG, TrackerConfig
+from tpu_mot_torch.config import DEFAULT_CONFIG, TrackerConfig
 from tpu_mot_torch.tracker import step as step_mod
-from tpu_mot_torch.tracker.bank import TrackBank, empty_bank, map_bank
+from tpu_mot_torch.tracker.bank import (TrackBank, empty_bank, map_bank,
+                                        resolve_device)
 
 
 def pad_detections(dets, capacity: int, width: int | None = None):
@@ -45,8 +46,10 @@ def pad_detections(dets, capacity: int, width: int | None = None):
 
 class MultiTracker:
     """Detect-track MOT pipeline behind the reference's init/update API.
+    It runs on the CUDA card unless `device` says otherwise (device="cpu"
+    for the CPU); with no card and no device it raises.
 
-    >>> mt = MultiTracker(device="cuda")
+    >>> mt = MultiTracker()
     >>> mt.init(frame0, dets0)              # dets: [N, 4|5] cx cy w h (score)
     >>> tracks = mt.update(frame1, dets1)   # [(id, (cx, cy, w, h), score)]
     """
@@ -54,7 +57,7 @@ class MultiTracker:
     def __init__(self, cfg: TrackerConfig | None = None, device=None):
         self.cfg = cfg or DEFAULT_CONFIG
         step_mod.check_supported(self.cfg)
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.bank: TrackBank | None = None
         self.last_output: step_mod.StepOutput | None = None
 
@@ -124,5 +127,6 @@ class MultiTracker:
 
 
 def reset(cfg: TrackerConfig | None = None, device=None) -> TrackBank:
-    """Fresh empty bank (functional API)."""
+    """Fresh empty bank (functional API), on the CUDA card unless `device`
+    says otherwise."""
     return empty_bank(cfg or DEFAULT_CONFIG, device=device)

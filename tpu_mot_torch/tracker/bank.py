@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from tpu_mot.config import TrackerConfig
+from tpu_mot_torch.config import TrackerConfig
 from tpu_mot_torch.ops.kcf import KCFModel
 
 EMPTY = 0
@@ -42,8 +42,22 @@ class TrackBank(NamedTuple):
     frame_idx: torch.Tensor         # [] int32
 
 
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the CUDA card when it is None.  Raises when the device
+    is a CUDA one and there is no card: nothing falls back to the CPU
+    unless the caller asks for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA card is available for device {dev} (the default when "
+            "none is given); pass device='cpu' to run on the CPU")
+    return dev
+
+
 def empty_bank(cfg: TrackerConfig, device=None) -> TrackBank:
-    """A bank with every slot EMPTY, on `device` (default CPU)."""
+    """A bank with every slot EMPTY, on `device` (default: the CUDA card;
+    see resolve_device)."""
+    device = resolve_device(device)
     t = cfg.max_tracks
     s = cfg.kcf.feature_size
     sf = cfg.kcf.spectrum_width

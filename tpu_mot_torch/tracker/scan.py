@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_mot.config import TrackerConfig
+from tpu_mot_torch.config import TrackerConfig
 from tpu_mot_torch.tracker import bank as bank_mod
 from tpu_mot_torch.tracker import step as step_mod
 

@@ -1,19 +1,22 @@
-"""The per-frame MOT step (counterpart of tpu_mot/tracker/step.py), on the
-default branches of the JAX step:
+"""The per-frame MOT step (counterpart of tpu_mot/tracker/step.py):
 
   1. Kalman predict (batched)
-  2. KCF detect at the predicted ROIs (unit scale, gray features) with the
-     PSR gate -> refined boxes; no KCF refinement on a slot's first
-     post-birth frame (detect-site training initialises it one frame late)
+  2. KCF detect at the predicted ROIs with the PSR gate -> refined boxes:
+     gray or fHOG-31 features; unit scale, or the 3-scale search (scales
+     folded scale-major into the track axis, hysteresis-weighted best peak,
+     PSR of the unit-scale response).  Under detect-site training a slot's
+     first post-birth frame gets no KCF refinement.
   3. IoU cost with gate and infeasible fill ("refined" or "predicted" box)
   4. Auction assignment
   5. Kalman correct: matched slots with their detection, unmatched slots
      with a trusted KCF peak with the KCF position
   6/7. Lifecycle by masking: confirmations, deaths, births into the
      lowest-index empty slots
-  8. Detect-site KCF training: the step-2 spectra are phase-aligned to the
-     corrected centers (Fourier shift) and blended per slot (lr = 1 on the
-     first post-birth frame, interp_factor when matched or trusted, 0 else)
+  8. KCF training, per train_site: "detect" phase-aligns the unit-scale
+     step-2 spectra to the corrected centers (Fourier shift) and blends per
+     slot (lr = 1 on the first post-birth frame, interp_factor when matched
+     or trusted, 0 else); "refined" re-extracts at the corrected boxes and
+     trains and blends there (lr = 1 for births).
 
 The step is branch-free on tensor values, like the JAX step: no `.item()`
 and no Python `if` on a tensor, so on the card it queues its kernels
@@ -22,16 +25,20 @@ dump slot that is sliced off.
 
 How the port reads the TrackerConfig impl knobs:
 
-  roi_impl    "auto"    pyramid + the CUDA ROI kernel for a CUDA frame, the
-                        gather path on the CPU (JAX's TPU/CPU split)
-              "pallas"  pyramid + the kernel path: the CUDA kernel on the
-                        card, its plain version (extract_patches_ref) on the
-                        CPU, as JAX runs the Pallas kernel in interpret mode
+  roi_impl    "auto"    pyramid + the CUDA ROI kernels (K1; K3 for the
+                        3-scale search) for a CUDA frame, the gather path on
+                        the CPU (JAX's TPU/CPU split)
+              "pallas"  pyramid + the kernel wrappers: the CUDA kernels on
+                        the card, their plain versions on the CPU, as JAX
+                        runs the Pallas kernels in interpret mode
               "xla"     the gather path
   assign_impl "auto"/"pallas" the auction kernel wrapper (CUDA kernel on the
                         card, plain version on the CPU); "xla" the plain
                         version
   kcf_impl    "auto"/"xla"  the torch.fft chain
+              "pallas"  the fused KCF kernel wrappers: K4 for detect and,
+                        under train_site="refined", K5 for train + blend (on
+                        the CPU their plain versions)
   kcf_precision, kcf_block, scan_unroll: ignored (TPU-only; fp32 here)
 
 Branches of the JAX step that are not ported yet raise NotImplementedError
@@ -40,11 +47,12 @@ and name the ROADMAP.md item that will port them; none is approximated.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
-from tpu_mot.config import TrackerConfig
+from tpu_mot_torch.config import TrackerConfig
 from tpu_mot_torch.kernels import roi
 from tpu_mot_torch.ops import assignment
 from tpu_mot_torch.ops import features as feat_ops
@@ -78,20 +86,12 @@ def check_supported(cfg: TrackerConfig) -> None:
     branch of the JAX step."""
     branch_item = "ROADMAP.md §1 item 6, step branches off the main path"
     todo = [
-        (cfg.kcf.scale_step != 1.0,
-         f"scale_step != 1.0 (3-scale search; {branch_item}, kernel K3)"),
-        (cfg.kcf.feature_type == "hog",
-         f"feature_type='hog' ({branch_item})"),
-        (cfg.train_site == "refined",
-         f"train_site='refined' ({branch_item})"),
         (cfg.appearance_weight > 0.0,
          f"appearance_weight > 0 ({branch_item})"),
         (cfg.class_aware or cfg.assoc_box_resolved == "best",
          f"class_aware / assoc_box='best' ({branch_item})"),
         (cfg.auction_warm_start,
          f"auction_warm_start=True ({branch_item})"),
-        (cfg.kcf_impl == "pallas",
-         "kcf_impl='pallas' (ROADMAP.md §2, TPU kernels K4/K5)"),
     ]
     for hit, what in todo:
         if hit:
@@ -103,6 +103,29 @@ def _roi_kernel_path(cfg: TrackerConfig, frame: torch.Tensor) -> bool:
     if not cfg.use_kcf or cfg.roi_impl == "xla":
         return False
     return cfg.roi_impl == "pallas" or frame.is_cuda
+
+
+def _features_at(gray, boxes, cfg: TrackerConfig, levels, frame_hw,
+                 scales=None) -> torch.Tensor:
+    """Features [T, C, F, F] of the windows at `boxes`: through the pyramid
+    and the ROI kernel wrapper when `levels` is given, else the gather
+    path."""
+    patches = patch_ops.extract_patches_auto(
+        gray, boxes, cfg.kcf.padding, cfg.kcf.template_size, scales=scales,
+        impl="xla" if levels is None else "pallas", levels=levels,
+        frame_hw=frame_hw)
+    return feat_ops.extract_features(patches, cfg.kcf)
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_consts(scale_step: float, scale_weight: float, device: str):
+    """The 3-scale search's scale values (1/step, 1, step) and hysteresis
+    weights as float32 tensors, built once per device."""
+    vals = torch.tensor([1.0 / scale_step, 1.0, scale_step],
+                        dtype=torch.float32)
+    wts = torch.tensor([scale_weight, 1.0, scale_weight],
+                       dtype=torch.float32)[:, None]
+    return vals.to(device), wts.to(device)
 
 
 def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
@@ -147,32 +170,81 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
     kf_mean, kf_cov = kalman.predict(bank.kf_mean, bank.kf_cov, cfg.kalman)
     pred_boxes = kf_mean[:, :4]
 
-    # ---- 2. KCF detect at predicted ROIs (unit scale) ----------------
+    # ---- 2. KCF detect at predicted ROIs ----------------------------
+    use_fft_kcf = kcf_ops._resolve_impl(cfg.kcf_impl) == "xla"
+    zf_div = None          # the unit-scale spectrum, reused by step 8
     if cfg.use_kcf:
-        patches = patch_ops.extract_patches_auto(
-            gray, pred_boxes, cfg.kcf.padding, cfg.kcf.template_size,
-            impl="xla" if levels is None else "pallas", levels=levels,
-            frame_hw=frame_hw)
-        zf = fft_ops.rfft2(feat_ops.extract_features(patches, cfg.kcf))
-        response = kcf_ops.detect_from_spectrum(bank.kcf, zf,
-                                                cfg.kcf.kernel_sigma, s)
-        dy, dx, peak = kcf_ops.peak_displacement(response)
-        if cfg.confidence_mode == "psr":
-            peak = kcf_ops.psr(response, peak)
-        win = pred_boxes[:, 2:4] * cfg.kcf.padding                 # [T, 2]
+        sigma = cfg.kcf.kernel_sigma
+        wh = pred_boxes[:, 2:4]                    # best-scale box size
+        if cfg.kcf.scale_step == 1.0:
+            feats_unit = _features_at(gray, pred_boxes, cfg, levels,
+                                      frame_hw)
+            if use_fft_kcf:
+                zf_div = fft_ops.rfft2(feats_unit)
+                response = kcf_ops.detect_from_spectrum(bank.kcf, zf_div,
+                                                        sigma, s)
+            else:
+                response = kcf_ops.detect_auto(bank.kcf, feats_unit, sigma,
+                                               cfg.kcf_impl)
+            dy, dx, peak = kcf_ops.peak_displacement(response)
+            if cfg.confidence_mode == "psr":
+                peak = kcf_ops.psr(response, peak)
+        else:
+            # The 3-scale search at 1/step, 1, step: the scales fold into
+            # the track axis scale-major ([3T]), and each track keeps its
+            # hysteresis-weighted best peak.
+            sstep = cfg.kcf.scale_step
+            scale_vals, scale_wts = _scale_consts(
+                sstep, cfg.kcf.scale_weight, str(dev))
+            if levels is not None:
+                # One block per track feeds the three resamples (K3).
+                p3 = roi.extract_patches_scales(
+                    gray, pred_boxes, cfg.kcf.padding, cfg.kcf.template_size,
+                    (1.0 / sstep, 1.0, sstep), levels=levels,
+                    frame_hw=frame_hw)
+                f3 = feat_ops.extract_features(
+                    p3.reshape((3 * t_cap,) + p3.shape[2:]), cfg.kcf)
+            else:
+                f3 = _features_at(gray, pred_boxes.repeat(3, 1), cfg, None,
+                                  frame_hw,
+                                  scales=scale_vals.repeat_interleave(t_cap))
+            f3 = f3.reshape((3, t_cap) + f3.shape[1:])       # [3, T, C, F, F]
+            feats_unit = f3[1]
+            if use_fft_kcf:
+                zf3 = fft_ops.rfft2(f3)
+                r3 = kcf_ops.detect_from_spectrum(bank.kcf, zf3, sigma, s)
+                zf_div = zf3[1]
+            else:
+                r3 = kcf_ops.detect_scales_auto(bank.kcf, f3, sigma,
+                                                cfg.kcf_impl)  # [3, T, S, S]
+            response = r3[1]
+            dys, dxs, peaks = (x.reshape(3, t_cap) for x in
+                               kcf_ops.peak_displacement(
+                                   r3.reshape(3 * t_cap, s, s)))
+            best = torch.argmax(peaks * scale_wts, dim=0)[None]   # [1, T]
+            dy = dys.gather(0, best)[0]
+            dx = dxs.gather(0, best)[0]
+            peak = peaks.gather(0, best)[0]
+            wh = wh * scale_vals[best[0]][:, None]
+            if cfg.confidence_mode == "psr":
+                # PSR of the unit-scale response (the scale choice itself
+                # reads the raw weighted peaks).
+                peak = kcf_ops.psr(response,
+                                   response.reshape(t_cap, -1).amax(dim=1))
+        win = wh * cfg.kcf.padding                                 # [T, 2]
         kcf_cxy = pred_boxes[:, :2] + torch.stack([dx, dy], dim=1) * win / s
         # Trust the correlation only for live slots with a solid peak and
         # an in-frame box (a fully clamped patch self-correlates at ~1).
         h_f, w_f = frame_hw
         in_frame = ((pred_boxes[:, 0] > 0) & (pred_boxes[:, 0] < w_f)
                     & (pred_boxes[:, 1] > 0) & (pred_boxes[:, 1] < h_f))
-        # A slot born last frame (age 1) has no model yet under
-        # detect-site training: it coasts on its Kalman prediction.
-        kcf_ok = (alive & in_frame & (peak >= cfg.confidence_threshold)
-                  & (bank.age != 1))
+        kcf_ok = alive & in_frame & (peak >= cfg.confidence_threshold)
+        if cfg.train_site == "detect":
+            # A slot born last frame (age 1) has no model yet under
+            # detect-site training: it coasts on its Kalman prediction.
+            kcf_ok = kcf_ok & (bank.age != 1)
         refined = torch.where(kcf_ok[:, None],
-                              torch.cat([kcf_cxy, pred_boxes[:, 2:4]], 1),
-                              pred_boxes)
+                              torch.cat([kcf_cxy, wh], 1), pred_boxes)
     else:
         kcf_ok = torch.zeros((t_cap,), dtype=torch.bool, device=dev)
         refined = pred_boxes
@@ -253,10 +325,13 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
     cls = torch.where(state == EMPTY, -1, cls).to(i32)
     next_id = (bank.next_id + n_births).to(i32)
 
-    # ---- 8. Detect-site KCF training ---------------------------------
-    if cfg.use_kcf:
+    # ---- 8. KCF training -------------------------------------------
+    live = state > EMPTY
+    if cfg.use_kcf and cfg.train_site == "detect":
         yf = kcf_ops.make_yf(s, cfg.kcf.padding, cfg.kcf.output_sigma_factor,
                              device=dev)
+        # The fused detect consumed raw features: take their spectrum here.
+        zf = zf_div if zf_div is not None else fft_ops.rfft2(feats_unit)
         win = torch.clamp_min(pred_boxes[:, 2:4] * cfg.kcf.padding, 1e-6)
         # Feature-pixel displacement of the corrected center from the
         # extraction (predicted) center.
@@ -270,7 +345,6 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
         zf_a = kcf_ops.shift_spectrum(zf, d_y, d_x, s)
         # First post-birth frame -> full overwrite; births this frame have
         # no sample yet and keep lr = 0.
-        live = state > EMPTY
         init_now = live & (age == 2) & ~is_birth
         lr = torch.where(
             init_now, 1.0,
@@ -279,6 +353,19 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
         new_model = kcf_ops.train_from_spectrum(
             zf_a, yf, cfg.kcf.kernel_sigma, cfg.kcf.lambda_, s)
         kcf_model = kcf_ops.blend(bank.kcf, new_model, lr)
+    elif cfg.use_kcf:
+        # Refined-site training: re-extract at the corrected boxes (births
+        # already carry their detection box in kf_mean), through the
+        # frame's one pyramid on the kernel path.
+        lr = torch.where(is_birth, 1.0,
+                         torch.where(live & (is_matched | kcf_ok),
+                                     cfg.kcf.interp_factor, 0.0))
+        feats_new = _features_at(gray, kf_mean[:, :4], cfg, levels, frame_hw)
+        yf = kcf_ops.make_yf(s, cfg.kcf.padding, cfg.kcf.output_sigma_factor,
+                             device=dev)
+        kcf_model = kcf_ops.train_blend_auto(
+            bank.kcf, feats_new, yf, cfg.kcf.kernel_sigma, cfg.kcf.lambda_,
+            lr, cfg.kcf_impl)
     else:
         kcf_model = bank.kcf
 
