@@ -15,12 +15,17 @@ nonzero exit, no "ok" line):
              (max |diff| 1e-5);
   auction    K2 against its plain version: benefit matrices of the bench
              run's first frames, random n in {8, 40, 160}, all-infeasible,
-             dead rows and a capped solve (col_of and iters exactly equal);
+             dead rows, a capped solve, odd n (7, 33, 159: padded rows,
+             scalar staging; 159 needs over 50 rounds), n = max_n(), and
+             tie-heavy matrices quantised to a grid of 0.25 (col_of and
+             iters exactly equal);
   kcf        K4 (fused detect) and K5 (fused train + blend) against their
              plain versions, relative to each tensor's largest magnitude
              (1e-4 response and xf, 1e-3 alphaf): inputs captured from the
              first frames of an HF run ([384, 31, 16, 16] features, a
-             [128, ...] bank) and at the gray shape (S=64, C=1, T=128);
+             [128, ...] bank; K4's FFT path) and at the gray shape (S=64,
+             C=1, T=128; the direct path); K4 alone at C=3, S=12 (direct
+             path) and twice on the HF inputs (bit-equal);
   e2e        the default configuration on bench.py's fixture (seed 0, 128
              objects, 64 frames, 1080p u8) through tracker.scan.run_sequence
              on cuda:0: MOTA >= the JAX reference's MOTA - 0.01, exactly 64
@@ -37,6 +42,9 @@ nonzero exit, no "ok" line):
              (plain/kernel/kernel/plain; it includes the wrapper's host
              time, which bounds a short kernel) and the device ms per call
              from the profiler; the least time the card could take (bound);
+             K2 also on the init frame's matrix and capped at 0 rounds
+             (launch and staging alone); for K2 and K4 the code path,
+             registers, shared memory and CTAs per SM;
   profile    where device time goes over 16 frames, default and HF.
 The line before the last is {"kernels": [...]}: per kernel its launches
 in the path that runs it (K1, K2: default; K3-K5: HF), "max_abs_err" the
@@ -219,12 +227,24 @@ def device_ms(fn, reps: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(us for _, us, _ in device_kernels(prof)) / 1e3 / reps
+    # Now and then the profiler loses device records, for a few passes in
+    # a row: all of them, or some (seen on the H100: 10 calls, 0 or 8
+    # records).  A pass counts only if every kernel kind was recorded a
+    # whole number of times per call; otherwise it is taken again.
+    for attempt in range(30):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_kernels(prof)
+        if rows and all(count % reps == 0 for _, _, count in rows):
+            return sum(us for _, us, _ in rows) / 1e3 / reps
+        log("times", f"profiler pass {attempt + 1} lost device records "
+                     f"({sum(count for _, _, count in rows)} kept of {reps} "
+                     "calls); taken again")
+        time.sleep(0.05)
+    raise RuntimeError("the profiler lost device records in 30 passes")
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -330,7 +350,24 @@ def phase_auction(dev, bench_benefits):
                         device=dev), feas, EPS), 2000))
     cases.append(("capped max_iters=3, random n=160",
                   cases[len(bench_benefits) + 2][1], 3))
+
+    def random_b(n, grid=None):
+        cost = rng.uniform(0, 1, (n, n))
+        if grid:    # costs and benefits on a grid: many equal bids
+            cost = np.round(cost * grid) / grid
+        b = assignment.build_benefits(
+            torch.as_tensor(cost.astype(np.float32), device=dev),
+            torch.as_tensor(rng.random((n, n)) < 0.8, device=dev), EPS)
+        return torch.round(b * grid) / grid if grid else b
+
+    for n in (7, 33, 159, auction_k.max_n()):
+        cases.append((f"random n={n} "
+                      f"({auction_k.launch_info(n)['path']})",
+                      random_b(n), 2000))
+    for n in (40, 159, 160):
+        cases.append((f"ties (grid 0.25) n={n}", random_b(n, 4), 2000))
     max_err = 0
+    most_rounds = 0
     for name, b, max_iters in cases:
         col, it = auction_k.auction_solve(b, EPS, max_iters)
         want_col, want_it = auction_k.auction_solve_ref(b, EPS, max_iters)
@@ -342,8 +379,12 @@ def phase_auction(dev, bench_benefits):
                                  f"from the plain version ({int(it)} vs "
                                  f"{int(want_it)} rounds)")
         max_err = max(max_err, err)
+        most_rounds = max(most_rounds, int(it))
         log("auction", f"{name}: col_of and iters ({int(it)}) exactly equal, "
                        f"{int((col < 0).sum())} unassigned rows")
+    if most_rounds < 50:
+        raise AssertionError("auction: no case needed 50 rounds (most: "
+                             f"{most_rounds})")
     return max_err
 
 
@@ -441,6 +482,33 @@ def phase_kcf(hf_inputs, gray_inputs, cfg_hf, cfg):
                 raise AssertionError(f"fused KCF {name}: {k} relative error "
                                      f"{e[k]} > {tol} (finite: {ok})")
             errs[k] = max(errs[k], e[k])
+
+    # K4 alone: a shape with no specialised path, and run-to-run equality.
+    dev = feat.device
+    rng = np.random.default_rng(2)
+    c, s, t = 3, 12, 128
+    feats = [torch.as_tensor(
+        rng.standard_normal((n, c, s, s)).astype(np.float32) * 0.3,
+        device=dev) for n in (t, 2 * t)]
+    yf = kcf_ops.make_yf(s, cfg.kcf.padding, cfg.kcf.output_sigma_factor,
+                         device=dev)
+    small = kcf_ops.KCFModel(*[x.contiguous() for x in kcf_ops.train(
+        feats[0], yf, cfg.kcf.kernel_sigma, cfg.kcf.lambda_)])
+    for name, m, f in (("generic", small, feats[1]), ("HF", model, feat)):
+        path = kcf_k.detect_launch_info(f.shape[1], f.shape[2])["path"]
+        got = kcf_k.detect_fused(m, f, cfg.kcf.kernel_sigma)
+        again = kcf_k.detect_fused(m, f, cfg.kcf.kernel_sigma)
+        want = kcf_k.detect_fused_ref(m, f, cfg.kcf.kernel_sigma)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        same = torch.equal(got, again)
+        log("kcf", f"{name}: detect feat {tuple(f.shape)} by {path}: "
+                   f"response error {e:.3g}; two runs bit-equal: {same}")
+        if not (e <= KCF_TOL["response"] and same
+                and torch.isfinite(got).all().item()):
+            raise AssertionError(f"fused KCF detect {name}: error {e}, "
+                                 f"bit-equal {same}")
+        errs["response"] = max(errs["response"], e)
     return errs
 
 
@@ -485,6 +553,10 @@ def phase_e2e(frames, d, v, cfg, gt_boxes, vis, dets_list, frames_np):
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     check_output(out, cfg, "e2e")
+    iters = out.assign_iters.cpu().numpy().astype(int).tolist()
+    log("e2e", f"auction rounds per frame over {N_FRAMES} frames: min "
+               f"{min(iters)}, median {statistics.median(iters)}, max "
+               f"{max(iters)} (frame 0: {iters[0]})")
     hyp, mota, h_all = score(out, gt_boxes, vis)
     log("e2e", f"MOTA {mota} (JAX reference {M_REF}), HOTA "
                f"{h_all['hota']} (JAX reference {HOTA_REF}), DetA "
@@ -569,7 +641,15 @@ def timed_runs(frames, d, v, cfg, reps: int) -> list[float]:
     return out
 
 
-def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_b, hf_inputs):
+def kernel_line(name: str, info: dict) -> str:
+    return (f"{name} launches: path {info['path']}; {info['threads']} "
+            f"threads per CTA, {info['registers']} registers per thread, "
+            f"{info['smem_bytes']} bytes of shared memory per CTA, "
+            f"{info['ctas_per_sm']} CTAs fit on an SM")
+
+
+def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_bs, hf_inputs):
+    bench_b = bench_bs[-1]          # steady state; bench_bs[0]: init frame
     for name, c, reps in (("default", cfg, 5),
                           ("H", heavy_config(cfg, "H"), 3),
                           ("HF", heavy_config(cfg, "HF"), 3)):
@@ -655,11 +735,41 @@ def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_b, hf_inputs):
                      f"{plain_ms:.4f} ms; device time per call (profiler) "
                      f"kernel {dev_ms:.4f} ms, plain {plain_dev_ms:.4f} ms; "
                      f"bound {b_ms:.5f} ms ({b_by})")
+
+    # K2 by rounds: the init frame's matrix, and solves capped at 0 rounds
+    # (launch and staging alone) and at half the rounds.
+    init_b = bench_bs[0]
+    init_rounds = int(auction_k.auction_solve(init_b, EPS, 2000)[1])
+    extra = {"rounds": rounds, "init_frame_rounds": init_rounds}
+    for key, what, b, cap in (
+            ("init_frame_device_ms",
+             f"init frame's matrix, {init_rounds} rounds", init_b, 2000),
+            ("half_rounds_device_ms",
+             f"bench frame 2 capped at {rounds // 2} rounds", bench_b,
+             rounds // 2),
+            ("no_rounds_device_ms",
+             "capped at 0 rounds: launch and staging", bench_b, 0)):
+        extra[key] = device_ms(
+            lambda: auction_k.auction_solve(b, EPS, cap), 10)
+        log("times", f"K2 auction n={b.shape[0]}, {what}: device time per "
+                     f"call (profiler) {extra[key]:.4f} ms")
+    per_round = ((times["auction_solve"]["device_ms"]
+                  - extra["no_rounds_device_ms"]) / rounds)
+    log("times", f"K2 per round at n={n}: {1000 * per_round:.2f} us "
+                 f"((device time at {rounds} rounds - at 0 rounds) / "
+                 f"{rounds})")
+    times["auction_solve"].update(extra)
+    k2, k4 = auction_k.launch_info(n), kcf_k.detect_launch_info(c, s)
+    log("times", kernel_line(f"K2 auction n={n}", k2))
+    log("times", kernel_line(f"K4 fused detect C={c} S={s}", k4))
+    times["auction_solve"]["launch"] = k2
+    times["kcf_detect"]["launch"] = k4
     return times
 
 
 OUR_KERNELS = ("roi_kernel", "roi_scales_kernel", "auction_kernel",
-               "kcf_detect_kernel", "kcf_train_kernel")
+               "kcf_detect_kernel", "kcf_detect_fft16_kernel",
+               "kcf_train_kernel")
 
 
 def phase_profile(frames, d, v, cfg, name, n_frames: int = 16):
@@ -707,7 +817,7 @@ def main() -> int:
     _build.load()
     ptxas = [ln.strip() for ln in out.splitlines()
              if "registers" in ln or "Compiling entry" in ln
-             or "bytes smem" in ln]
+             or "bytes smem" in ln or "spill" in ln]
     log("build", f"{path.name}: nvcc {secs:.1f} s; ptxas: "
                  f"{' | '.join(ptxas) or 'reused build'}")
 
@@ -736,7 +846,7 @@ def main() -> int:
     heavy_launches = phase_e2e_heavy(frames, d, v, cfg, gt_boxes, vis)
 
     # times
-    times = phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_b[-1],
+    times = phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_b,
                         hf_inputs)
     phase_profile(frames, d, v, cfg, "default")
     phase_profile(frames, d, v, cfg_hf, "HF")

@@ -156,3 +156,78 @@ def test_build_raises_clearly_without_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(build_dir=tmp_path / "build")
     assert not (tmp_path / "build").exists()
+
+
+# ---- what the CUDA kernel's schedule relies on, mirrored in plain torch --
+
+def test_bid_key_maximum_is_highest_bid_then_lowest_row():
+    """The kernel scatters bids with an atomicMax on (ordered float bits,
+    0xFFFFFFFF - row): the largest key must be the highest bid and, among
+    equal bids, the lowest row, for random, equal, tiny and huge bids."""
+    rng = np.random.default_rng(3)
+    tiny = np.float32(1e-45)                     # smallest subnormal
+    sets = [rng.uniform(0.02, 6.0, 64), np.full(17, 1.25),
+            [tiny, 2 * tiny, 1e-38, 1.1754944e-38, 0.02],
+            [1e30, 1e30, 3.0e38, 1e30, 3.0e38],
+            rng.choice([0.02, 0.27, 0.52, 5.0], 200),
+            [0.0, -0.0, -1.5, -1e30, 0.02]]
+    for bids in sets:
+        bid = torch.as_tensor(np.asarray(bids, np.float32))
+        rows = torch.as_tensor(rng.permutation(len(bid)) * 3)
+        keys = t_auction.bid_keys(bid, rows)
+        top = int(torch.argmax(keys))
+        best = bid.max()
+        assert bid[top] == best
+        assert rows[top] == rows[bid == best].min()
+        got_bid, got_row = t_auction.split_keys(keys)
+        assert torch.equal(got_bid.view(torch.int32), bid.view(torch.int32))
+        assert torch.equal(got_row, rows)
+        # float order is kept between every pair, not only at the top
+        order = torch.argsort(keys >> 32, stable=True)
+        assert bool((bid[order][1:] >= bid[order][:-1]).all())
+    assert int(t_auction.bid_keys(torch.tensor([-3.0e38]),
+                                  torch.tensor([0])) >> 32) > -2 ** 31
+
+
+def _quantised(rng, n, m):
+    """Costs on a grid and benefits rounded to it (no jitter): many rows
+    place equal bids on one column."""
+    cost = (np.round(rng.uniform(0, 1, (n, m)) * 4) / 4).astype(np.float32)
+    b = _benefits(cost, rng.random((n, m)) < 0.8)
+    return (np.round(b * 4) / 4).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["n8", "n40", "n160", "mot128x160",
+                                  "rect16x11", "all_infeasible", "dead_rows",
+                                  "ties7", "ties40", "ties159", "n1", "n33"])
+@pytest.mark.parametrize("max_iters", [2000, 3])
+def test_scatter_round_matches_plain_and_pallas_exactly(case, max_iters):
+    """The kernel's round (winner by key, one merged apply step, an
+    unassigned count for the exit test) against the dense plain version and
+    the interpret-mode Pallas kernel: col_of and iters equal, capped or
+    not."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case.startswith("ties"):
+        b = _quantised(rng, int(case[4:]), int(case[4:]))
+    elif case.startswith("n"):
+        b = _benefits(*_random_problem(rng, int(case[1:]), int(case[1:])))
+    elif case == "mot128x160":
+        b = _benefits(*_mot_problem(rng, 128, 160, 100))
+    elif case.startswith("rect"):
+        n, m = map(int, case[4:].split("x"))
+        b = _benefits(*_random_problem(rng, n, m))
+    elif case == "all_infeasible":
+        b = _benefits(np.ones((6, 4), np.float32), np.zeros((6, 4), bool))
+    else:
+        cost, feas = _random_problem(rng, 12, 9, 0.5)
+        feas[[0, 3, 4, 11]] = False
+        b = _benefits(cost, feas)
+    col, it = t_auction.auction_solve_scatter_ref(torch.as_tensor(b), EPS,
+                                                  max_iters)
+    want_col, want_it = t_auction.auction_solve_ref(torch.as_tensor(b), EPS,
+                                                    max_iters)
+    assert torch.equal(col, want_col) and int(it) == int(want_it)
+    jax_col, jax_it = j_auction.auction_solve_pallas(
+        jnp.asarray(b), EPS, max_iters, interpret=True)
+    np.testing.assert_array_equal(col.numpy(), np.asarray(jax_col))
+    assert int(it) == int(jax_it)

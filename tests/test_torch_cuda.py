@@ -15,7 +15,7 @@ torch.fft chain, relative to the largest magnitude of each tensor: 1e-4
 for the response and xf, 1e-3 for alphaf (the divide by k^ + lambda
 amplifies float32 error where k^ is small); the tracker on the card
 against the tracker on the CPU: ids and valid exact, boxes 1e-3 (cuFFT
-and the kernels' direct DFTs against pocketfft).
+and the kernels' own transforms against pocketfft).
 """
 
 import numpy as np
@@ -98,15 +98,32 @@ def _mot_benefits(rng, dev):
     return t_assign.build_benefits(cost, cost < 1e3, t_assign.DEFAULT_EPS)
 
 
+def _quantised_benefits(rng, n, dev):
+    """Benefits on a grid of 0.25: many rows place equal bids on one
+    column."""
+    cost = np.round(rng.uniform(0, 1, (n, n)) * 4) / 4
+    b = t_assign.build_benefits(
+        torch.as_tensor(cost.astype(np.float32), device=dev),
+        torch.as_tensor(rng.random((n, n)) < 0.8, device=dev),
+        t_assign.DEFAULT_EPS)
+    return torch.round(b * 4) / 4
+
+
+# n7, n33, n159: rows that are no multiple of 16 bytes (scalar staging,
+# padded rows); nmax: the largest matrix; ties*: equal bids; n159 needs
+# over 50 rounds (131 on the CPU).
 @pytest.mark.parametrize("case", ["mot", "n1", "n8", "n40", "n160",
-                                  "capped"])
+                                  "capped", "n7", "n33", "n159", "nmax",
+                                  "ties40", "ties160", "ties159"])
 def test_auction_kernel_matches_plain_version(cuda, case):
     rng = np.random.default_rng(7)
     max_iters = 3 if case == "capped" else 2000
     if case in ("mot", "capped"):
         b = _mot_benefits(rng, cuda)
+    elif case.startswith("ties"):
+        b = _quantised_benefits(rng, int(case[4:]), cuda)
     else:
-        n = int(case[1:])
+        n = t_auction.max_n() if case == "nmax" else int(case[1:])
         cost = torch.as_tensor(rng.uniform(0, 1, (n, n)).astype(np.float32),
                                device=cuda)
         feas = torch.as_tensor(rng.random((n, n)) < 0.8, device=cuda)
@@ -119,6 +136,22 @@ def test_auction_kernel_matches_plain_version(cuda, case):
     assert t_auction.launches == before + 1
     assert torch.equal(col, want_col) and int(it) == int(want_it)
     assert (case == "capped") == bool((col < 0).any())
+    if case == "n159":
+        assert int(it) >= 50
+
+
+def test_auction_kernel_takes_an_unaligned_matrix(cuda):
+    """A contiguous matrix 4 bytes off a 16-byte boundary cannot be bulk
+    copied; the kernel stages it by scalar loads instead."""
+    rng = np.random.default_rng(9)
+    flat = torch.zeros(160 * 160 + 1, device=cuda)
+    b = flat[1:].view(160, 160)
+    b.copy_(_mot_benefits(rng, cuda))
+    assert b.is_contiguous() and b.data_ptr() % 16 == 4
+    col, it = t_auction.auction_solve(b, t_assign.DEFAULT_EPS, 2000)
+    want_col, want_it = t_auction.auction_solve_ref(b, t_assign.DEFAULT_EPS,
+                                                    2000)
+    assert torch.equal(col, want_col) and int(it) == int(want_it)
 
 
 def test_auction_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -207,16 +240,47 @@ def _kcf_inputs(dev, t, c, s, k=1, seed=0):
 
 
 # The slice's shapes: HF (3 scales x 128 tracks, fHOG-31 at S=16) and the
-# default gray shape (128 tracks, S=64), plus one in between.
-@pytest.mark.parametrize("c,s,k", [(31, 16, 3), (1, 64, 1), (3, 32, 2)])
+# default gray shape (128 tracks, S=64), plus one in between.  The S = 16
+# shapes with at most 32 channels take the FFT path, (33, 16) and every
+# other S the direct path.
+@pytest.mark.parametrize("c,s,k", [(31, 16, 3), (1, 64, 1), (3, 32, 2),
+                                   (1, 16, 1), (32, 16, 2), (33, 16, 1),
+                                   (3, 12, 2)])
 def test_kcf_detect_kernel_matches_plain_version(cuda, c, s, k):
     model, feat, _ = _kcf_inputs(cuda, 128, c, s, k)
+    fft_path = s == 16 and c <= 32
+    assert (t_kcfk.detect_launch_info(c, s)["path"]
+            == t_kcfk.PATHS[fft_path])
     before = t_kcfk.launches_detect
     got = t_kcfk.detect_fused(model, feat, 0.2)
     want = t_kcfk.detect_fused_ref(model, feat, 0.2)
     torch.cuda.synchronize()
     assert t_kcfk.launches_detect == before + 1
     assert got.shape == (k * 128, s, s)
+    assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("c,s", [(31, 16), (3, 12)])
+def test_kcf_detect_kernel_is_deterministic(cuda, c, s):
+    """No atomics, fixed summation order: two runs on the same input are
+    bit-equal (the ids-equal checks against the JAX run rely on it)."""
+    model, feat, _ = _kcf_inputs(cuda, 128, c, s, 3, seed=3)
+    first = t_kcfk.detect_fused(model, feat, 0.2)
+    second = t_kcfk.detect_fused(model, feat, 0.2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_kcf_detect_kernel_takes_unaligned_features(cuda):
+    """Features 4 bytes off a 16-byte boundary take the direct path (the
+    FFT path reads float4) and give the same response."""
+    model, feat, _ = _kcf_inputs(cuda, 8, 31, 16, 3)
+    flat = torch.zeros(feat.numel() + 1, device=cuda)
+    off = flat[1:].view(feat.shape)
+    off.copy_(feat)
+    assert off.data_ptr() % 16 == 4
+    got = t_kcfk.detect_fused(model, off, 0.2)
+    want = t_kcfk.detect_fused(model, feat, 0.2)
     assert _rel_err(got, want) <= 1e-4
 
 

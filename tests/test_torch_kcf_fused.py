@@ -138,3 +138,83 @@ def test_dispatch_and_cpu_wrappers_launch_nothing():
     with pytest.raises(ValueError, match="multiple"):
         t_fused.detect_fused(tm, feat[:3], 0.2)
     assert (t_fused.launches_detect, t_fused.launches_train) == counts
+
+
+# ---- numpy mirror of the CUDA kernel's S = 16 schedule -------------------
+# The kernel builds no table at run time: its twiddles are three constants
+# and its output order the base-4 digit reversal REV16, both mirrored in
+# tpu_mot_torch.kernels.kcf.  S = 16 is the only size with FFTs in
+# registers; every other size runs the direct DFTs.
+
+MIRROR_TOL = {np.float64: 1e-12, np.float32: 1e-5}
+
+
+def _max_rel(got, want):
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft16_mirror_matches_numpy(dtype, inverse):
+    rng = np.random.default_rng(7)
+    ctype = np.complex64 if dtype == np.float32 else np.complex128
+    z = (rng.standard_normal((40, 16))
+         + 1j * rng.standard_normal((40, 16))).astype(ctype)
+    got = t_fused.fft16_mirror(z, inverse)
+    assert got.dtype == ctype
+    assert sorted(t_fused.REV16) == list(range(16))
+    assert all(t_fused.REV16[t_fused.REV16[k]] == k for k in range(16))
+    z64 = z.astype(np.complex128)
+    want = np.fft.ifft(z64) * 16 if inverse else np.fft.fft(z64)
+    assert _max_rel(got[..., list(t_fused.REV16)], want) <= MIRROR_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_rfft2_and_irfft2_mirrors_match_numpy(dtype):
+    """Rows in pairs through one complex FFT, then columns; and back."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((6, 3, 16, 16)).astype(dtype)
+    spec = t_fused.rfft2_16_mirror(x)
+    want = np.fft.rfft2(x.astype(np.float64))
+    assert spec.shape == (6, 3, 16, 9)
+    assert _max_rel(spec, want) <= MIRROR_TOL[dtype]
+    back = t_fused.irfft2_16_mirror(spec)
+    assert back.dtype == dtype
+    assert _max_rel(back, x) <= 2 * MIRROR_TOL[dtype]
+    # a spectrum that is not exactly Hermitian: the imaginary parts of DC
+    # and Nyquist are dropped, as numpy's irfft2 drops them
+    noisy = (want + 1e-3 * (rng.standard_normal(want.shape)
+                            + 1j * rng.standard_normal(want.shape)))
+    noisy = noisy.astype(spec.dtype)
+    ref = np.fft.irfft(np.fft.ifft(noisy.astype(np.complex128), axis=-2),
+                       n=16, axis=-1)
+    assert _max_rel(t_fused.irfft2_16_mirror(noisy),
+                    ref) <= 2 * MIRROR_TOL[dtype]
+
+
+def test_reduce_scatter_mirror_sums_over_lanes():
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((32, 32)).astype(np.float32)
+    got = t_fused.reduce_scatter_mirror(q)
+    np.testing.assert_allclose(got, q.astype(np.float64).sum(axis=0),
+                               rtol=0, atol=2e-5)
+    # integers sum exactly: entry l is the total of float l, nothing else
+    k = np.arange(32 * 32, dtype=np.float32).reshape(32, 32)
+    np.testing.assert_array_equal(t_fused.reduce_scatter_mirror(k),
+                                  k.sum(axis=0))
+
+
+@pytest.mark.parametrize("c", [1, 3, 31, 32])
+def test_detect_fft16_mirror_matches_plain_version(c):
+    """The S = 16 path stage by stage in float32 (feature-side energy,
+    reduce-scatter channel sum, paired rows) against detect_fused_ref, at
+    the card tests' tolerance of 1e-4 of the largest magnitude; 3 scales
+    of items against a bank of 4 rows."""
+    rng = np.random.default_rng(20 + c)
+    _, tm, _ = _models(rng, 4, c, 16)
+    feat = rng.standard_normal((12, c, 16, 16)).astype(np.float32) * 0.3
+    want = t_fused.detect_fused_ref(tm, torch.as_tensor(feat), 0.2).numpy()
+    got = t_fused.detect_fft16_mirror(tm.xf.numpy(), tm.alphaf.numpy(),
+                                      feat, 0.2)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert _max_rel(got, want) <= 1e-4

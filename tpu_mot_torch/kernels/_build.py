@@ -36,6 +36,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "tpu_mot_auction_solve": (_P, _P, _P, _I, _F, _I, _P),
     "tpu_mot_auction_max_n": (),
+    "tpu_mot_auction_info": (_I, _P),
     "tpu_mot_roi_extract": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                             _P),
@@ -44,6 +45,8 @@ SIGNATURES = {
                                    _I, _I, _I, _I, _F, _P),
     "tpu_mot_kcf_smem_bytes": (_I, _I),
     "tpu_mot_kcf_smem_limit": (),
+    "tpu_mot_kcf_detect_smem_bytes": (_I, _I),
+    "tpu_mot_kcf_detect_info": (_I, _I, _P),
     "tpu_mot_kcf_detect": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "tpu_mot_kcf_train": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                           _F, _P),
@@ -132,6 +135,16 @@ def load() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch_info(fn, *shape: int) -> dict:
+    """What one of the `*_info` entry points says a kernel launches at
+    `shape`: code path (int), threads per CTA, registers per thread,
+    dynamic shared memory per CTA, CTAs resident per SM."""
+    info = (ctypes.c_int * 5)()
+    check(fn(*shape, info), fn.__name__)
+    return dict(zip(("path", "threads", "registers", "smem_bytes",
+                     "ctas_per_sm"), info))
 
 
 def on_card(what: str, t) -> bool:

@@ -12,6 +12,8 @@ bit-identical to each other and to the TPU kernel.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tpu_mot_torch.kernels import _build
@@ -59,9 +61,86 @@ def auction_solve_ref(b: torch.Tensor, eps: float, max_iters: int
             torch.tensor(it, dtype=torch.int32, device=dev))
 
 
+def bid_keys(bid: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of the kernel's 64-bit bid key, as int64 whose order is
+    the kernel's unsigned order: the bid's float32 bits mapped to an
+    order-preserving integer above bit 32, `0xFFFFFFFF - row` below.  The
+    largest key of a set is the highest bid and, among equal bids, the
+    lowest row.  (The kernel sets the top bit of a positive bid's word and
+    compares unsigned; here the sign bit does the same for a signed
+    compare.)"""
+    bits = bid.to(torch.float32).contiguous().view(torch.int32).long()
+    return _flip_negative(bits) * 2 ** 32 + (0xFFFFFFFF - rows.long())
+
+
+def _flip_negative(bits: torch.Tensor) -> torch.Tensor:
+    """float32 bits (int64 holding an int32) <-> integers in float order;
+    its own inverse."""
+    return torch.where(bits >= 0, bits, -(2 ** 31) - 1 - bits)
+
+
+def split_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of `bid_keys`: (bid float32, row int64)."""
+    bits = _flip_negative(keys >> 32)
+    return (bits.to(torch.int32).view(torch.float32),
+            0xFFFFFFFF - (keys & 0xFFFFFFFF))
+
+
+def auction_solve_scatter_ref(b: torch.Tensor, eps: float, max_iters: int
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's round in plain torch: every bidding row scatters its
+    keyed bid to its column (a max per column), then one step per column
+    with a key gives it to the winner, evicts the old owner and sets owner
+    and price.  Same col_of and iters as `auction_solve_ref`; tests hold
+    the two together so the kernel's schedule is checked on the CPU."""
+    n = b.shape[0]
+    dev = b.device
+    ri = torch.arange(n, device=dev)
+    prices = torch.zeros((n,), dtype=torch.float32, device=dev)
+    col_of = torch.full((n,), -1, dtype=torch.long, device=dev)
+    row_of = torch.full((n,), -1, dtype=torch.long, device=dev)
+    no_key = torch.iinfo(torch.int64).min
+    unassigned, it = n, 0
+    while it < max_iters and unassigned > 0:
+        rows = ri[col_of < 0]
+        values = b[rows] - prices[None, :]
+        m1 = values.max(dim=1).values
+        c_star = torch.argmax(values, dim=1)                   # first max
+        rest = values.scatter(1, c_star[:, None], _NEG)
+        m2 = rest.max(dim=1).values
+        m2 = torch.where(m2 <= _NEG * 0.5, m1, m2)
+        bid = prices[c_star] + (m1 - m2) + eps
+        keys = torch.full((n,), no_key, dtype=torch.int64, device=dev)
+        keys.scatter_reduce_(0, c_star, bid_keys(bid, rows), "amax")
+        cols = ri[keys != no_key]
+        best_bid, winner = split_keys(keys[cols])
+        old = row_of[cols]
+        col_of[winner] = cols
+        col_of[old[old >= 0]] = -1
+        row_of[cols] = winner
+        prices[cols] = best_bid
+        unassigned -= int((old < 0).sum())
+        it += 1
+    return (col_of.to(torch.int32),
+            torch.tensor(it, dtype=torch.int32, device=dev))
+
+
+@functools.lru_cache(maxsize=None)
 def max_n() -> int:
     """Largest n whose matrix and state fit in one CTA's shared memory."""
     return _build.load().tpu_mot_auction_max_n()
+
+
+PATHS = ("scalar loads into padded rows", "bulk asynchronous copy")
+
+
+def launch_info(n: int) -> dict:
+    """What the kernel launches for a (16-byte aligned) matrix of n
+    columns: staging path (a name from PATHS), threads, registers, shared
+    memory, CTAs per SM."""
+    info = _build.launch_info(_build.load().tpu_mot_auction_info, n)
+    info["path"] = PATHS[info["path"]]
+    return info
 
 
 def auction_solve(b: torch.Tensor, eps: float, max_iters: int
@@ -78,9 +157,10 @@ def auction_solve(b: torch.Tensor, eps: float, max_iters: int
     if not b.is_contiguous():
         raise ValueError("auction_solve: b must be contiguous")
     n = b.shape[0]
-    if not 1 <= n <= max_n():
+    limit = max_n()
+    if not 1 <= n <= limit:
         raise ValueError(
-            f"auction_solve: n={n} outside 1..{max_n()} (the matrix must "
+            f"auction_solve: n={n} outside 1..{limit} (the matrix must "
             "fit in one CTA's shared memory)")
     if max_iters < 0:
         raise ValueError("auction_solve: max_iters must be >= 0")

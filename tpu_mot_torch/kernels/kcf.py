@@ -26,6 +26,9 @@ from tpu_mot_torch.kernels import _build
 from tpu_mot_torch.ops import kcf as kcf_ops
 
 MAX_S = 64          # direct row/column DFTs: S <= 64
+# K4's code paths (csrc/kcf.cu): chosen by the shape alone, given 16-byte
+# aligned features and response (any tensor torch allocates).
+PATHS = ("direct DFTs", "FFTs in registers (S = 16, C <= 32)")
 
 # Kernel launches made by `detect_fused` (K4) and `train_fused` (K5):
 # plain counts; reset them to 0 to measure a run.
@@ -72,12 +75,35 @@ def _check(what: str, name: str, t: torch.Tensor, dtype, shape, dev) -> None:
             f"(contiguous: {t.is_contiguous()})")
 
 
-def _check_shape(what: str, lib, c: int, s: int) -> None:
+# Kept per process: the limits are the device's and the sources', and
+# asking the library on every call costs host time on a launch-bound path.
+@functools.lru_cache(maxsize=None)
+def _smem_limit() -> int:
+    return _build.load().tpu_mot_kcf_smem_limit()
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_need(what: str, c: int, s: int) -> int:
+    """Shared memory per CTA of the kernel that `what` launches."""
+    lib = _build.load()
+    if what == "detect_fused":
+        return lib.tpu_mot_kcf_detect_smem_bytes(c, s)
+    return lib.tpu_mot_kcf_smem_bytes(c, s)
+
+
+def detect_launch_info(c: int, s: int) -> dict:
+    """What K4 launches for C channels of S x S features: code path (a name
+    from PATHS), threads, registers, shared memory, CTAs per SM."""
+    info = _build.launch_info(_build.load().tpu_mot_kcf_detect_info, c, s)
+    info["path"] = PATHS[info["path"]]
+    return info
+
+
+def _check_shape(what: str, c: int, s: int) -> None:
     if not 2 <= s <= MAX_S:
         raise ValueError(f"{what}: feature size S={s} outside 2..{MAX_S} "
-                         "(the kernel's DFTs are direct sums)")
-    need = lib.tpu_mot_kcf_smem_bytes(c, s)
-    limit = lib.tpu_mot_kcf_smem_limit()
+                         "(the generic kernel's DFTs are direct sums)")
+    need, limit = _smem_need(what, c, s), _smem_limit()
     if need > limit:
         raise ValueError(
             f"{what}: C={c}, S={s} needs {need} bytes of shared memory per "
@@ -103,8 +129,8 @@ def detect_fused(model: kcf_ops.KCFModel, feat: torch.Tensor,
     _check(what, "feat", feat, torch.float32, (n, c, s, s), dev)
     _check(what, "xf", model.xf, torch.complex64, (t, c, s, sf), dev)
     _check(what, "alphaf", model.alphaf, torch.complex64, (t, s, sf), dev)
+    _check_shape(what, c, s)
     lib = _build.load()
-    _check_shape(what, lib, c, s)
     out = torch.empty((n, s, s), dtype=torch.float32, device=dev)
     if n == 0:
         return out
@@ -139,8 +165,8 @@ def train_fused(model: kcf_ops.KCFModel, feat: torch.Tensor,
     _check(what, "alphaf", model.alphaf, torch.complex64, (t, s, sf), dev)
     _check(what, "yf", yf, torch.complex64, (s, sf), dev)
     _check(what, "lr", lr, torch.float32, (t,), dev)
+    _check_shape(what, c, s)
     lib = _build.load()
-    _check_shape(what, lib, c, s)
     out = kcf_ops.KCFModel(xf=torch.empty_like(model.xf),
                            alphaf=torch.empty_like(model.alphaf))
     if t == 0:
@@ -156,3 +182,136 @@ def train_fused(model: kcf_ops.KCFModel, feat: torch.Tensor,
     _build.check(rc, what)
     launches_train += 1
     return out
+
+
+# ---- numpy mirror of the S = 16 path's FFT schedule (csrc/kcf.cu) -------
+#
+# The kernel's 16-point FFT is a 4 x 4 Cooley-Tukey schedule in one
+# thread's registers, leaving output k in slot REV16[k]; real rows go two
+# at a time through one complex FFT.  The functions below repeat that
+# schedule, slot for slot, on a trailing axis of 16 in the dtype they are
+# given, so the CPU tests can hold it against numpy's FFT.
+
+REV16 = tuple(4 * (k & 3) + (k >> 2) for k in range(16))
+_C1, _S1, _R2 = np.cos(np.pi / 8), np.sin(np.pi / 8), np.sqrt(0.5)
+# slot -> (cos, sin) of its twiddle w16^(b k1) between the two passes
+_TWIDDLES = {5: (_C1, _S1), 9: (_R2, _R2), 13: (_S1, _C1), 6: (_R2, _R2),
+             10: (0.0, 1.0), 14: (-_R2, _R2), 7: (_S1, _C1),
+             11: (-_R2, _R2), 15: (-_C1, -_S1)}
+
+
+def _dft4(v: list, slots: tuple, inverse: bool) -> None:
+    a, b, c, d = (v[i] for i in slots)
+    t0, t1, t2, t3 = a + c, a - c, b + d, b - d
+    lo, hi = t1 - 1j * t3, t1 + 1j * t3
+    v[slots[0]], v[slots[2]] = t0 + t2, t0 - t2
+    v[slots[1]], v[slots[3]] = (hi, lo) if inverse else (lo, hi)
+
+
+def fft16_mirror(x: np.ndarray, inverse: bool = False) -> np.ndarray:
+    """The kernel's fft16 on the last axis (length 16, complex): the
+    unnormalised DFT, output k in slot REV16[k]."""
+    ctype = x.dtype
+    rtype = np.float32 if ctype == np.complex64 else np.float64
+    v = [x[..., i] for i in range(16)]
+    for b in range(4):
+        _dft4(v, (b, b + 4, b + 8, b + 12), inverse)
+    for slot, (c, s) in _TWIDDLES.items():
+        w = rtype(c) + 1j * rtype(s if inverse else -s)
+        v[slot] = (v[slot] * ctype.type(w)).astype(ctype)
+    for k1 in range(4):
+        _dft4(v, (4 * k1, 4 * k1 + 1, 4 * k1 + 2, 4 * k1 + 3), inverse)
+    return np.stack(v, axis=-1)
+
+
+def _rows_forward(x: np.ndarray) -> np.ndarray:
+    """Real rows [..., 16, 16] -> half spectra [..., 16, 9], rows 2p and
+    2p + 1 through one complex FFT (the kernel's split_pair)."""
+    ctype = np.complex64 if x.dtype == np.float32 else np.complex128
+    z = fft16_mirror((x[..., 0::2, :] + 1j * x[..., 1::2, :]).astype(ctype))
+    out = np.empty(x.shape[:-1] + (9,), ctype)
+    half = z.real.dtype.type(0.5)
+    for k in range(9):
+        p, m = z[..., REV16[k]], z[..., REV16[(16 - k) % 16]]
+        out[..., 0::2, k] = half * (p + np.conj(m))
+        out[..., 1::2, k] = half * (-1j) * (p - np.conj(m))
+    return out
+
+
+def _rows_inverse(t: np.ndarray) -> np.ndarray:
+    """Half spectra [..., 16, 9] -> real rows [..., 16, 16] times 16, two
+    rows per complex FFT (the kernel's join_pair: the imaginary parts of DC
+    and Nyquist are not read)."""
+    a, b = t[..., 0::2, :], t[..., 1::2, :]
+    v = np.empty(a.shape[:-1] + (16,), t.dtype)
+    for k in (0, 8):
+        v[..., k] = a[..., k].real + 1j * b[..., k].real
+    for k in range(1, 8):
+        v[..., k] = a[..., k] + 1j * b[..., k]
+        v[..., 16 - k] = np.conj(a[..., k]) + 1j * np.conj(b[..., k])
+    z = fft16_mirror(v, inverse=True)[..., list(REV16)]
+    out = np.empty(t.shape[:-1] + (16,), z.real.dtype)
+    out[..., 0::2, :], out[..., 1::2, :] = z.real, z.imag
+    return out
+
+
+def _columns(t: np.ndarray, inverse: bool) -> np.ndarray:
+    """The 16-point FFT along axis -2 of [..., 16, 9], natural order."""
+    z = fft16_mirror(np.swapaxes(t, -1, -2), inverse)[..., list(REV16)]
+    return np.swapaxes(z, -1, -2)
+
+
+def rfft2_16_mirror(x: np.ndarray) -> np.ndarray:
+    """np.fft.rfft2 of [..., 16, 16] by the kernel's schedule."""
+    return _columns(_rows_forward(x), inverse=False)
+
+
+def irfft2_16_mirror(spec: np.ndarray) -> np.ndarray:
+    """np.fft.irfft2 of [..., 16, 9] by the kernel's schedule."""
+    rows = _rows_inverse(_columns(spec, inverse=True))
+    return rows * rows.dtype.type(1.0 / 256.0)
+
+
+def reduce_scatter_mirror(q: np.ndarray) -> np.ndarray:
+    """The column stage's sum over channels: q [32 lanes, 32 floats] ->
+    [32], entry l what lane l ends with, the total over the lanes of float
+    l.  At step h = 16, 8, 4, 2, 1 a lane keeps the half of its values
+    that its bit h selects and adds its partner's (lane ^ h) copy."""
+    q = q.copy()
+    lanes = np.arange(32)
+    for h in (16, 8, 4, 2, 1):
+        up = (lanes & h) != 0
+        send = np.where(up[:, None], q[:, :h], q[:, h:2 * h])
+        keep = np.where(up[:, None], q[:, h:2 * h], q[:, :h])
+        q[:, :h] = keep + send[lanes ^ h]
+    return q[:, 0]
+
+
+def detect_fft16_mirror(xf: np.ndarray, alphaf: np.ndarray,
+                        feat: np.ndarray, sigma: float) -> np.ndarray:
+    """K4's S = 16 path in numpy float32, stage by stage: feat [N, C, 16,
+    16] against xf [T, C, 16, 9], alphaf [T, 16, 9] (item i, row i % T) ->
+    response [N, 16, 16].  z's energy comes from the features, x's from
+    the spectrum; the channel sum goes through `reduce_scatter_mirror`."""
+    n, c = feat.shape[:2]
+    rows = np.arange(n) % xf.shape[0]
+    x = xf[rows].astype(np.complex64)
+    zf = _columns(_rows_forward(feat.astype(np.float32)), inverse=False)
+    prod = zf * np.conj(x)                                 # [N, C, 16, 9]
+    lanes = np.zeros((n, 32, 16, 9), np.complex64)
+    lanes[:, :c] = prod
+    # lane = channel; a warp's 32 floats are one kx column, (ky, re/im)
+    q = np.stack([lanes.real, lanes.imag], axis=-1)        # [N,32,16,9,2]
+    q = q.transpose(0, 3, 1, 2, 4).reshape(n, 9, 32, 32)
+    tot = np.stack([[reduce_scatter_mirror(q[i, kx]) for kx in range(9)]
+                    for i in range(n)]).reshape(n, 9, 16, 2)
+    cross_f = (tot[..., 0] + 1j * tot[..., 1]).transpose(0, 2, 1)
+    fold = np.array([1.0] + [2.0] * 7 + [1.0], np.float32)
+    zz = np.sum(feat.astype(np.float32) ** 2, axis=(1, 2, 3))
+    xx = np.sum((x.real ** 2 + x.imag ** 2) * fold, axis=(1, 2, 3))
+    energies = (zz + xx * np.float32(1.0 / 256.0))[:, None, None]
+    cross = irfft2_16_mirror(cross_f.astype(np.complex64))
+    denom = np.float32(sigma * sigma * (256 * c))
+    k = np.exp(-np.maximum(energies - np.float32(2.0) * cross, 0) / denom)
+    kf = rfft2_16_mirror(k.astype(np.float32))
+    return irfft2_16_mirror((kf * alphaf[rows]).astype(np.complex64))
