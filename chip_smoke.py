@@ -11,8 +11,8 @@ nonzero exit, no "ok" line):
              u8 and f32 pyramids (max |diff| 1e-5);
   roi3       K3 (3-scale ROI kernel) against its plain version: the 128
              bench boxes at scales 1/1.05, 1, 1.05, plus the edge cases
-             and a box straddling a level boundary, u8 and f32 pyramids
-             (max |diff| 1e-5);
+             and a box straddling a level boundary, and 37 seeded boxes
+             (a ragged T), u8 and f32 pyramids (max |diff| 1e-5);
   auction    K2 against its plain version: benefit matrices of the bench
              run's first frames, random n in {8, 40, 160}, all-infeasible,
              dead rows, a capped solve, odd n (7, 33, 159: padded rows,
@@ -23,9 +23,10 @@ nonzero exit, no "ok" line):
              plain versions, relative to each tensor's largest magnitude
              (1e-4 response and xf, 1e-3 alphaf): inputs captured from the
              first frames of an HF run ([384, 31, 16, 16] features, a
-             [128, ...] bank; K4's FFT path) and at the gray shape (S=64,
-             C=1, T=128; the direct path); K4 alone at C=3, S=12 (direct
-             path) and twice on the HF inputs (bit-equal);
+             [128, ...] bank; the FFT kernels) and at the gray shape (S=64,
+             C=1, T=128; the direct kernels); K4 and K5 alone at C=3, S=12
+             (direct kernels) and twice on the HF inputs (bit-equal); the
+             code path of each case is printed and asserted;
   e2e        the default configuration on bench.py's fixture (seed 0, 128
              objects, 64 frames, 1080p u8) through tracker.scan.run_sequence
              on cuda:0: MOTA >= the JAX reference's MOTA - 0.01, exactly 64
@@ -43,7 +44,7 @@ nonzero exit, no "ok" line):
              time, which bounds a short kernel) and the device ms per call
              from the profiler; the least time the card could take (bound);
              K2 also on the init frame's matrix and capped at 0 rounds
-             (launch and staging alone); for K2 and K4 the code path,
+             (launch and staging alone); for K2-K5 the code path,
              registers, shared memory and CTAs per SM;
   profile    where device time goes over 16 frames, default and HF.
 The line before the last is {"kernels": [...]}: per kernel its launches
@@ -227,10 +228,13 @@ def device_ms(fn, reps: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    # Now and then the profiler loses device records, for a few passes in
-    # a row: all of them, or some (seen on the H100: 10 calls, 0 or 8
-    # records).  A pass counts only if every kernel kind was recorded a
-    # whole number of times per call; otherwise it is taken again.
+    # Now and then the profiler loses device records, for some passes in a
+    # row: all of them, or a few (seen on the H100: 10 calls, 0 or 8
+    # records; 50 calls, 49 records in 29 of 30 passes).  A pass counts
+    # only if every kernel kind was recorded a whole number of times per
+    # call; otherwise it is taken again.  After ten such passes one that
+    # lost under a tenth of each kind's records counts too: a kind's time
+    # per call is then its mean recorded time times its launches per call.
     for attempt in range(30):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -240,6 +244,16 @@ def device_ms(fn, reps: int) -> float:
         rows = device_kernels(prof)
         if rows and all(count % reps == 0 for _, _, count in rows):
             return sum(us for _, us, _ in rows) / 1e3 / reps
+        per_call = [math.ceil(count / reps) for _, _, count in rows]
+        if attempt >= 10 and rows and all(
+                count >= 0.9 * n * reps
+                for (_, _, count), n in zip(rows, per_call)):
+            log("times", f"profiler pass {attempt + 1} kept "
+                         f"{sum(count for _, _, count in rows)} of "
+                         f"{sum(per_call) * reps} device records; its mean "
+                         "times are used")
+            return sum(us / count * n for (_, us, count), n
+                       in zip(rows, per_call)) / 1e3
         log("times", f"profiler pass {attempt + 1} lost device records "
                      f"({sum(count for _, _, count in rows)} kept of {reps} "
                      "calls); taken again")
@@ -307,9 +321,17 @@ def phase_roi3(dev, levels_u8, levels_f32, boxes0):
     hw = (HEIGHT, WIDTH)
     extra = torch.as_tensor(np.concatenate([edge_boxes(), STRADDLE]),
                             device=dev)
+    # A T that no tile or warp size divides, boxes of 8-400 px anywhere on
+    # the frame (every level), the straddling box last.
+    rng = np.random.default_rng(3)
+    ragged = torch.as_tensor(np.concatenate([np.stack(
+        [rng.uniform(0, WIDTH, 36), rng.uniform(0, HEIGHT, 36),
+         rng.uniform(8, 400, 36), rng.uniform(8, 400, 36)],
+        axis=1).astype(np.float32), STRADDLE]), device=dev)
     max_err = 0.0
     for pyr_name, levels in (("u8", levels_u8), ("f32", levels_f32)):
-        for box_name, b in (("bench", boxes0), ("edges+straddle", extra)):
+        for box_name, b in (("bench", boxes0), ("edges+straddle", extra),
+                            ("ragged", ragged)):
             got = roi_k.extract_patches_scales(None, b, 2.5, 64, SCALES,
                                                levels=levels, frame_hw=hw)
             want = roi_k.extract_patches_scales_ref(
@@ -462,6 +484,10 @@ def phase_kcf(hf_inputs, gray_inputs, cfg_hf, cfg):
               gray_inputs[1], *gray_inputs[2:])]
     for name, c, d_model, d_feat, t_model, t_feat, yf, lr in cases:
         sigma, lam = c.kcf.kernel_sigma, c.kcf.lambda_
+        paths = (kcf_k.detect_launch_info(*d_feat.shape[1:3])["path"],
+                 kcf_k.train_launch_info(*t_feat.shape[1:3])["path"])
+        if paths != (kcf_k.PATHS[name == "HF"],) * 2:
+            raise AssertionError(f"fused KCF {name}: code paths {paths}")
         got = kcf_k.detect_fused(d_model, d_feat, sigma)
         want = kcf_k.detect_fused_ref(d_model, d_feat, sigma)
         new = kcf_k.train_fused(t_model, t_feat, yf, sigma, lam, lr)
@@ -473,8 +499,9 @@ def phase_kcf(hf_inputs, gray_inputs, cfg_hf, cfg):
         ok = all(torch.isfinite(x).all().item()
                  for x in (got, new.xf, new.alphaf))
         log("kcf", f"{name}: detect feat {tuple(d_feat.shape)} vs model "
-                   f"{tuple(d_model.xf.shape)}, train feat "
-                   f"{tuple(t_feat.shape)}; largest error relative to the "
+                   f"{tuple(d_model.xf.shape)} by {paths[0]}, train feat "
+                   f"{tuple(t_feat.shape)} by {paths[1]}; largest error "
+                   "relative to the "
                    f"largest magnitude: response {e['response']:.3g}, xf "
                    f"{e['xf']:.3g}, alphaf {e['alphaf']:.3g}")
         for k, tol in KCF_TOL.items():
@@ -483,7 +510,8 @@ def phase_kcf(hf_inputs, gray_inputs, cfg_hf, cfg):
                                      f"{e[k]} > {tol} (finite: {ok})")
             errs[k] = max(errs[k], e[k])
 
-    # K4 alone: a shape with no specialised path, and run-to-run equality.
+    # K4 and K5 alone: a shape with no specialised path, and run-to-run
+    # equality.
     dev = feat.device
     rng = np.random.default_rng(2)
     c, s, t = 3, 12, 128
@@ -509,6 +537,32 @@ def phase_kcf(hf_inputs, gray_inputs, cfg_hf, cfg):
             raise AssertionError(f"fused KCF detect {name}: error {e}, "
                                  f"bit-equal {same}")
         errs["response"] = max(errs["response"], e)
+    t_model, t_feat, t_yf, t_lr = hf_inputs["train"]
+    lr = torch.tensor([1.0, 0.075, 0.0, 0.5], device=dev).repeat(t // 4)
+    for name, m, f, y, rate, fast in (
+            ("generic", small, feats[1][:t], yf, lr, False),
+            ("HF", t_model, t_feat, t_yf, t_lr, True)):
+        path = kcf_k.train_launch_info(f.shape[1], f.shape[2])["path"]
+        args = (m, f, y, cfg.kcf.kernel_sigma, cfg.kcf.lambda_, rate)
+        got = kcf_k.train_fused(*args)
+        again = kcf_k.train_fused(*args)
+        want = kcf_k.train_fused_ref(*args)
+        torch.cuda.synchronize()
+        e = {k: rel_err(getattr(got, k), getattr(want, k))
+             for k in ("xf", "alphaf")}
+        same = (torch.equal(got.xf, again.xf)
+                and torch.equal(got.alphaf, again.alphaf))
+        log("kcf", f"{name}: train feat {tuple(f.shape)} by {path}: xf error "
+                   f"{e['xf']:.3g}, alphaf error {e['alphaf']:.3g}; two runs "
+                   f"bit-equal: {same}")
+        if not (path == kcf_k.PATHS[fast] and same
+                and all(e[k] <= KCF_TOL[k] for k in e)
+                and torch.isfinite(got.xf).all().item()
+                and torch.isfinite(got.alphaf).all().item()):
+            raise AssertionError(f"fused KCF train {name}: path {path}, "
+                                 f"errors {e}, bit-equal {same}")
+        for k in e:
+            errs[k] = max(errs[k], e[k])
     return errs
 
 
@@ -759,17 +813,22 @@ def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_bs, hf_inputs):
                  f"((device time at {rounds} rounds - at 0 rounds) / "
                  f"{rounds})")
     times["auction_solve"].update(extra)
-    k2, k4 = auction_k.launch_info(n), kcf_k.detect_launch_info(c, s)
-    log("times", kernel_line(f"K2 auction n={n}", k2))
-    log("times", kernel_line(f"K4 fused detect C={c} S={s}", k4))
-    times["auction_solve"]["launch"] = k2
-    times["kcf_detect"]["launch"] = k4
+    for key, what, info in (
+            ("auction_solve", f"K2 auction n={n}", auction_k.launch_info(n)),
+            ("roi_extract_scales", f"K3 3-scale ROI u8 S={s1}",
+             roi_k.scales_launch_info(True, s1)),
+            ("kcf_detect", f"K4 fused detect C={c} S={s}",
+             kcf_k.detect_launch_info(c, s)),
+            ("kcf_train", f"K5 fused train C={c} S={s}",
+             kcf_k.train_launch_info(c, s))):
+        log("times", kernel_line(what, info))
+        times[key]["launch"] = info
     return times
 
 
 OUR_KERNELS = ("roi_kernel", "roi_scales_kernel", "auction_kernel",
                "kcf_detect_kernel", "kcf_detect_fft16_kernel",
-               "kcf_train_kernel")
+               "kcf_train_kernel", "kcf_train_fft16_kernel")
 
 
 def phase_profile(frames, d, v, cfg, name, n_frames: int = 16):

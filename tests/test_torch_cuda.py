@@ -198,26 +198,53 @@ def test_tracker_on_card_matches_cpu(cuda):
 SCALES = (1 / 1.05, 1.0, 1.05)
 
 
+def _scales_boxes(t):
+    """t boxes: the edge cases, the straddling box (2.5 * 50 = 125 px at
+    unit scale, 131 px at 1.05), then seeded boxes of 8-400 px."""
+    rng = np.random.default_rng(t)
+    rand = np.stack([rng.uniform(0, W, t), rng.uniform(0, H, t),
+                     rng.uniform(8, 400, t), rng.uniform(8, 400, t)], axis=1)
+    return np.concatenate([[[300.0, 240.0, 50.0, 50.0]], BOXES,
+                           rand])[:t].astype(np.float32)
+
+
+# S = 64 has its size compiled in; 48 reads it at run time; 30 is no
+# multiple of 4 (coordinates read and outputs written one by one).
+@pytest.mark.parametrize("s", [64, 48, 30])
+@pytest.mark.parametrize("scales", [SCALES, (1.0,)])
+@pytest.mark.parametrize("t", [1, 37, 128])
 @pytest.mark.parametrize("pyramid", [torch.uint8, torch.float32])
-def test_roi_scales_kernel_matches_plain_version(cuda, pyramid):
+def test_roi_scales_kernel_matches_plain_version(cuda, pyramid, t, scales,
+                                                 s):
     frame = torch.as_tensor(np.random.default_rng(8).integers(
         0, 256, (H, W), dtype=np.uint8), device=cuda)
     if pyramid == torch.float32:
         frame = frame.float() / 255.0
     levels = t_roi.build_pyramid(frame)
-    # Straddling box: 2.5 * 50 = 125 px at unit scale, 131 px at 1.05.
-    boxes = torch.as_tensor(np.concatenate(
-        [BOXES, [[300.0, 240.0, 50.0, 50.0]]]).astype(np.float32),
-        device=cuda)
+    boxes = torch.as_tensor(_scales_boxes(t), device=cuda)
+    info = t_roi.scales_launch_info(pyramid == torch.uint8, s)
+    assert info["path"] == t_roi.SCALES_PATHS[s == 64]
     before = t_roi.launches_scales
-    got = t_roi.extract_patches_scales(None, boxes, 2.5, 64, SCALES,
+    got = t_roi.extract_patches_scales(None, boxes, 2.5, s, scales,
                                        levels=levels, frame_hw=(H, W))
-    want = t_roi.extract_patches_scales_ref(None, boxes, 2.5, 64, SCALES,
+    want = t_roi.extract_patches_scales_ref(None, boxes, 2.5, s, scales,
                                             levels=levels, frame_hw=(H, W))
     torch.cuda.synchronize()
     assert t_roi.launches_scales == before + 1
-    assert got.shape == (3, boxes.shape[0], 64, 64)
+    assert got.shape == (len(scales), t, s, s)
     assert (got - want).abs().max().item() <= 1e-5
+    # The kernel's arithmetic is the mirror's, operation for operation.
+    mirror = t_roi.four_tap_mirror(levels, (H, W), *t_roi.sample_coords_scales(
+        boxes, 2.5, s, scales, (H, W)))
+    assert torch.equal(got, mirror)
+
+
+def test_roi_scales_wrapper_rejects_a_size_the_kernel_does_not_take(cuda):
+    frame = torch.zeros((64, 96), dtype=torch.uint8, device=cuda)
+    boxes = torch.as_tensor(BOXES[:2] * 0.05, device=cuda)
+    with pytest.raises(ValueError, match="template size"):
+        t_roi.extract_patches_scales(frame, boxes, 2.5,
+                                     t_roi.max_scales_s() + 1, SCALES)
 
 
 def _rel_err(got, want):
@@ -284,10 +311,16 @@ def test_kcf_detect_kernel_takes_unaligned_features(cuda):
     assert _rel_err(got, want) <= 1e-4
 
 
-@pytest.mark.parametrize("c,s", [(31, 16), (1, 64), (3, 32)])
+# (1, 16), (31, 16), (32, 16) take the FFT kernel; (33, 16) and every other
+# S the direct one.
+@pytest.mark.parametrize("c,s", [(31, 16), (1, 64), (3, 32), (1, 16),
+                                 (32, 16), (33, 16), (3, 12)])
 def test_kcf_train_kernel_matches_plain_version(cuda, c, s):
     model, feat, yf = _kcf_inputs(cuda, 128, c, s, seed=1)
     lr = torch.tensor([1.0, 0.075, 0.0, 0.5], device=cuda).repeat(32)
+    fft_path = s == 16 and c <= 32
+    assert (t_kcfk.train_launch_info(c, s)["path"]
+            == t_kcfk.PATHS[fft_path])
     before = t_kcfk.launches_train
     got = t_kcfk.train_fused(model, feat, yf, 0.2, 1e-4, lr)
     want = t_kcfk.train_fused_ref(model, feat, yf, 0.2, 1e-4, lr)
@@ -296,6 +329,49 @@ def test_kcf_train_kernel_matches_plain_version(cuda, c, s):
     assert _rel_err(got.xf, want.xf) <= 1e-4
     assert _rel_err(got.alphaf, want.alphaf) <= 1e-3
     assert torch.equal(got.xf[2], model.xf[2])            # lr = 0 keeps
+    assert torch.equal(got.alphaf[2], model.alphaf[2])
+
+
+@pytest.mark.parametrize("c,s", [(31, 16), (1, 16), (3, 12)])
+def test_kcf_train_kernel_is_deterministic(cuda, c, s):
+    """A fixed tree over the channels, no atomics: two runs are bit-equal;
+    a bank of 37 rows is no multiple of anything."""
+    model, feat, yf = _kcf_inputs(cuda, 37, c, s, seed=4)
+    lr = torch.full((37,), 0.075, device=cuda)
+    first = t_kcfk.train_fused(model, feat, yf, 0.2, 1e-4, lr)
+    second = t_kcfk.train_fused(model, feat, yf, 0.2, 1e-4, lr)
+    want = t_kcfk.train_fused_ref(model, feat, yf, 0.2, 1e-4, lr)
+    torch.cuda.synchronize()
+    assert torch.equal(first.xf, second.xf)
+    assert torch.equal(first.alphaf, second.alphaf)
+    assert _rel_err(first.xf, want.xf) <= 1e-4
+    assert _rel_err(first.alphaf, want.alphaf) <= 1e-3
+
+
+@pytest.mark.parametrize("which", ["feat", "xf"])
+def test_kcf_train_kernel_takes_unaligned_tensors(cuda, which):
+    """Features or a model 8 bytes off a 16-byte boundary take the direct
+    kernel (the FFT kernel reads and writes 16 bytes at a time) and give
+    the same model."""
+    model, feat, yf = _kcf_inputs(cuda, 8, 31, 16, seed=5)
+    lr = torch.full((8,), 0.3, device=cuda)
+    want = t_kcfk.train_fused(model, feat, yf, 0.2, 1e-4, lr)
+    if which == "feat":
+        flat = torch.zeros(feat.numel() + 2, device=cuda)
+        off = flat[2:].view(feat.shape)
+        off.copy_(feat)
+        args = (model, off)
+    else:
+        flat = torch.zeros(model.xf.numel() + 1, dtype=torch.complex64,
+                           device=cuda)
+        off = flat[1:].view(model.xf.shape)
+        off.copy_(model.xf)
+        args = (t_kcf.KCFModel(xf=off, alphaf=model.alphaf), feat)
+    assert off.data_ptr() % 16 == 8 and off.is_contiguous()
+    got = t_kcfk.train_fused(*args, yf, 0.2, 1e-4, lr)
+    torch.cuda.synchronize()
+    assert _rel_err(got.xf, want.xf) <= 1e-4
+    assert _rel_err(got.alphaf, want.alphaf) <= 1e-3
 
 
 def test_kcf_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -218,3 +218,53 @@ def test_detect_fft16_mirror_matches_plain_version(c):
                                       feat, 0.2)
     assert got.dtype == np.float32 and got.shape == want.shape
     assert _max_rel(got, want) <= 1e-4
+
+
+def test_reduce_scatter_mirror_real_half():
+    """K5's channel sum: 16 floats per lane; lane l ends with the total of
+    float l % 16 over all 32 lanes (the two half-warps exchange last)."""
+    rng = np.random.default_rng(10)
+    q = rng.standard_normal((32, 16)).astype(np.float32)
+    got = t_fused.reduce_scatter_mirror(q)
+    want = np.tile(q.astype(np.float64).sum(axis=0), 2)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+    np.testing.assert_array_equal(got[:16], got[16:])
+    k = np.arange(32 * 16, dtype=np.float32).reshape(32, 16)
+    np.testing.assert_array_equal(t_fused.reduce_scatter_mirror(k),
+                                  np.tile(k.sum(axis=0), 2))
+
+
+@pytest.mark.parametrize("c", [1, 3, 31, 32])
+def test_train_fft16_mirror_matches_plain_version(c):
+    """K5's S = 16 path stage by stage in float32 (feature-side energy,
+    half-width reduce-scatter, paired rows, divide, blend) against
+    train_fused_ref, relative to the largest magnitude.  xf 1e-5: x^ is one
+    rfft2 and a blend, so only the FFT's float32 rounding separates the
+    two.  alphaf 1e-3 (the card tests' tolerance): the Gaussian's exp of a
+    near-zero energy difference and the divide by k^ + lambda amplify that
+    rounding.  lr = 0 returns the old model exactly and lr = 1 the new one
+    alone."""
+    rng = np.random.default_rng(40 + c)
+    t = 8
+    _, tm, yf = _models(rng, t, c, 16)
+    tyf = interop.cf_to_complex(yf.re, yf.im)
+    feat = rng.standard_normal((t, c, 16, 16)).astype(np.float32) * 0.3
+    lr = np.tile(np.array([1.0, 0.075, 0.0, 0.5], np.float32), t // 4)
+    want = t_fused.train_fused_ref(tm, torch.as_tensor(feat), tyf, 0.2, 1e-4,
+                                   torch.as_tensor(lr))
+    xf, alphaf = t_fused.train_fft16_mirror(
+        tm.xf.numpy(), tm.alphaf.numpy(), feat, tyf.numpy(), 0.2, 1e-4, lr)
+    assert xf.dtype == alphaf.dtype == np.complex64
+    assert xf.shape == (t, c, 16, 9) and alphaf.shape == (t, 16, 9)
+    assert _max_rel(xf, want.xf.numpy()) <= 1e-5
+    assert _max_rel(alphaf, want.alphaf.numpy()) <= 1e-3
+    # lr = 0 (rows 2, 6): the old model, bit for bit
+    np.testing.assert_array_equal(xf[2::4], tm.xf.numpy()[2::4])
+    np.testing.assert_array_equal(alphaf[2::4], tm.alphaf.numpy()[2::4])
+    # lr = 1 (rows 0, 4): the fresh model alone, whatever the old one was
+    other, _ = t_fused.train_fft16_mirror(
+        np.zeros_like(tm.xf.numpy()), np.zeros_like(tm.alphaf.numpy()), feat,
+        tyf.numpy(), 0.2, 1e-4, lr)
+    np.testing.assert_array_equal(xf[0::4], other[0::4])
+    fresh = t_kcf.train(torch.as_tensor(feat), tyf, 0.2, 1e-4)
+    assert _max_rel(xf[0::4], fresh.xf.numpy()[0::4]) <= 1e-5

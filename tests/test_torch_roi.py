@@ -212,3 +212,56 @@ def test_cpu_scales_wrapper_is_the_plain_version_and_launches_nothing():
                                     scales=torch.full((1,), sv))
         np.testing.assert_allclose(three[k].numpy(), one.numpy(), rtol=0,
                                    atol=1e-5)
+
+
+# ---- torch mirror of the CUDA kernels' 4-tap form -------------------------
+# The kernels never form the hat-weight matmuls: per output they take two
+# taps per axis under the tap rules of csrc/roi.cu (`tap_of`).  The mirror
+# repeats those rules in torch; here it is held to the plain version (the
+# matmuls) on the cases where the rules matter.
+
+def _mirror_boxes(case):
+    if case == "edges":
+        return BOXES
+    if case == "straddle":        # 125 px at unit scale, 131 px at 1.05
+        return np.array([[300.0, 240.0, 50.0, 50.0]], np.float32)
+    if case == "over_1024":       # level 3, truncated by the 144 x 256 block
+        return np.array([[1000.0, 580.0, 600.0, 600.0],
+                         [1050.0, 580.0, 1000.0, 100.0],
+                         [2000.0, 1100.0, 500.0, 450.0]], np.float32)
+    rng = np.random.default_rng(37)                   # "t37": a ragged T
+    return np.stack([rng.uniform(0, W, 37), rng.uniform(0, H, 37),
+                     rng.uniform(8, 300, 37), rng.uniform(8, 300, 37)],
+                    axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["edges", "straddle", "over_1024", "t37"])
+@pytest.mark.parametrize("pyramid", ["u8", "f32"])
+def test_four_tap_mirror_matches_plain_version(pyramid, case):
+    """max |mirror - plain| <= 1e-5: both sum the same two nonzero products
+    per axis in float32, the matmuls among zeros and in another order."""
+    frame = _frame_u8(6)
+    levels = t_roi.build_pyramid(
+        _t(frame if pyramid == "u8" else frame.astype(np.float32) / 255.0))
+    boxes = _t(_mirror_boxes(case))
+    coords = t_roi.sample_coords_scales(boxes, 2.5, 64, SCALES, (H, W))
+    want = t_roi._resample_scales_ref(levels, (H, W), *coords)
+    got = t_roi.four_tap_mirror(levels, (H, W), *coords)
+    assert got.dtype == torch.float32
+    assert got.shape == want.shape == (3, boxes.shape[0], 64, 64)
+    assert (got - want).abs().max().item() <= 1e-5
+    assert want.abs().max().item() > 0.1              # not trivially zero
+    lvl = set(coords[0].tolist())
+    assert lvl == {"edges": {0, 1, 2, 3}, "straddle": {1},
+                   "over_1024": {3}, "t37": lvl}[case]
+
+
+def test_four_tap_mirror_one_scale_matches_k1_plain_version():
+    """K = 1 with K1's coordinates is K1's resample."""
+    frame = _frame_u8(7)
+    levels = t_roi.build_pyramid(_t(frame))
+    lvl, r0, c0, ys, xs = t_roi.sample_coords(_t(BOXES), 2.5, 48, (H, W))
+    want = t_roi._resample_ref(levels, (H, W), lvl, r0, c0, ys, xs)
+    got = t_roi.four_tap_mirror(levels, (H, W), lvl, r0, c0, ys[None],
+                                xs[None])[0]
+    assert (got - want).abs().max().item() <= 1e-5

@@ -24,9 +24,9 @@
 // and a data load from shared memory: the arithmetic alone is as long as
 // the byte bound and the shared-memory traffic several times it, so the
 // direct kernels are bound by their own DFT work, not by bytes.  With
-// O(S log S) transforms in registers (K4's S = 16 path) the DFT work falls
+// O(S log S) transforms in registers (the S = 16 paths) the DFT work falls
 // under the byte time and the rest is latency: one wave of CTAs, each a
-// chain of load -> row FFTs -> column FFTs -> four small stages.
+// chain of load -> row FFTs -> column FFTs -> three or four small stages.
 //
 // Two designs share this file.
 //
@@ -65,8 +65,30 @@
 //     from the spectrum as before.  Both go through one block reduction of
 //     fixed order.
 //
-// Generic K4 (every other S in 2..64, C > 32, or a feature/response base
-// that is not 16-byte aligned) and K5: one CTA of 256 threads per item,
+// K5 at S = 16 and C <= 32 (`kcf_train_fft16_kernel`): one CTA of the same
+// 288 threads per track, the same row and column stages, and K4's chain
+// without its last inverse.  At T = 128 tracks one CTA runs on an SM, so
+// what counts is the length of the one chain and the bytes in flight:
+//   - the old alpha^ row and y^ (1152 bytes each) are fetched by
+//     asynchronous 8-byte copies at entry and are used last;
+//   - the row stage writes [y, kx, c] at the odd channel stride C | 1 and the
+//     column stage, whose thread reads exactly the sixteen slots it then
+//     writes, leaves the raw x^ in place as [ky, kx, c]: one buffer;
+//   - |x^|^2 is real, so the channel sum is a reduce-scatter of 16 floats
+//     (steps 8, 4, 2, 1) and one exchange across the half-warps: a fixed
+//     tree, no atomics, two runs bit-equal.  x's energy is summed from the
+//     features in the row stage (Parseval's other side);
+//   - after the column stage the CTA splits.  Warps 1-8 stream the model
+//     row: 16-byte loads of the old x^ (several in flight per thread), the
+//     new x^ read back from shared memory transposed (the odd stride keeps
+//     both directions off each other's banks), the blend, 16-byte stores of
+//     the [c, ky, kx] layout, all coalesced.  Warp 0 meanwhile runs the
+//     three one-warp stages: inverse columns; per row pair inverse rows ->
+//     exp -> forward rows; per column forward -> y^ / (k^ + lambda) ->
+//     blend with the old alpha^ -> store.
+//
+// Generic K4 and K5 (every other S in 2..64, C > 32, or a feature, model or
+// result base that is not 16-byte aligned): one CTA of 256 threads per item,
 // spectra in shared memory, native float2 complex math in float32.  The
 // DFTs are direct row/column sums (S <= 64) over a twiddle table
 // e^{-2 pi i j / S} that the wrapper builds once per S in float64 and
@@ -431,8 +453,8 @@ __device__ __forceinline__ void join_pair(const float2* t, int ra, int rb,
 // One step of the reduce-scatter over a warp's lanes: a lane keeps the
 // half of q[0 .. 2 kH) that its bit kH selects and adds the partner's copy
 // of it (keep + received: the same sum on both sides of a pair).
-template <int kH>
-__device__ __forceinline__ void scatter_step(float (&q)[32], int lane) {
+template <int kH, int kN>
+__device__ __forceinline__ void scatter_step(float (&q)[kN], int lane) {
   const bool up = (lane & kH) != 0;
 #pragma unroll
   for (int i = 0; i < kH; ++i) {
@@ -639,7 +661,7 @@ kcf_detect_fft16_kernel(const float* __restrict__ feat,
   }
 }
 
-// K5: grid = T tracks.
+// Generic K5: grid = T tracks.
 __global__ void __launch_bounds__(kThreads)
 kcf_train_kernel(const float* __restrict__ feat,
                  const float2* __restrict__ xf,
@@ -701,6 +723,211 @@ kcf_train_kernel(const float* __restrict__ feat,
   }
 }
 
+// ---- K5 at S = 16: FFTs in registers -----------------------------------
+
+constexpr int kStreamThreads = kFThreads - 32;  // warps 1-8 stream x^
+constexpr int kStreamLoads = 3;   // 16-byte loads a thread has in flight
+
+size_t train_fft16_smem_bytes(int C) {
+  // xs [S, Sf, C | 1] + alpha, yfs, spec, tmp [S, Sf] complex; red [warps]
+  // floats.
+  return sizeof(float2) * ((size_t)kFN * (C | 1) + 4 * kFN) +
+         sizeof(float) * kFWarps;
+}
+
+// K5, S = 16, C <= 32: grid = T tracks; feat, xf and out_xf 16-byte aligned.
+__global__ void __launch_bounds__(kFThreads, kFCtasPerSm)
+kcf_train_fft16_kernel(const float* __restrict__ feat,
+                       const float2* __restrict__ xf,
+                       const float2* __restrict__ alphaf,
+                       const float2* __restrict__ yf,
+                       const float* __restrict__ lr_g,
+                       float2* __restrict__ out_xf,
+                       float2* __restrict__ out_alphaf, int C, float denom,
+                       float lambda) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Cp = C | 1;  // odd: the transposed read-back hits distinct banks
+  // Row spectra [y, kx, c]; the column stage leaves x^ [ky, kx, c] in place.
+  float2* xs = reinterpret_cast<float2*>(smem_raw);
+  float2* alpha = xs + kFN * Cp;  // the old alpha^ row [ky, kx]
+  float2* yfs = alpha + kFN;      // y^ [ky, kx]
+  float2* spec = yfs + kFN;       // sum_c |x^|^2 (as floats), then k's rows
+  float2* tmp = spec + kFN;
+  float* red = reinterpret_cast<float*>(tmp + kFN);
+  float* kxx = reinterpret_cast<float*>(spec);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int t = blockIdx.x;
+  const float lr = lr_g[t];
+  const float keep = 1.0f - lr;
+
+  // 1. What the last stage needs, asynchronously: old alpha^ and y^.
+  if (tid < kFN) {
+    cp_async8(alpha + tid, alphaf + (size_t)t * kFN + tid);
+  } else {
+    cp_async8(yfs + (tid - kFN), yf + (tid - kFN));
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+
+  // 2. Row stage: rows 2 yp and 2 yp + 1 of channel c in one complex FFT;
+  // x's energy from the features.
+  float xx = 0.0f;
+  if (tid < (kFS / 2) * C) {
+    const int yp = tid / C;
+    const int c = tid - yp * C;
+    const float4* src = reinterpret_cast<const float4*>(
+        feat + ((size_t)t * C + c) * (kFS * kFS) + 2 * yp * kFS);
+    float2 v[16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 a = __ldg(src + i);
+      const float4 b = __ldg(src + 4 + i);
+      v[4 * i] = make_float2(a.x, b.x);
+      v[4 * i + 1] = make_float2(a.y, b.y);
+      v[4 * i + 2] = make_float2(a.z, b.z);
+      v[4 * i + 3] = make_float2(a.w, b.w);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) xx += v[i].x * v[i].x + v[i].y * v[i].y;
+    fft16<false>(v);
+    float2* ra = xs + (size_t)(2 * yp) * kFSf * Cp + c;
+#pragma unroll
+    for (int k = 0; k < kFSf; ++k) {
+      float2 a, b;
+      split_pair(v, k, a, b);
+      ra[k * Cp] = a;
+      ra[(kFSf + k) * Cp] = b;
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  // 3. Column stage: warp = kx, lane = c.  A thread reads its sixteen slots,
+  // transforms them and writes x^ back to the same slots; |x^|^2 of slot i
+  // (ky = rev16(i)) goes to the channel sum.
+  const int kx = warp;
+  float q[16];
+  if (lane < C) {
+    float2 v[16];
+#pragma unroll
+    for (int y = 0; y < 16; ++y) v[y] = xs[(y * kFSf + kx) * Cp + lane];
+    fft16<false>(v);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      q[i] = v[i].x * v[i].x + v[i].y * v[i].y;
+      xs[(rev16(i) * kFSf + kx) * Cp + lane] = v[i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) q[i] = 0.0f;
+  }
+  // Sum over the channels: reduce-scatter within each half-warp (lane l
+  // ends with slot l & 15), then one exchange across the halves; both
+  // sides of every pair add the same two numbers.
+  scatter_step<8>(q, lane);
+  scatter_step<4>(q, lane);
+  scatter_step<2>(q, lane);
+  scatter_step<1>(q, lane);
+  const float total = q[0] + __shfl_xor_sync(0xffffffffu, q[0], 16);
+  if (lane < 16) kxx[rev16(lane) * kFSf + kx] = total;
+  for (int o = 16; o > 0; o >>= 1) xx += __shfl_xor_sync(0xffffffffu, xx, o);
+  if (lane == 0) red[warp] = xx;
+  __syncthreads();
+
+  // 4. Warps 1-8: the new model row.  Two complex values per 16-byte
+  // access, in the [c, ky, kx] order of device memory; 144 is even, so a
+  // pair stays inside one channel.
+  if (warp != 0) {
+    const int n4 = C * (kFN / 2);
+    const float4* oldp =
+        reinterpret_cast<const float4*>(xf + (size_t)t * C * kFN);
+    float4* newp = reinterpret_cast<float4*>(out_xf + (size_t)t * C * kFN);
+    for (int base = tid - 32; base < n4;
+         base += kStreamLoads * kStreamThreads) {
+      float4 o[kStreamLoads];
+#pragma unroll
+      for (int u = 0; u < kStreamLoads; ++u) {
+        const int idx = base + u * kStreamThreads;
+        if (idx < n4) o[u] = __ldg(oldp + idx);
+      }
+#pragma unroll
+      for (int u = 0; u < kStreamLoads; ++u) {
+        const int idx = base + u * kStreamThreads;
+        if (idx < n4) {
+          const int c = (2 * idx) / kFN;
+          const int r = 2 * idx - c * kFN;       // ky * Sf + kx, even
+          const float2 x0 = xs[r * Cp + c];
+          const float2 x1 = xs[(r + 1) * Cp + c];
+          newp[idx] = make_float4(
+              o[u].x * keep + x0.x * lr, o[u].y * keep + x0.y * lr,
+              o[u].z * keep + x1.x * lr, o[u].w * keep + x1.y * lr);
+        }
+      }
+    }
+    return;
+  }
+
+  // 5. Warp 0: the three small stages.
+  float exx = 0.0f;
+  for (int i = 0; i < kFWarps; ++i) exx += red[i];
+  const float inv_n = 1.0f / (float)(kFS * kFS);
+  const float energies = exx + exx;
+  float2 v[16];
+  // a. sum_c |x^|^2: inverse over ky, a thread per kx.
+  if (lane < kFSf) {
+#pragma unroll
+    for (int ky = 0; ky < 16; ++ky) {
+      v[ky] = make_float2(kxx[ky * kFSf + lane], 0.0f);
+    }
+    fft16<true>(v);
+#pragma unroll
+    for (int y = 0; y < 16; ++y) tmp[y * kFSf + lane] = v[rev16(y)];
+  }
+  __syncwarp();
+  // b. per row pair: inverse rows -> Gaussian kernel -> forward rows.
+  if (lane < kFS / 2) {
+    join_pair(tmp, 2 * lane, 2 * lane + 1, v);
+    fft16<true>(v);
+    float2 k[16];
+#pragma unroll
+    for (int x = 0; x < 16; ++x) {
+      const float2 cross = v[rev16(x)];
+      k[x] = make_float2(
+          expf(-fmaxf(energies - 2.0f * (cross.x * inv_n), 0.0f) / denom),
+          expf(-fmaxf(energies - 2.0f * (cross.y * inv_n), 0.0f) / denom));
+    }
+    fft16<false>(k);
+#pragma unroll
+    for (int kk = 0; kk < kFSf; ++kk) {
+      float2 a, b;
+      split_pair(k, kk, a, b);
+      spec[2 * lane * kFSf + kk] = a;
+      spec[(2 * lane + 1) * kFSf + kk] = b;
+    }
+  }
+  __syncwarp();
+  // c. per kx: forward over y -> alpha^ = y^ / (k^ + lambda) -> blend.
+  if (lane < kFSf) {
+#pragma unroll
+    for (int y = 0; y < 16; ++y) v[y] = spec[y * kFSf + lane];
+    fft16<false>(v);
+    float2* o = out_alphaf + (size_t)t * kFN + lane;
+#pragma unroll
+    for (int ky = 0; ky < 16; ++ky) {
+      const float2 kf = v[rev16(ky)];
+      const float2 y = yfs[ky * kFSf + lane];
+      const float dr = kf.x + lambda;
+      const float inv = 1.0f / fmaxf(dr * dr + kf.y * kf.y, 1e-20f);
+      const float nr = (y.x * dr + y.y * kf.y) * inv;
+      const float ni = (y.y * dr - y.x * kf.y) * inv;
+      const float2 old = alpha[ky * kFSf + lane];
+      o[ky * kFSf] = make_float2(old.x * keep + nr * lr,
+                                 old.y * keep + ni * lr);
+    }
+  }
+}
+
 // Opt `kernel` in to `bytes` of dynamic shared memory (above 48 KB this
 // must be asked for).  The attribute is a ceiling: `prepared` holds, per
 // device, what was last asked for, and it is raised only when a larger
@@ -709,6 +936,7 @@ constexpr int kMaxDevices = 64;
 size_t g_prepared_detect[kMaxDevices] = {};
 size_t g_prepared_fft16[kMaxDevices] = {};
 size_t g_prepared_train[kMaxDevices] = {};
+size_t g_prepared_train16[kMaxDevices] = {};
 
 int prepare(const void* kernel, size_t bytes,
             size_t (&prepared)[kMaxDevices]) {
@@ -731,15 +959,15 @@ bool fft16_shape(int C, int S) { return S == kFS && C >= 1 && C <= kFMaxC; }
 
 }  // namespace
 
-// Dynamic shared memory one CTA of the generic kernels (K5, and K4 where
-// no specialised path applies) needs for C channels of S x S features.
-extern "C" int tpu_mot_kcf_smem_bytes(int C, int S) {
-  return (int)smem_bytes(C, S);
-}
-
 // Dynamic shared memory one CTA of K4 needs (either code path).
 extern "C" int tpu_mot_kcf_detect_smem_bytes(int C, int S) {
   return (int)(fft16_shape(C, S) ? fft16_smem_bytes(C) : smem_bytes(C, S));
+}
+
+// Dynamic shared memory one CTA of K5 needs (either code path).
+extern "C" int tpu_mot_kcf_train_smem_bytes(int C, int S) {
+  return (int)(fft16_shape(C, S) ? train_fft16_smem_bytes(C)
+                                 : smem_bytes(C, S));
 }
 
 // The device's per-block shared-memory limit (opt-in), or -1.
@@ -754,22 +982,18 @@ extern "C" int tpu_mot_kcf_smem_limit() {
   return limit;
 }
 
-// What K4 launches for C channels of S x S features at 16-byte aligned
-// feature and response addresses: info[0] the code path (1 = FFTs in
-// registers, 0 = direct DFTs), info[1] threads per CTA, info[2] registers
-// per thread, info[3] dynamic shared memory per CTA, info[4] CTAs that fit
-// on one SM at once.  Returns a CUDA error code.
-extern "C" int tpu_mot_kcf_detect_info(int C, int S, int* info) {
-  const bool fast = fft16_shape(C, S);
-  const void* kernel = fast ? (const void*)kcf_detect_fft16_kernel
-                            : (const void*)kcf_detect_kernel;
-  const size_t bytes = tpu_mot_kcf_detect_smem_bytes(C, S);
-  const int threads = fast ? kFThreads : kThreads;
+namespace {
+
+// info[0] the code path (1 = FFTs in registers, 0 = direct DFTs), info[1]
+// threads per CTA, info[2] registers per thread, info[3] dynamic shared
+// memory per CTA, info[4] CTAs that fit on one SM at once.  The
+// shared-memory attribute is raised through `prepare` only, never lowered.
+int kernel_info(const void* kernel, bool fast, int threads, size_t bytes,
+                size_t (&prepared)[kMaxDevices], int* info) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
-  const int rc = prepare(kernel, bytes,
-                         fast ? g_prepared_fft16 : g_prepared_detect);
+  const int rc = prepare(kernel, bytes, prepared);
   if (rc != 0) return rc;
   int ctas = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads,
@@ -780,6 +1004,33 @@ extern "C" int tpu_mot_kcf_detect_info(int C, int S, int* info) {
   info[3] = (int)bytes;
   info[4] = ctas;
   return (int)err;
+}
+
+}  // namespace
+
+// What K4 launches for C channels of S x S features at 16-byte aligned
+// feature and response addresses (see kernel_info).  Returns a CUDA error
+// code.
+extern "C" int tpu_mot_kcf_detect_info(int C, int S, int* info) {
+  const size_t bytes = tpu_mot_kcf_detect_smem_bytes(C, S);
+  if (fft16_shape(C, S)) {
+    return kernel_info((const void*)kcf_detect_fft16_kernel, true, kFThreads,
+                       bytes, g_prepared_fft16, info);
+  }
+  return kernel_info((const void*)kcf_detect_kernel, false, kThreads, bytes,
+                     g_prepared_detect, info);
+}
+
+// What K5 launches for C channels of S x S features at 16-byte aligned
+// feature and model addresses (see kernel_info).  Returns a CUDA error code.
+extern "C" int tpu_mot_kcf_train_info(int C, int S, int* info) {
+  const size_t bytes = tpu_mot_kcf_train_smem_bytes(C, S);
+  if (fft16_shape(C, S)) {
+    return kernel_info((const void*)kcf_train_fft16_kernel, true, kFThreads,
+                       bytes, g_prepared_train16, info);
+  }
+  return kernel_info((const void*)kcf_train_kernel, false, kThreads, bytes,
+                     g_prepared_train, info);
 }
 
 // K4.  feat [N, C, S, S] float32; xf [T, C, S, Sf], alphaf [T, S, Sf]
@@ -815,12 +1066,26 @@ extern "C" int tpu_mot_kcf_detect(const void* feat, const void* xf,
 
 // K5.  feat [T, C, S, S] float32; xf, alphaf the old model (complex64);
 // yf [S, Sf] complex64; lr [T] float32; tw [S]; out_xf, out_alphaf the new
-// model.  Returns cudaGetLastError().
+// model, not the old one's memory.  Returns cudaGetLastError().
 extern "C" int tpu_mot_kcf_train(const void* feat, const void* xf,
                                  const void* alphaf, const void* yf,
                                  const void* lr, const void* tw, void* out_xf,
                                  void* out_alphaf, int T, int C, int S,
                                  float denom, float lambda, void* stream) {
+  if (fft16_shape(C, S) && aligned16(feat) && aligned16(xf) &&
+      aligned16(out_xf)) {
+    const size_t bytes = train_fft16_smem_bytes(C);
+    const int rc = prepare((const void*)kcf_train_fft16_kernel, bytes,
+                           g_prepared_train16);
+    if (rc != 0) return rc;
+    kcf_train_fft16_kernel<<<T, kFThreads, bytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(feat), static_cast<const float2*>(xf),
+        static_cast<const float2*>(alphaf), static_cast<const float2*>(yf),
+        static_cast<const float*>(lr), static_cast<float2*>(out_xf),
+        static_cast<float2*>(out_alphaf), C, denom, lambda);
+    return (int)cudaGetLastError();
+  }
   const size_t bytes = smem_bytes(C, S);
   const int rc =
       prepare((const void*)kcf_train_kernel, bytes, g_prepared_train);

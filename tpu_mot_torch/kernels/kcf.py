@@ -26,8 +26,10 @@ from tpu_mot_torch.kernels import _build
 from tpu_mot_torch.ops import kcf as kcf_ops
 
 MAX_S = 64          # direct row/column DFTs: S <= 64
-# K4's code paths (csrc/kcf.cu): chosen by the shape alone, given 16-byte
-# aligned features and response (any tensor torch allocates).
+# K4's and K5's code paths (csrc/kcf.cu: `kcf_detect_kernel` /
+# `kcf_detect_fft16_kernel`, `kcf_train_kernel` / `kcf_train_fft16_kernel`):
+# chosen by the shape alone, given 16-byte aligned features, response and
+# model (any tensor torch allocates).
 PATHS = ("direct DFTs", "FFTs in registers (S = 16, C <= 32)")
 
 # Kernel launches made by `detect_fused` (K4) and `train_fused` (K5):
@@ -88,15 +90,25 @@ def _smem_need(what: str, c: int, s: int) -> int:
     lib = _build.load()
     if what == "detect_fused":
         return lib.tpu_mot_kcf_detect_smem_bytes(c, s)
-    return lib.tpu_mot_kcf_smem_bytes(c, s)
+    return lib.tpu_mot_kcf_train_smem_bytes(c, s)
+
+
+def _launch_info(entry: str, c: int, s: int) -> dict:
+    info = _build.launch_info(getattr(_build.load(), entry), c, s)
+    info["path"] = PATHS[info["path"]]
+    return info
 
 
 def detect_launch_info(c: int, s: int) -> dict:
     """What K4 launches for C channels of S x S features: code path (a name
     from PATHS), threads, registers, shared memory, CTAs per SM."""
-    info = _build.launch_info(_build.load().tpu_mot_kcf_detect_info, c, s)
-    info["path"] = PATHS[info["path"]]
-    return info
+    return _launch_info("tpu_mot_kcf_detect_info", c, s)
+
+
+def train_launch_info(c: int, s: int) -> dict:
+    """What K5 launches for C channels of S x S features, as
+    `detect_launch_info`."""
+    return _launch_info("tpu_mot_kcf_train_info", c, s)
 
 
 def _check_shape(what: str, c: int, s: int) -> None:
@@ -273,17 +285,26 @@ def irfft2_16_mirror(spec: np.ndarray) -> np.ndarray:
 
 
 def reduce_scatter_mirror(q: np.ndarray) -> np.ndarray:
-    """The column stage's sum over channels: q [32 lanes, 32 floats] ->
-    [32], entry l what lane l ends with, the total over the lanes of float
-    l.  At step h = 16, 8, 4, 2, 1 a lane keeps the half of its values
-    that its bit h selects and adds its partner's (lane ^ h) copy."""
+    """The column stage's sum over channels: q [32 lanes, n floats], n = 32
+    (K4: complex products) or 16 (K5: |x^|^2 is real) -> [32], entry l what
+    lane l ends with, the total over the lanes of float l % n.  At step
+    h = n/2, ..., 2, 1 a lane keeps the half of its values that its bit h
+    selects and adds its partner's (lane ^ h) copy; for n = 16 the two
+    half-warps then exchange their totals (h = 16)."""
     q = q.copy()
+    n = q.shape[1]
     lanes = np.arange(32)
-    for h in (16, 8, 4, 2, 1):
+    h = n // 2
+    while h:
         up = (lanes & h) != 0
         send = np.where(up[:, None], q[:, :h], q[:, h:2 * h])
         keep = np.where(up[:, None], q[:, h:2 * h], q[:, :h])
         q[:, :h] = keep + send[lanes ^ h]
+        h //= 2
+    h = n
+    while h < 32:
+        q[:, 0] = q[:, 0] + q[lanes ^ h, 0]
+        h *= 2
     return q[:, 0]
 
 
@@ -315,3 +336,50 @@ def detect_fft16_mirror(xf: np.ndarray, alphaf: np.ndarray,
     k = np.exp(-np.maximum(energies - np.float32(2.0) * cross, 0) / denom)
     kf = rfft2_16_mirror(k.astype(np.float32))
     return irfft2_16_mirror((kf * alphaf[rows]).astype(np.complex64))
+
+
+def train_fft16_mirror(xf: np.ndarray, alphaf: np.ndarray, feat: np.ndarray,
+                       yf: np.ndarray, sigma: float, lambda_: float,
+                       lr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """K5's S = 16 path in numpy float32, stage by stage: feat [T, C, 16,
+    16], the old model xf [T, C, 16, 9] and alphaf [T, 16, 9], yf [16, 9],
+    lr [T] -> the new (xf, alphaf).  x's energy comes from the features
+    (as the kernel's row stage sums it), the channel sum of |x^|^2 goes
+    through `reduce_scatter_mirror` with slot i of a lane holding
+    ky = REV16[i], and both blends are old (1 - lr) + new lr on the real
+    and imaginary parts."""
+    t, c = feat.shape[:2]
+    feat = feat.astype(np.float32)
+    lr = lr.astype(np.float32)
+    keep = np.float32(1.0) - lr
+
+    def blend(old, new, shape):
+        k, w = keep.reshape(shape), lr.reshape(shape)
+        return ((old.real * k + new.real * w)
+                + 1j * (old.imag * k + new.imag * w)).astype(np.complex64)
+
+    xhat = _columns(_rows_forward(feat), inverse=False)    # [T, C, 16, 9]
+    new_xf = blend(xf.astype(np.complex64), xhat, (t, 1, 1, 1))
+    lanes = np.zeros((t, 32, 16, 9), np.float32)
+    lanes[:, :c] = xhat.real ** 2 + xhat.imag ** 2
+    # warp = kx, lane = channel, slot i of a lane = ky REV16[i]
+    q = lanes[:, :, list(REV16), :].transpose(0, 3, 1, 2)  # [T, 9, 32, 16]
+    tot = np.stack([[reduce_scatter_mirror(q[i, kx]) for kx in range(9)]
+                    for i in range(t)])                    # [T, 9, 32]
+    kxx = np.empty((t, 16, 9), np.float32)
+    kxx[:, list(REV16), :] = tot[:, :, :16].transpose(0, 2, 1)
+    xx = np.sum(feat ** 2, axis=(1, 2, 3))
+    energies = (xx + xx)[:, None, None]
+    cross = irfft2_16_mirror(kxx.astype(np.complex64))
+    denom = np.float32(sigma * sigma * (256 * c))
+    k = np.exp(-np.maximum(energies - np.float32(2.0) * cross, 0) / denom)
+    kf = rfft2_16_mirror(k.astype(np.float32))
+    dr = kf.real + np.float32(lambda_)
+    inv = np.float32(1.0) / np.maximum(dr * dr + kf.imag * kf.imag,
+                                       np.float32(1e-20))
+    y = yf.astype(np.complex64)
+    alpha = ((y.real * dr + y.imag * kf.imag) * inv
+             + 1j * ((y.imag * dr - y.real * kf.imag) * inv))
+    new_alphaf = blend(alphaf.astype(np.complex64),
+                       alpha.astype(np.complex64), (t, 1, 1))
+    return new_xf, new_alphaf

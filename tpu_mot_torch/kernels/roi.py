@@ -13,7 +13,11 @@ are truncated exactly as on the TPU.  All of that coordinate math is
 `sample_coords` (`sample_coords_scales` for K3), shared by the kernel and
 its plain version; they differ only in the resample.  The plain version
 forms the TPU kernel's one-hot hat-weight matmuls W_y . block . W_x^T; the
-kernel evaluates the equal 4-tap form.
+kernels evaluate the equal 4-tap form, which `four_tap_mirror` repeats in
+torch so that the CPU tests can hold the kernels' tap rules to the plain
+version.  K1 runs one CTA per track; K3 runs one CTA per (track, scale, row
+tile) with the tile's taps in a shared-memory table, S = 64 compiled in
+and any other S up to `max_scales_s()` read at run time (`SCALES_PATHS`).
 
 u8 frames keep a u8 pyramid with the 1/255 dequantization folded into the
 resample weights, as in JAX.  Float frames get a float32 pyramid (the JAX
@@ -269,6 +273,76 @@ def _resample_scales_ref(levels, frame_hw, lvl, r0, c0, ys, xs
                         for k in range(ys.shape[0])])
 
 
+def four_tap_mirror(levels, frame_hw, lvl, r0, c0, ys, xs) -> torch.Tensor:
+    """The CUDA kernels' arithmetic (csrc/roi.cu: `tap_of` and the 4-tap
+    sum) in torch float32, on [K, T, S] level coordinates -> [K, T, S, S].
+
+    Per axis a coordinate gives two taps: block-local y = coord - origin,
+    taps floor(y) and floor(y) + 1 with hat weights max(0, 1 - |y - tap|);
+    a tap outside the block [origin, origin + blk) or past the level's true
+    extent gets weight 0 and its read is clamped into the level; u8
+    pyramids fold 1/255 into the row weights.  An output is
+    (rw0 p00 + rw1 p10) cw0 + (rw0 p01 + rw1 p11) cw1, each product and sum
+    rounded to float32 as the kernels round them."""
+    ext = torch.tensor(level_extents(*frame_hw), dtype=torch.int64,
+                       device=ys.device)
+    li = lvl.long()
+    lh, lw = ext[li, 0], ext[li, 1]                          # [T]
+
+    def taps(coord, origin, blk, extent):
+        origin = origin.long()[None, :, None]
+        extent = extent[None, :, None]
+        y = coord - origin.to(torch.float32)
+        f = torch.floor(y)
+        a = f.long()
+        out = []
+        for tap, tf in ((a, f), (a + 1, f + 1.0)):
+            valid = (tap >= 0) & (tap < blk) & (origin + tap < extent)
+            w = torch.clamp_min(1.0 - torch.abs(y - tf), 0.0)
+            g = torch.minimum(torch.clamp_min(origin + tap, 0), extent - 1)
+            out.append((g, torch.where(valid, w, torch.zeros_like(w))))
+        return out
+
+    (ri0, rw0), (ri1, rw1) = taps(ys, r0, BLK_ROWS, lh)
+    (ci0, cw0), (ci1, cw1) = taps(xs, c0, BLK_COLS, lw)
+    if levels[0].dtype == torch.uint8:
+        rw0 = rw0 * (1.0 / 255.0)
+        rw1 = rw1 * (1.0 / 255.0)
+    # All levels as one flat image; a track reads at its level's offset.
+    flat = torch.cat([lv.reshape(-1).to(torch.float32) for lv in levels])
+    sizes = ext[:, 0] * ext[:, 1]
+    offset = (torch.cumsum(sizes, 0) - sizes)[li][None, :, None, None]
+    stride = lw[None, :, None, None]
+
+    def pixel(rows, cols):
+        return flat[offset + rows[..., :, None] * stride + cols[..., None, :]]
+
+    rw0, rw1 = rw0[..., :, None], rw1[..., :, None]
+    t0 = rw0 * pixel(ri0, ci0) + rw1 * pixel(ri1, ci0)
+    t1 = rw0 * pixel(ri0, ci1) + rw1 * pixel(ri1, ci1)
+    return t0 * cw0[..., None, :] + t1 * cw1[..., None, :]
+
+
+# K3's code paths (csrc/roi.cu, `roi_scales_kernel`), chosen by S alone.
+SCALES_PATHS = ("row tiles, S read at run time", "row tiles, S = 64")
+
+
+@functools.lru_cache(maxsize=None)
+def max_scales_s() -> int:
+    """The largest template size S that K3 takes."""
+    return _build.load().tpu_mot_roi_scales_max_s()
+
+
+def scales_launch_info(u8: bool, s: int) -> dict:
+    """What K3 launches for S x S templates from a u8 or float32 pyramid:
+    code path (a name from SCALES_PATHS), threads, registers, shared
+    memory, CTAs per SM."""
+    info = _build.launch_info(_build.load().tpu_mot_roi_scales_info,
+                              int(u8), s)
+    info["path"] = SCALES_PATHS[info["path"]]
+    return info
+
+
 def _launch(what, entry, levels, frame_hw, lvl, r0, c0, ys, xs, out,
             *dims) -> None:
     """Check what the kernels take and launch `entry` on the current
@@ -324,6 +398,9 @@ def _resample_scales_cuda(levels, frame_hw, lvl, r0, c0, ys, xs
     out = torch.empty((k, t, s, s), dtype=torch.float32, device=ys.device)
     if t == 0 or k == 0:
         return out
+    if not 1 <= s <= max_scales_s():
+        raise ValueError(f"extract_patches_scales: template size S={s} "
+                         f"outside 1..{max_scales_s()}")
     _launch("extract_patches_scales", "tpu_mot_roi_extract_scales", levels,
             frame_hw, lvl, r0, c0, ys, xs, out, t, k, s)
     launches_scales += 1

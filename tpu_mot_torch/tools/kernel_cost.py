@@ -1,5 +1,6 @@
 """Costs of the redesigned kernels' launches on one CUDA card: the auction
-kernel (K2) by rounds, and the host cost of the K2, K4 and K5 wrappers.
+kernel (K2) by rounds, the host cost of the K2, K3, K4 and K5 wrappers, and
+the 3-scale ROI kernel (K3) and the fused train kernel (K5) by size.
 
     python -m tpu_mot_torch.tools.kernel_cost [n]
 
@@ -8,21 +9,31 @@ kernel (K2) by rounds, and the host cost of the K2, K4 and K5 wrappers.
    0, 1, 2, ... rounds up to its full solve, and prints the profiler's
    device time per call at each cap: the time at 0 rounds is launch and
    staging alone, the differences are the rounds.
-2. Calls `auction_solve` (that matrix), `detect_fused` ([384, 31, 16, 16]
-   against 128 model rows) and `train_fused` ([128, 31, 16, 16]) 2000
-   times each, back to back on seeded random inputs, and prints the wall
+2. Calls `auction_solve` (that matrix), the 3-scale ROI resample (128
+   seeded boxes of 24-64 px x 3 scales on a seeded 1080p u8 pyramid, S =
+   64; the resample wrapper alone, its coordinates made once),
+   `detect_fused` ([384, 31, 16, 16] against 128 model rows) and
+   `train_fused` ([128, 31, 16, 16]) 2000 times each, back to back on
+   seeded random inputs, and prints the wall
    time per call with one synchronise at the end.  Where a call's host work
    (argument checks, ctypes, the launch) takes longer than its kernel, the
    stream runs dry between launches and this is the wrapper's host cost;
    the device time per call is printed beside it to tell the cases apart.
 
-It uses only the wrappers' public signatures, so it times whichever
+3. Runs K3 at 43, 128 and 384 tracks x 3 scales and K5 at 32, 128, 264
+   and 396 tracks (one CTA per track: 128 is under one CTA per SM, 396
+   three) and prints the profiler's device time per call: a time that
+   does not grow with the size is launch and the latency of one CTA's
+   chain, the growth is throughput.
+
+It uses only the wrappers' signatures, so it times whichever
 tpu_mot_torch package is first on the path: run it by path with PYTHONPATH
 set to another checkout to time that one.
 """
 
 from __future__ import annotations
 
+import math
 import statistics
 import subprocess
 import sys
@@ -33,7 +44,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from tpu_mot_torch.kernels import auction, kcf
+from tpu_mot_torch.kernels import auction, kcf, roi
 from tpu_mot_torch.ops import assignment, iou
 from tpu_mot_torch.ops import kcf as kcf_ops
 
@@ -60,11 +71,13 @@ def benefits(n_det: int, dev) -> torch.Tensor:
 
 def device_ms(fn) -> float:
     """Device ms per call from the profiler.  It now and then loses records
-    for a few passes in a row; a pass counts only if every kernel kind was
-    recorded a whole number of times per call."""
+    for some passes in a row; a pass counts only if every kernel kind was
+    recorded a whole number of times per call, or, after ten passes, if it
+    lost under a tenth of each kind's records (a kind's time per call is
+    then its mean recorded time times its launches per call)."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(30):
+    for attempt in range(30):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(REPS):
@@ -75,6 +88,11 @@ def device_ms(fn) -> float:
                 and e.self_device_time_total > 0]
         if rows and all(e.count % REPS == 0 for e in rows):
             return sum(e.self_device_time_total for e in rows) / 1e3 / REPS
+        per_call = [math.ceil(e.count / REPS) for e in rows]
+        if attempt >= 10 and rows and all(
+                e.count >= 0.9 * n * REPS for e, n in zip(rows, per_call)):
+            return sum(e.self_device_time_total / e.count * n
+                       for e, n in zip(rows, per_call)) / 1e3
         time.sleep(0.05)
     raise RuntimeError("the profiler lost device records in 30 passes")
 
@@ -105,32 +123,73 @@ def rounds_part(b: torch.Tensor, eps: float) -> None:
         last = ms
 
 
+HW = (1080, 1920)
+C, S = 31, 16       # fHOG-31 at cell size 4 on a 64 x 64 template
+
+
+def kcf_inputs(rng, t: int, dev):
+    """A trained bank of t rows, fresh features [3t, ...] and [t, ...], yf
+    and a per-track learning rate."""
+    def features(n):
+        return torch.as_tensor(
+            rng.standard_normal((n, C, S, S)).astype(np.float32) * 0.3,
+            device=dev)
+
+    yf = kcf_ops.make_yf(S, 2.5, 0.125, device=dev)
+    model = kcf_ops.KCFModel(*[x.contiguous() for x in kcf_ops.train(
+        features(t), yf, 0.2, 1e-4)])
+    return (model, features(3 * t), features(t), yf,
+            torch.full((t,), 0.075, device=dev))
+
+
+def roi_inputs(rng, t: int, dev):
+    """A seeded 1080p u8 pyramid and the 3-scale coordinates of t boxes of
+    24-64 px."""
+    levels = roi.build_pyramid(torch.as_tensor(
+        rng.integers(0, 256, HW, dtype=np.uint8), device=dev))
+    boxes = torch.as_tensor(np.stack(
+        [rng.uniform(0, HW[1], t), rng.uniform(0, HW[0], t),
+         rng.uniform(24, 64, t), rng.uniform(24, 64, t)],
+        axis=1).astype(np.float32), device=dev)
+    return levels, roi.sample_coords_scales(boxes, 2.5, 64,
+                                            (1 / 1.05, 1.0, 1.05), HW)
+
+
 def wrappers_part(b: torch.Tensor, eps: float) -> None:
     dev = b.device
     rng = np.random.default_rng(0)
-    t, c, s = 128, 31, 16
-
-    def features(n):
-        return torch.as_tensor(
-            rng.standard_normal((n, c, s, s)).astype(np.float32) * 0.3,
-            device=dev)
-
-    yf = kcf_ops.make_yf(s, 2.5, 0.125, device=dev)
-    model = kcf_ops.KCFModel(*[x.contiguous() for x in kcf_ops.train(
-        features(t), yf, 0.2, 1e-4)])
-    feat3, feat1 = features(3 * t), features(t)
-    lr = torch.full((t,), 0.075, device=dev)
+    t = 128
+    model, feat3, feat1, yf, lr = kcf_inputs(rng, t, dev)
+    levels, coords = roi_inputs(rng, t, dev)
     for name, fn in (
             (f"auction_solve n={b.shape[0]}",
              lambda: auction.auction_solve(b, eps, 2000)),
-            ("detect_fused [384, 31, 16, 16]",
+            (f"3-scale ROI resample [3, {t}, 64, 64] u8 1080p",
+             lambda: roi._resample_scales_cuda(levels, HW, *coords)),
+            (f"detect_fused [{3 * t}, {C}, {S}, {S}]",
              lambda: kcf.detect_fused(model, feat3, 0.2)),
-            ("train_fused [128, 31, 16, 16]",
+            (f"train_fused [{t}, {C}, {S}, {S}]",
              lambda: kcf.train_fused(model, feat1, yf, 0.2, 1e-4, lr))):
         runs = wall_us(fn)
         print(f"{name}: {statistics.median(runs):.2f} us per call back to "
               f"back (median of {[round(r, 2) for r in runs]}); device "
               f"{1000 * device_ms(fn):.2f} us per call")
+
+
+def sizes_part(dev) -> None:
+    rng = np.random.default_rng(1)
+    for t in (43, 128, 384):
+        levels, coords = roi_inputs(rng, t, dev)
+        ms = device_ms(lambda: roi._resample_scales_cuda(levels, HW,
+                                                         *coords))
+        print(f"3-scale ROI resample [3, {t}, 64, 64]: device "
+              f"{1000 * ms:.2f} us per call")
+    for t in (32, 128, 264, 396):
+        model, _, feat, yf, lr = kcf_inputs(rng, t, dev)
+        ms = device_ms(lambda: kcf.train_fused(model, feat, yf, 0.2, 1e-4,
+                                               lr))
+        print(f"train_fused [{t}, {C}, {S}, {S}]: device {1000 * ms:.2f} us "
+              "per call")
 
 
 def main() -> int:
@@ -146,6 +205,7 @@ def main() -> int:
     b = benefits(n_det, torch.device("cuda:0"))
     rounds_part(b, assignment.DEFAULT_EPS)
     wrappers_part(b, assignment.DEFAULT_EPS)
+    sizes_part(b.device)
     return 0
 
 
