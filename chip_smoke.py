@@ -7,8 +7,12 @@ nonzero exit, no "ok" line):
   device     a CUDA card, its name and power limit (nvidia-smi);
   build      nvcc builds tpu_mot_torch/csrc, one process per source;
   roi        K1 (ROI kernel) against its plain version on a 1080p u8 bench
-             frame, the fixture's 128 first-frame boxes plus edge cases,
-             u8 and f32 pyramids (max |diff| 1e-5);
+             frame: the fixture's 128 first-frame boxes, the edge cases, 37
+             seeded boxes (a ragged T) at S = 64, 48 and 30, and the
+             single-object bank's 3-scale call (the 128 boxes x 3 per-track
+             scales, 384 rows), u8 and f32 pyramids: max |diff| 1e-5 and
+             bit-equal to the kernel's torch mirror (four_tap_mirror); the
+             code path of each case is printed and asserted;
   roi3       K3 (3-scale ROI kernel) against its plain version: the 128
              bench boxes at scales 1/1.05, 1, 1.05, plus the edge cases
              and a box straddling a level boundary, and 37 seeded boxes
@@ -37,16 +41,39 @@ nonzero exit, no "ok" line):
              the same fixture: the MOTA gate, the exact launch counts, and
              ids, valid and boxes per frame against a dump of the JAX run
              (tests/golden/bench_heavy_jax_v1.npz);
-  times      run_sequence frames/s (default: median of 5; H, HF: median of
-             3); each kernel against its plain version: the median ms per
-             call from a CUDA event pair around each call
+  e2e-assoc  the association branches on a class fixture (three detector
+             classes, 6-column detections) in modes A (class-aware, so
+             assoc_box "best", with the appearance blend) and AW (A with the
+             warm-started auction): the MOTA gate against the JAX run's MOTA,
+             exact launches (A: K1 and K2 64 each; AW: K1 64, K2 none: the
+             warm auction is plain torch), every valid track's class equal
+             to its matched detection's, ids and valid per frame equal to a
+             dump of the JAX run (tests/golden/bench_assoc_jax_v1.npz) with
+             boxes within 0.05 px, and AW's auction rounds and host-side
+             loop checks per frame;
+  kcf-bank   the single-object flow: KCFTracker (T = 1) on a 480 x 640 clip
+             of 100 frames (centre error under 2 px, exactly 1 + 2 x 99 K1
+             launches), then a bank of the bench fixture's 128 first-frame
+             boxes through run_otb_sequence over the 64 frames, gray with
+             refined- and detect-site training and fHOG-31 + 3-scale
+             refined: exact K1 launches, mean IoU with the ground truth at
+             least the JAX CPU run's less 0.02, and each frame's boxes
+             within 0.05 px of a step from the same bank with K1's plain
+             version in K1's place (a free run with the plain version is
+             printed beside it: lost slots drift apart by pixels);
+  times      run_sequence frames/s (default: median of 5; H, HF, A, AW:
+             median of 3); each kernel against its plain version: the
+             median ms per call from a CUDA event pair around each call
              (plain/kernel/kernel/plain; it includes the wrapper's host
              time, which bounds a short kernel) and the device ms per call
              from the profiler; the least time the card could take (bound);
              K2 also on the init frame's matrix and capped at 0 rounds
-             (launch and staging alone); for K2-K5 the code path,
-             registers, shared memory and CTAs per SM;
-  profile    where device time goes over 16 frames, default and HF.
+             (launch and staging alone); K1 also at one track (one CTA) and
+             at 384 rows; build_pyramid at 1080p, float32 and u8; for every
+             kernel the code path, registers, shared memory and CTAs per SM;
+  profile    where device time goes over 16 frames, default, HF and AW, and
+             how often the host reads a device scalar (AW: the warm
+             auction's loop checks).
 The line before the last is {"kernels": [...]}: per kernel its launches
 in the path that runs it (K1, K2: default; K3-K5: HF), "max_abs_err" the
 largest difference from the plain version (K2: in col_of and iters; K4,
@@ -79,8 +106,10 @@ from tpu_mot_torch.kernels import roi as roi_k
 from tpu_mot_torch.ops import assignment
 from tpu_mot_torch.ops import features as feat_ops
 from tpu_mot_torch.ops import kcf as kcf_ops
+from tpu_mot_torch.ops import patch as patch_ops
 from tpu_mot_torch.tracker import api
 from tpu_mot_torch.tracker import bank as bank_mod
+from tpu_mot_torch.tracker import kcf_bank
 from tpu_mot_torch.tracker import scan
 from tpu_mot_torch.utils import metrics
 
@@ -107,6 +136,31 @@ HEAVY = {"H": {}, "HF": dict(kcf_impl="pallas", train_site="refined")}
 # with `python tests/test_torch_heavy.py regen-bench-dump`.
 HEAVY_DUMP = (Path(__file__).resolve().parent / "tests" / "golden"
               / "bench_heavy_jax_v1.npz")
+
+# The association configurations on a class fixture (three detector
+# classes, 6-column detections): A = class-aware matching (so assoc_box
+# resolves to "best") with the appearance blend, AW = A with the warm-started
+# auction.  ASSOC_M_REF is the JAX reference's MOTA (tpu_mot on the CPU,
+# roi_impl="pallas") and ASSOC_DUMP its ids, valid, boxes and cls; both come
+# from `python tests/test_torch_assoc.py regen-bench-dump`.
+ASSOC_BASE = dict(class_aware=True, appearance_weight=0.3)
+ASSOC = {"A": {}, "AW": dict(auction_warm_start=True)}
+ASSOC_M_REF = {"A": 0.984375, "AW": 0.984375}
+ASSOC_DUMP = HEAVY_DUMP.with_name("bench_assoc_jax_v1.npz")
+
+# The single-object flow as a bank of the bench fixture's 128 first-frame
+# boxes, tracked by correlation alone: KCFConfig arguments and train site.
+# KCF_BANK_IOU_REF is the mean IoU with the ground truth of the JAX
+# reference (tpu_mot on the CPU, where it samples full resolution), from
+# `python tests/test_torch_kcf_bank.py bench-ref`.
+KCF_BANK = {"gray refined": ({}, "refined"), "gray detect": ({}, "detect"),
+            "heavy refined": (HEAVY_KCF, "refined")}
+KCF_BANK_IOU_REF = {"gray refined": 0.76836115, "gray detect": 0.78892004,
+                    "heavy refined": 0.64376354}
+# px, one bank step with K1 against one with K1's plain version, and the
+# share of slot-frames that may exceed it by a tied peak
+BANK_TOL = 0.05
+BANK_TIES = 1e-3
 
 # Published H100 SXM peaks (the least-time bound of each kernel).
 HBM_BYTES_PER_S = 3.35e12
@@ -157,6 +211,27 @@ def bench_fixture():
         d[f], v[f] = api.pad_detections(dets_list[f], cfg.max_detections)
     frames_u8 = (frames * 255).astype(np.uint8)
     return frames_u8, d, v, boxes, vis, dets_list, cfg
+
+
+def assoc_fixture():
+    """The bench frame size and capacities with three object classes:
+    (frames u8, dets [N, D, 6], valid, gt boxes, visibility, classes [K],
+    the base config of A and AW)."""
+    objs = synthetic.make_objects(N_OBJ, HEIGHT, WIDTH,
+                                  np.random.default_rng(0), n_classes=3)
+    frames, boxes, vis = synthetic.render_sequence(
+        objs, N_FRAMES, HEIGHT, WIDTH, seed=0, noise=0.01)
+    classes = np.array([o.cls for o in objs])
+    dets_list = synthetic.detections_from_gt(
+        boxes, vis, seed=0, frame_hw=(HEIGHT, WIDTH), classes=classes)
+    cfg = TrackerConfig(max_tracks=128, max_detections=160,
+                        frame_height=HEIGHT, frame_width=WIDTH, **ASSOC_BASE)
+    d = np.zeros((N_FRAMES, cfg.max_detections, 6), np.float32)
+    v = np.zeros((N_FRAMES, cfg.max_detections), bool)
+    for f in range(N_FRAMES):
+        d[f], v[f] = api.pad_detections(dets_list[f], cfg.max_detections,
+                                        width=6)
+    return (frames * 255).astype(np.uint8), d, v, boxes, vis, classes, cfg
 
 
 def heavy_config(cfg: TrackerConfig, name: str) -> TrackerConfig:
@@ -290,30 +365,60 @@ def fft_flops(s: int) -> float:
     return 2.5 * n * math.log2(n)
 
 
+def ragged_boxes(dev) -> torch.Tensor:
+    """A T that no tile or warp size divides (37): boxes of 8-400 px
+    anywhere on the frame (every level), the straddling box last."""
+    rng = np.random.default_rng(3)
+    return torch.as_tensor(np.concatenate([np.stack(
+        [rng.uniform(0, WIDTH, 36), rng.uniform(0, HEIGHT, 36),
+         rng.uniform(8, 400, 36), rng.uniform(8, 400, 36)],
+        axis=1).astype(np.float32), STRADDLE]), device=dev)
+
+
 def phase_roi(dev, frame_u8, boxes0):
     levels_u8 = roi_k.build_pyramid(frame_u8)
     gray = frame_u8.to(torch.float32) / 255.0
     levels_f32 = roi_k.build_pyramid(gray)
     hw = (HEIGHT, WIDTH)
+    ragged = ragged_boxes(dev)
+    # The single-object bank's 3-scale call: the boxes three times,
+    # scale-major, with a per-track scale.
+    scales3 = torch.tensor(SCALES, dtype=torch.float32,
+                           device=dev).repeat_interleave(boxes0.shape[0])
+    cases = (("bench", boxes0, 64, None),
+             ("edges", torch.as_tensor(edge_boxes(), device=dev), 64, None),
+             ("ragged", ragged, 64, None), ("ragged", ragged, 48, None),
+             ("ragged", ragged, 30, None),
+             ("bench x 3 scales", boxes0.repeat(3, 1), 64, scales3))
     max_err = 0.0
     for pyr_name, levels in (("u8", levels_u8), ("f32", levels_f32)):
-        for box_name, b in (("bench", boxes0),
-                            ("edges", torch.as_tensor(edge_boxes(),
-                                                      device=dev))):
-            got = roi_k.extract_patches(None, b, 2.5, 64, levels=levels,
-                                        frame_hw=hw)
-            want = roi_k.extract_patches_ref(None, b, 2.5, 64, levels=levels,
-                                             frame_hw=hw)
+        for box_name, b, s, scales in cases:
+            info = roi_k.launch_info(pyr_name == "u8", s)
+            got = roi_k.extract_patches(None, b, 2.5, s, levels=levels,
+                                        frame_hw=hw, scales=scales)
+            want = roi_k.extract_patches_ref(None, b, 2.5, s, levels=levels,
+                                             frame_hw=hw, scales=scales)
+            lvl, r0, c0, ys, xs = roi_k.sample_coords(b, 2.5, s, hw, scales)
+            mirror = roi_k.four_tap_mirror(levels, hw, lvl, r0, c0, ys[None],
+                                           xs[None])[0]
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
-            lv = sorted(set(roi_k.sample_coords(b, 2.5, 64, hw)[0].tolist()))
-            if not (err <= ROI_TOL and torch.isfinite(got).all().item()):
-                raise AssertionError(f"ROI kernel {pyr_name}/{box_name}: max "
-                                     f"|kernel - plain| {err} > {ROI_TOL}")
-            max_err = max(max_err, err)
+            same = torch.equal(got, mirror)
+            lv = sorted(set(lvl.tolist()))
             log("roi", f"{pyr_name} pyramid, {box_name} boxes "
-                       f"T={b.shape[0]} levels {lv}: max |kernel - plain| "
-                       f"{err:.3g}")
+                       f"T={b.shape[0]} S={s} levels {lv} by "
+                       f"{info['path']}: max |kernel - plain| {err:.3g}; "
+                       f"bit-equal to the 4-tap mirror: {same}")
+            if not (err <= ROI_TOL and same
+                    and got.shape == (b.shape[0], s, s)
+                    and torch.isfinite(got).all().item()
+                    and info["path"] == roi_k.SCALES_PATHS[s == 64]
+                    and info["threads"] == 256):
+                raise AssertionError(
+                    f"ROI kernel {pyr_name}/{box_name} S={s}: max |kernel - "
+                    f"plain| {err} (limit {ROI_TOL}), equal to the mirror "
+                    f"{same}, launch {info}")
+            max_err = max(max_err, err)
     return levels_u8, levels_f32, max_err
 
 
@@ -321,13 +426,7 @@ def phase_roi3(dev, levels_u8, levels_f32, boxes0):
     hw = (HEIGHT, WIDTH)
     extra = torch.as_tensor(np.concatenate([edge_boxes(), STRADDLE]),
                             device=dev)
-    # A T that no tile or warp size divides, boxes of 8-400 px anywhere on
-    # the frame (every level), the straddling box last.
-    rng = np.random.default_rng(3)
-    ragged = torch.as_tensor(np.concatenate([np.stack(
-        [rng.uniform(0, WIDTH, 36), rng.uniform(0, HEIGHT, 36),
-         rng.uniform(8, 400, 36), rng.uniform(8, 400, 36)],
-        axis=1).astype(np.float32), STRADDLE]), device=dev)
+    ragged = ragged_boxes(dev)
     max_err = 0.0
     for pyr_name, levels in (("u8", levels_u8), ("f32", levels_f32)):
         for box_name, b in (("bench", boxes0), ("edges+straddle", extra),
@@ -580,6 +679,15 @@ def score(out, gt_boxes, vis):
     return hyp, metrics.clear_mot(gt, hyp)["mota"], metrics.hota(gt, hyp)
 
 
+def class_mismatches(out, d) -> int:
+    """Valid tracks with a match whose class is not their matched
+    detection's, over a stacked StepOutput and its detections [N, D, 6]."""
+    matched = out.valid & (out.matched_det >= 0)
+    det_cls = torch.round(d[..., 5]).to(torch.int32)
+    at = det_cls.gather(1, out.matched_det.long().clamp_min(0))
+    return int((matched & (out.cls != at)).sum())
+
+
 def counted_run(frames, d, v, cfg):
     """run_sequence with every launch count set to 0 just before it and
     read just after."""
@@ -683,6 +791,245 @@ def phase_e2e_heavy(frames, d, v, cfg, gt_boxes, vis):
     return launches
 
 
+def phase_e2e_assoc(frames, d, v, cfg, gt_boxes, vis):
+    """A and AW on the class fixture: the MOTA gate, exact launches, every
+    valid track's class, and the JAX run's dump."""
+    dump = np.load(ASSOC_DUMP)
+    for name, extra in ASSOC.items():
+        acfg = cfg.replace(**extra)
+        assignment.warm_checks = 0
+        out, counts, wall = counted_run(frames, d, v, acfg)
+        checks = assignment.warm_checks
+        want = {k: 0 for k in KERNELS}
+        want.update(roi_extract=N_FRAMES,
+                    auction_solve=0 if acfg.auction_warm_start else N_FRAMES)
+        log("e2e-assoc", f"{name}: run_sequence {N_FRAMES} frames in "
+                         f"{wall:.3f} s (first run); kernel launches "
+                         f"{counts}; assoc_box {acfg.assoc_box_resolved}")
+        if counts != want:
+            raise AssertionError(f"{name}: expected launches {want}, got "
+                                 f"{counts}")
+        check_output(out, acfg, f"e2e-assoc {name}")
+        _, mota, h_all = score(out, gt_boxes, vis)
+        log("e2e-assoc", f"{name}: MOTA {mota} (JAX reference "
+                         f"{ASSOC_M_REF[name]}), HOTA {h_all['hota']}, DetA "
+                         f"{h_all['deta']}, AssA {h_all['assa']}, LocA "
+                         f"{h_all['loca']}")
+        if not mota >= ASSOC_M_REF[name] - 0.01:
+            raise AssertionError(f"{name}: MOTA {mota} < "
+                                 f"{ASSOC_M_REF[name]} - 0.01")
+        wrong = class_mismatches(out, d)
+        matched = int((out.valid & (out.matched_det >= 0)).sum())
+        classes = sorted(set(out.cls[out.valid].tolist()))
+        log("e2e-assoc", f"{name}: {matched} valid matched slot-frames, "
+                         f"{wrong} with a class other than their "
+                         f"detection's; classes tracked {classes}")
+        if wrong or classes != [0, 1, 2]:
+            raise AssertionError(f"{name}: {wrong} class mismatches, classes "
+                                 f"{classes}")
+        iters = out.assign_iters.cpu().numpy().astype(int)
+        log("e2e-assoc", f"{name}: auction rounds per frame: median "
+                         f"{statistics.median(iters.tolist())}, max "
+                         f"{iters.max()} (frame 0: {iters[0]}); loop checks "
+                         f"on the host (one sync each): {checks} in "
+                         f"{N_FRAMES} frames")
+        if bool(checks) != acfg.auction_warm_start:
+            raise AssertionError(f"{name}: {checks} warm-auction checks")
+        key = name.lower()
+        ids = out.ids.cpu().numpy()
+        valid = out.valid.cpu().numpy()
+        boxes = out.boxes.cpu().numpy()
+        same = [bool(np.array_equal(ids[f], dump[f"{key}_ids"][f])
+                     and np.array_equal(valid[f], dump[f"{key}_valid"][f]))
+                for f in range(N_FRAMES)]
+        both = valid & dump[f"{key}_valid"]
+        box_diff = float(np.abs(boxes - dump[f"{key}_boxes"])[both].max())
+        cls_same = bool(np.array_equal(out.cls.cpu().numpy()[both],
+                                       dump[f"{key}_cls"][both]))
+        iters_same = int((iters == dump[f"{key}_iters"]).sum())
+        log("e2e-assoc", f"{name}: against the JAX run's dump, ids and valid "
+                         f"equal on {sum(same)}/{N_FRAMES} frames; largest "
+                         f"box difference on slots valid in both "
+                         f"{box_diff:.3g} px; classes equal: {cls_same}; "
+                         f"auction rounds equal on {iters_same}/{N_FRAMES} "
+                         "frames")
+        if not all(same):
+            first = same.index(False)
+            slots = np.where((ids[first] != dump[f"{key}_ids"][first])
+                             | (valid[first]
+                                != dump[f"{key}_valid"][first]))[0]
+            raise AssertionError(f"{name}: frame {first} differs from the "
+                                 f"JAX run at slots {slots.tolist()}")
+        if not (box_diff <= 0.05 and cls_same):
+            raise AssertionError(f"{name}: boxes differ from the JAX run by "
+                                 f"{box_diff} px (limit 0.05), classes equal "
+                                 f"{cls_same}")
+
+
+def box_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """IoU of paired (cx, cy, w, h) boxes [..., 4]."""
+    lo = np.maximum(a[..., :2] - a[..., 2:] / 2, b[..., :2] - b[..., 2:] / 2)
+    hi = np.minimum(a[..., :2] + a[..., 2:] / 2, b[..., :2] + b[..., 2:] / 2)
+    inter = np.prod(np.clip(hi - lo, 0.0, None), axis=-1)
+    union = np.prod(a[..., 2:], axis=-1) + np.prod(b[..., 2:], axis=-1) - inter
+    return inter / union
+
+
+def single_object_clip(n_frames: int = 100, height: int = 480,
+                       width: int = 640):
+    """One textured object moving at (2, 1.2) px a frame."""
+    objs = [synthetic.SyntheticObject(cx=160, cy=120, w=28, h=24, vx=2.0,
+                                      vy=1.2)]
+    frames, boxes, _ = synthetic.render_sequence(objs, n_frames, height,
+                                                 width, seed=3, noise=0.0)
+    return frames, boxes[:, 0]
+
+
+def bank_run(frames, boxes0, kcfg, train_site):
+    """init_bank on frame 0, then run_otb_sequence over the whole clip,
+    with the launch counts set to 0 just before and read just after."""
+    reset_counts()
+    t0 = time.perf_counter()
+    bank = kcf_bank.init_bank(
+        patch_ops.to_gray(frames[0]), boxes0,
+        torch.ones((boxes0.shape[0],), dtype=torch.bool,
+                   device=boxes0.device), kcfg)
+    _, boxes, peaks = kcf_bank.run_otb_sequence(bank, frames, kcfg,
+                                                train_site)
+    torch.cuda.synchronize()
+    return boxes, peaks, read_counts(), time.perf_counter() - t0
+
+
+def phase_kcf_tracker():
+    """The single-object flow through the per-frame wrapper, T = 1."""
+    clip, gt = single_object_clip()
+    reset_counts()
+    tracker = kcf_bank.KCFTracker(KCFConfig())
+    if tracker.device.type != "cuda":
+        raise AssertionError(f"KCFTracker() runs on {tracker.device}")
+    tracker.init(clip[0], gt[0])
+    errs, peaks = [], []
+    for f in range(1, len(clip)):
+        box, peak = tracker.update(clip[f])
+        errs.append(float(np.hypot(box[0] - gt[f, 0], box[1] - gt[f, 1])))
+        peaks.append(peak)
+    counts = read_counts()
+    log("kcf-bank", f"KCFTracker on a {clip.shape[1]}x{clip.shape[2]} clip "
+                    f"of {len(clip)} frames: centre error max "
+                    f"{max(errs):.3f} px, mean {statistics.mean(errs):.3f} "
+                    f"px; peak min {min(peaks):.3f}; kernel launches "
+                    f"{counts}")
+    want = {k: 0 for k in KERNELS}
+    want["roi_extract"] = 1 + 2 * (len(clip) - 1)
+    if counts != want or not max(errs) < 2.0:
+        raise AssertionError(f"KCFTracker: launches {counts} (expected "
+                             f"{want}), centre error {max(errs)} px")
+
+
+def with_plain_k1(fn):
+    """Run fn() with K1's plain version in K1's place."""
+    kernel = roi_k._resample_cuda
+    roi_k._resample_cuda = roi_k._resample_ref
+    try:
+        return fn()
+    finally:
+        roi_k._resample_cuda = kernel
+
+
+def bank_lockstep(frames, boxes0, kcfg, train_site):
+    """Step the bank frame by frame with K1 and, from the same state, with
+    K1's plain version: each frame's boxes [N, T, 4] both ways.  The state
+    that goes on is K1's, so a difference is one frame's, not a drift."""
+    bank = kcf_bank.init_bank(
+        patch_ops.to_gray(frames[0]), boxes0,
+        torch.ones((boxes0.shape[0],), dtype=torch.bool,
+                   device=boxes0.device), kcfg)
+    kernel_boxes, plain_boxes = [], []
+    for f in range(frames.shape[0]):
+        gray = patch_ops.to_gray(frames[f])
+        plain_bank, _ = with_plain_k1(
+            lambda: kcf_bank.step(bank, gray, kcfg, train_site))
+        bank, _ = kcf_bank.step(bank, gray, kcfg, train_site)
+        kernel_boxes.append(bank.boxes)
+        plain_boxes.append(plain_bank.boxes)
+    return torch.stack(kernel_boxes), torch.stack(plain_boxes)
+
+
+def phase_kcf_bank(dev, frames, gt_boxes):
+    """A bank of the bench fixture's first-frame boxes tracked by
+    correlation alone, with K1 and with its plain version in its place.
+
+    Held to BANK_TOL is the lockstep run: both versions step from the same
+    bank on every frame.  A slot-frame may exceed it where two neighbouring
+    pixels of the response (or two scales) tie within the patches' last
+    bit and the peak falls on the other one: such a step differs by less
+    than one response pixel of that slot's window, and at most
+    BANK_TIES of the slot-frames may do so (at full size one in 8192 did,
+    in two of the three configurations).  Two free runs are printed and
+    not held to it: a correlation tracker feeds its box back into its next
+    window, and on a slot that has lost its object a last-bit difference
+    in a patch grows several-fold a frame (on the CPU, plain version
+    against `four_tap_mirror`, 1e-3 px at frame 8 became 1.4 px at frame
+    13)."""
+    boxes0 = torch.as_tensor(gt_boxes[0], device=dev)
+    n = frames.shape[0]
+    for name, (kw, site) in KCF_BANK.items():
+        kcfg = KCFConfig(**kw)
+        boxes, peaks, counts, wall = bank_run(frames, boxes0, kcfg, site)
+        free_boxes, _, plain_counts, _ = with_plain_k1(
+            lambda: bank_run(frames, boxes0, kcfg, site))
+        step_boxes, step_plain = bank_lockstep(frames, boxes0, kcfg, site)
+        want = {k: 0 for k in KERNELS}
+        want["roi_extract"] = 1 + n * (2 if site == "refined" else 1)
+        again = torch.equal(step_boxes, boxes)
+        step_diff = (step_boxes - step_plain).abs().amax(dim=-1)  # [N, T]
+        ties = step_diff > BANK_TOL
+        n_ties = int(ties.sum().item())
+        diff = step_diff[~ties].max().item()
+        # one response pixel of each slot's search window, in frame pixels
+        cell = (torch.maximum(step_boxes[..., 2:], step_plain[..., 2:])
+                .amax(dim=-1) * kcfg.padding / kcfg.feature_size)
+        tie_txt = "; ".join(
+            f"frame {f} slot {t}: {step_diff[f, t].item():.3g} px of a "
+            f"response pixel of {cell[f, t].item():.3g} px"
+            for f, t in ties.nonzero().tolist()[:4]) or "none"
+        free = (boxes - free_boxes).abs().amax(dim=-1)          # [N, T]
+        iou = box_iou(boxes.cpu().numpy(), gt_boxes[:n])
+        on = torch.as_tensor(iou >= 0.5, device=dev)
+        ref = KCF_BANK_IOU_REF[name]
+        ok = (tuple(boxes.shape) == (n, N_OBJ, 4)
+              and torch.isfinite(boxes).all().item()
+              and torch.isfinite(peaks).all().item())
+        log("kcf-bank", f"{name}: {N_OBJ} boxes over {n} frames in "
+                        f"{wall:.3f} s ({1000 * wall / n:.2f} ms a frame, "
+                        f"first run); kernel launches {counts}; mean IoU "
+                        f"with the ground truth {iou.mean():.4f} (JAX "
+                        f"reference {ref}), last frame "
+                        f"{iou[-1].mean():.4f}; largest box difference from "
+                        f"K1's plain version stepping from the same bank "
+                        f"{diff:.3g} px, but for {n_ties} of {ties.numel()} "
+                        f"slot-frames where the peak fell on a tied "
+                        f"neighbour ({tie_txt}); second run with K1 "
+                        f"bit-equal: {again}; free-running, "
+                        f"{free.max().item():.3g} px "
+                        f"({free[on].max().item():.3g} px on the "
+                        f"{100 * on.float().mean().item():.1f}% of "
+                        "slot-frames with IoU >= 0.5)")
+        if counts != want or any(plain_counts.values()):
+            raise AssertionError(f"kcf-bank {name}: launches {counts} "
+                                 f"(expected {want}); with the plain version "
+                                 f"{plain_counts}")
+        ties_ok = (n_ties <= BANK_TIES * ties.numel()
+                   and (step_diff[ties] < cell[ties]).all().item())
+        if not (ok and again and ties_ok and iou.mean() >= ref - 0.02):
+            raise AssertionError(
+                f"kcf-bank {name}: finite {ok}, second run bit-equal "
+                f"{again}, {n_ties} slot-frames over {BANK_TOL} px ({tie_txt}"
+                f"; at most {BANK_TIES:g} of {ties.numel()}, each under its "
+                f"response pixel), mean IoU {iou.mean()} (JAX reference "
+                f"{ref} - 0.02)")
+
+
 def timed_runs(frames, d, v, cfg, reps: int) -> list[float]:
     out = []
     for _ in range(reps):
@@ -702,12 +1049,17 @@ def kernel_line(name: str, info: dict) -> str:
             f"{info['ctas_per_sm']} CTAs fit on an SM")
 
 
-def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_bs, hf_inputs):
+def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_bs, hf_inputs,
+                assoc):
     bench_b = bench_bs[-1]          # steady state; bench_bs[0]: init frame
-    for name, c, reps in (("default", cfg, 5),
-                          ("H", heavy_config(cfg, "H"), 3),
-                          ("HF", heavy_config(cfg, "HF"), 3)):
-        runs = timed_runs(frames, d, v, c, reps)
+    a_frames, a_d, a_v, a_cfg = assoc
+    for name, c, reps, (fr, dd, vv) in (
+            ("default", cfg, 5, (frames, d, v)),
+            ("H", heavy_config(cfg, "H"), 3, (frames, d, v)),
+            ("HF", heavy_config(cfg, "HF"), 3, (frames, d, v)),
+            ("A", a_cfg, 3, (a_frames, a_d, a_v)),
+            ("AW", a_cfg.replace(**ASSOC["AW"]), 3, (a_frames, a_d, a_v))):
+        runs = timed_runs(fr, dd, vv, c, reps)
         med = statistics.median(runs)
         log("times", f"run_sequence {name}: {N_FRAMES / med:.1f} frames/s, "
                      f"{1000 * med / N_FRAMES:.3f} ms/frame (median of "
@@ -807,6 +1159,32 @@ def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_bs, hf_inputs):
             lambda: auction_k.auction_solve(b, EPS, cap), 10)
         log("times", f"K2 auction n={b.shape[0]}, {what}: device time per "
                      f"call (profiler) {extra[key]:.4f} ms")
+    # K1 by rows: one track is one CTA (launch and one CTA's chain alone);
+    # 3T rows is the single-object bank's 3-scale call.
+    scales3 = torch.tensor(SCALES, dtype=torch.float32,
+                           device=boxes0.device).repeat_interleave(t)
+    for key, what, coords_n in (
+            ("one_cta_device_ms", "T=1 (one CTA: launch and its chain)",
+             roi_k.sample_coords(boxes0[:1], 2.5, s1, hw)),
+            ("three_scales_device_ms", f"T={3 * t} (boxes x 3 scales)",
+             roi_k.sample_coords(boxes0.repeat(3, 1), 2.5, s1, hw,
+                                 scales3))):
+        times["roi_extract"][key] = device_ms(
+            lambda: roi_k._resample_cuda(levels_u8, hw, *coords_n), 50)
+        log("times", f"K1 ROI resample {what} u8 1080p: device time per "
+                     f"call (profiler) {times['roi_extract'][key]:.4f} ms")
+    # The pyramid that every extraction of the single-object bank builds
+    # (float32, from the gray frame; twice a frame at the refined site),
+    # beside the u8 one that the tracker step builds once a frame.
+    gray_f32 = patch_ops.to_gray(frames[0])
+    for what, img in (("float32 (a KCF-bank extraction)", gray_f32),
+                      ("u8 (a tracker step)", frames[0])):
+        dev_ms = device_ms(lambda: roi_k.build_pyramid(img), 20)
+        call_ms = statistics.median(
+            event_ms(lambda: roi_k.build_pyramid(img), 20))
+        log("times", f"build_pyramid {HEIGHT}x{WIDTH} {what}: device time "
+                     f"per call (profiler) {dev_ms:.4f} ms, per call with "
+                     f"host time (CUDA event pairs) {call_ms:.4f} ms")
     per_round = ((times["auction_solve"]["device_ms"]
                   - extra["no_rounds_device_ms"]) / rounds)
     log("times", f"K2 per round at n={n}: {1000 * per_round:.2f} us "
@@ -814,6 +1192,8 @@ def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_bs, hf_inputs):
                  f"{rounds})")
     times["auction_solve"].update(extra)
     for key, what, info in (
+            ("roi_extract", f"K1 ROI u8 S={s1}",
+             roi_k.launch_info(True, s1)),
             ("auction_solve", f"K2 auction n={n}", auction_k.launch_info(n)),
             ("roi_extract_scales", f"K3 3-scale ROI u8 S={s1}",
              roi_k.scales_launch_info(True, s1)),
@@ -837,6 +1217,7 @@ def phase_profile(frames, d, v, cfg, name, n_frames: int = 16):
 
     dev = frames.device
     bank = bank_mod.empty_bank(cfg, device=dev)
+    checks = assignment.warm_checks
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -846,6 +1227,13 @@ def phase_profile(frames, d, v, cfg, name, n_frames: int = 16):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = device_kernels(prof)
+    # Reads of a device scalar on the host: each one waits for the stream.
+    reads = sum(e.count for e in prof.key_averages()
+                if e.key == "aten::_local_scalar_dense")
+    log("profile", f"{name}, {n_frames} frames: {reads} reads of a device "
+                   "scalar on the host (aten::_local_scalar_dense), "
+                   f"{assignment.warm_checks - checks} of them loop checks "
+                   "of the warm auction")
     busy = sum(r[1] for r in kernels)
     ours = {k: sum(us for key, us, _ in kernels if k in key)
             for k in OUR_KERNELS}
@@ -904,11 +1292,27 @@ def main() -> int:
                                       dets_list, frames_np)
     heavy_launches = phase_e2e_heavy(frames, d, v, cfg, gt_boxes, vis)
 
+    # the association configurations on the class fixture
+    t0 = time.perf_counter()
+    a_np, a_d_np, a_v_np, a_gt, a_vis, _, a_cfg = assoc_fixture()
+    a_frames = torch.as_tensor(a_np, device=dev)
+    a_d = torch.as_tensor(a_d_np, device=dev)
+    a_v = torch.as_tensor(a_v_np, device=dev)
+    del a_np
+    log("data", f"class fixture {tuple(a_frames.shape)} u8 rendered and "
+                f"uploaded in {time.perf_counter() - t0:.1f} s")
+    phase_e2e_assoc(a_frames, a_d, a_v, a_cfg, a_gt, a_vis)
+
+    # the single-object flow
+    phase_kcf_tracker()
+    phase_kcf_bank(dev, frames, gt_boxes)
+
     # times
     times = phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_b,
-                        hf_inputs)
+                        hf_inputs, (a_frames, a_d, a_v, a_cfg))
     phase_profile(frames, d, v, cfg, "default")
     phase_profile(frames, d, v, cfg_hf, "HF")
+    phase_profile(a_frames, a_d, a_v, a_cfg.replace(**ASSOC["AW"]), "AW")
 
     hf = heavy_launches["HF"]
     rows = [

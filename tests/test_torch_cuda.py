@@ -33,6 +33,7 @@ from tpu_mot_torch.ops import iou as t_iou
 from tpu_mot_torch.ops import kcf as t_kcf
 from tpu_mot_torch.tracker import api as t_api
 from tpu_mot_torch.tracker import bank as t_bank
+from tpu_mot_torch.tracker import kcf_bank as t_kcf_bank
 from tpu_mot_torch.tracker import scan as t_scan
 
 pytestmark = pytest.mark.cuda
@@ -239,6 +240,65 @@ def test_roi_scales_kernel_matches_plain_version(cuda, pyramid, t, scales,
     assert torch.equal(got, mirror)
 
 
+# K1 is the K = 1 case of the same tile function: T = 384 is the
+# single-object bank's 3-scale call (128 boxes x 3 per-track scales).
+@pytest.mark.parametrize("s", [64, 48, 30])
+@pytest.mark.parametrize("with_scales", [False, True])
+@pytest.mark.parametrize("t", [1, 37, 128, 384])
+@pytest.mark.parametrize("pyramid", [torch.uint8, torch.float32])
+def test_roi_kernel_equals_mirror(cuda, pyramid, t, with_scales, s):
+    frame = torch.as_tensor(np.random.default_rng(8).integers(
+        0, 256, (H, W), dtype=np.uint8), device=cuda)
+    if pyramid == torch.float32:
+        frame = frame.float() / 255.0
+    levels = t_roi.build_pyramid(frame)
+    boxes = torch.as_tensor(_scales_boxes(t), device=cuda)
+    scales = (torch.as_tensor(np.random.default_rng(t).choice(
+        SCALES, t).astype(np.float32), device=cuda) if with_scales else None)
+    info = t_roi.launch_info(pyramid == torch.uint8, s)
+    assert info["path"] == t_roi.SCALES_PATHS[s == 64]
+    before = t_roi.launches, t_roi.launches_scales
+    got = t_roi.extract_patches(None, boxes, 2.5, s, levels=levels,
+                                frame_hw=(H, W), scales=scales)
+    want = t_roi.extract_patches_ref(None, boxes, 2.5, s, levels=levels,
+                                     frame_hw=(H, W), scales=scales)
+    torch.cuda.synchronize()
+    assert (t_roi.launches, t_roi.launches_scales) == (before[0] + 1,
+                                                       before[1])
+    assert got.shape == (t, s, s)
+    assert (got - want).abs().max().item() <= 1e-5
+    lvl, r0, c0, ys, xs = t_roi.sample_coords(boxes, 2.5, s, (H, W), scales)
+    mirror = t_roi.four_tap_mirror(levels, (H, W), lvl, r0, c0, ys[None],
+                                   xs[None])[0]
+    assert torch.equal(got, mirror)
+
+
+@pytest.mark.parametrize("rows", [4, 2, 1])
+@pytest.mark.parametrize("s", [64, 30])
+def test_roi_kernel_rows_per_thread_variants_equal_mirror(cuda, s, rows):
+    """The variants that tools/kernel_cost.py times give the same bits."""
+    frame = torch.as_tensor(np.random.default_rng(9).integers(
+        0, 256, (H, W), dtype=np.uint8), device=cuda)
+    levels = t_roi.build_pyramid(frame)
+    boxes = torch.as_tensor(_scales_boxes(37), device=cuda)
+    lvl, r0, c0, ys, xs = t_roi.sample_coords(boxes, 2.5, s, (H, W))
+    got = t_roi._resample_cuda(levels, (H, W), lvl, r0, c0, ys, xs,
+                               rows_per_thread=rows)
+    mirror = t_roi.four_tap_mirror(levels, (H, W), lvl, r0, c0, ys[None],
+                                   xs[None])[0]
+    assert torch.equal(got, mirror)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        t_roi._resample_cuda(levels, (H, W), lvl, r0, c0, ys, xs,
+                             rows_per_thread=3)
+
+
+def test_roi_wrapper_rejects_a_size_the_kernel_does_not_take(cuda):
+    frame = torch.zeros((64, 96), dtype=torch.uint8, device=cuda)
+    boxes = torch.as_tensor(BOXES[:2] * 0.05, device=cuda)
+    with pytest.raises(ValueError, match="template size"):
+        t_roi.extract_patches(frame, boxes, 2.5, t_roi.max_scales_s() + 1)
+
+
 def test_roi_scales_wrapper_rejects_a_size_the_kernel_does_not_take(cuda):
     frame = torch.zeros((64, 96), dtype=torch.uint8, device=cuda)
     boxes = torch.as_tensor(BOXES[:2] * 0.05, device=cuda)
@@ -428,3 +488,63 @@ def test_heavy_tracker_on_card_matches_cpu(cuda, kcf_impl, train_site):
     assert torch.equal(got.ids.cpu(), want.ids)
     assert torch.equal(got.valid.cpu(), want.valid)
     assert (got.boxes.cpu() - want.boxes).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_assoc_tracker_on_card_matches_cpu(cuda, warm):
+    """The association branches (class gate, assoc_box "best", appearance
+    blend; with and without the warm-started auction) at full width, 1080p
+    with 128 slots and 160 detections of three classes, for 8 frames."""
+    h, w, n = 1080, 1920, 8
+    objs = synthetic.make_objects(128, h, w, np.random.default_rng(0),
+                                  n_classes=3)
+    frames, boxes, vis = synthetic.render_sequence(objs, n, h, w, seed=0,
+                                                   noise=0.01)
+    dets = synthetic.detections_from_gt(
+        boxes, vis, seed=0, frame_hw=(h, w),
+        classes=np.array([o.cls for o in objs]))
+    frames_u8 = torch.as_tensor((frames * 255).astype(np.uint8))
+    d = np.zeros((n, 160, 6), np.float32)
+    v = np.zeros((n, 160), bool)
+    for f in range(n):
+        d[f], v[f] = t_api.pad_detections(dets[f], 160, width=6)
+    d, v = torch.as_tensor(d), torch.as_tensor(v)
+    cfg = TrackerConfig(max_tracks=128, max_detections=160, frame_height=h,
+                        frame_width=w, class_aware=True,
+                        appearance_weight=0.3, auction_warm_start=warm)
+    assert cfg.assoc_box_resolved == "best"
+    cpu_cfg = cfg.replace(roi_impl="pallas", assign_impl="pallas")
+    _, want = t_scan.run_sequence(t_bank.empty_bank(cpu_cfg, device="cpu"),
+                                  frames_u8, d, v, cpu_cfg)
+    roi0, auc0 = t_roi.launches, t_auction.launches
+    bank, got = t_scan.run_sequence(t_bank.empty_bank(cfg, device=cuda),
+                                    frames_u8.to(cuda), d.to(cuda),
+                                    v.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert (t_roi.launches - roi0, t_auction.launches - auc0) == (
+        n, 0 if warm else n)
+    assert torch.equal(got.ids.cpu(), want.ids)
+    assert torch.equal(got.valid.cpu(), want.valid)
+    assert torch.equal(got.cls.cpu(), want.cls)
+    assert torch.equal(got.assign_iters.cpu(), want.assign_iters)
+    assert (got.boxes.cpu() - want.boxes).abs().max().item() <= 1e-3
+    if warm:
+        assert bank.auction_prices.abs().max().item() > 0
+
+
+def test_kcf_tracker_on_card(cuda):
+    """The single-object flow on the card: two K1 launches a frame after
+    the first, and the box stays on the moving object."""
+    objs = [synthetic.SyntheticObject(cx=160, cy=120, w=28, h=24, vx=2.0,
+                                      vy=1.2)]
+    clip, gt, _ = synthetic.render_sequence(objs, 30, 480, 640, seed=3,
+                                            noise=0.0)
+    roi0 = t_roi.launches
+    tracker = t_kcf_bank.KCFTracker()
+    assert tracker.device.type == "cuda"
+    tracker.init(clip[0], gt[0, 0])
+    for f in range(1, len(clip)):
+        box, peak = tracker.update(clip[f])
+        assert np.hypot(box[0] - gt[f, 0, 0], box[1] - gt[f, 0, 1]) < 2.0
+        assert np.isfinite(peak)
+    assert t_roi.launches - roi0 == 1 + 2 * (len(clip) - 1)

@@ -400,6 +400,9 @@ def test_port_imports_without_jax():
                 rel = os.path.relpath(path, _REPO)[:-3].replace(os.sep, ".")
                 mods.append(rel[:-len(".__init__")]
                             if rel.endswith(".__init__") else rel)
+    assert {"tpu_mot_torch.tracker.kcf_bank", "tpu_mot_torch.tracker.scan",
+            "tpu_mot_torch.ops.assignment", "tpu_mot_torch.interop"} <= set(
+                mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None

@@ -265,3 +265,36 @@ def test_four_tap_mirror_one_scale_matches_k1_plain_version():
     got = t_roi.four_tap_mirror(levels, (H, W), lvl, r0, c0, ys[None],
                                 xs[None])[0]
     assert (got - want).abs().max().item() <= 1e-5
+
+
+# K1 on the card is the tile function at K = 1 and equals the mirror bit for
+# bit there; here the mirror at K1's shapes is held to K1's plain version.
+# "bank3" is the single-object bank's 3-scale call: the boxes three times,
+# scale-major, with a per-track `scales` vector.
+@pytest.mark.parametrize("case", ["edges", "t37", "bank3"])
+@pytest.mark.parametrize("s", [64, 30])
+@pytest.mark.parametrize("pyramid", ["u8", "f32"])
+def test_four_tap_mirror_k1_shapes_match_extract_patches_ref(pyramid, s,
+                                                             case):
+    """max |mirror - plain| <= 1e-6 at K = 1 (measured 2.4e-7: the same two
+    nonzero products per axis)."""
+    frame = _frame_u8(8)
+    levels = t_roi.build_pyramid(
+        _t(frame if pyramid == "u8" else frame.astype(np.float32) / 255.0))
+    boxes = _t(_mirror_boxes("t37" if case == "bank3" else case))
+    scales = None
+    if case == "bank3":
+        scales = torch.tensor(SCALES, dtype=torch.float32).repeat_interleave(
+            boxes.shape[0])
+        boxes = boxes.repeat(3, 1)
+    want = t_roi.extract_patches_ref(None, boxes, 2.5, s, levels=levels,
+                                     frame_hw=(H, W), scales=scales)
+    lvl, r0, c0, ys, xs = t_roi.sample_coords(boxes, 2.5, s, (H, W), scales)
+    got = t_roi.four_tap_mirror(levels, (H, W), lvl, r0, c0, ys[None],
+                                xs[None])[0]
+    assert got.shape == want.shape == (boxes.shape[0], s, s)
+    assert (got - want).abs().max().item() <= 1e-6
+    assert want.abs().max().item() > 0.1
+    if case == "bank3":           # the three scales differ
+        t = boxes.shape[0] // 3
+        assert not torch.equal(got[:t], got[t:2 * t])

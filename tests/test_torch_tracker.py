@@ -234,10 +234,25 @@ def test_multitracker_matches_run_sequence_and_save_load():
     dict(assoc_box="best"),
     dict(auction_warm_start=True),
 ])
-def test_unported_branches_raise(change):
-    cfg = t_config.TrackerConfig(max_tracks=4, max_detections=4, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_api.MultiTracker(cfg, device="cpu")
+def test_assoc_branches_are_ported(change):
+    """The association branches that raised before they were ported build a
+    tracker and run a step (tests/test_torch_assoc.py holds them to JAX);
+    class_aware pads detections to 6 columns."""
+    cfg = t_config.TrackerConfig(max_tracks=4, max_detections=4,
+                                 frame_height=48, frame_width=64, **change)
+    mt = t_api.MultiTracker(cfg, device="cpu")
+    frame = np.zeros((48, 64), np.float32)
+    mt.init(frame, np.array([[20.0, 20.0, 8.0, 8.0, 1.0, 2.0]], np.float32))
+    assert mt.counters()["births"] == 1
+    assert int(mt.bank.cls[0]) == (2 if cfg.class_aware else 0)
+    mt.update(frame, np.array([[20.5, 20.0, 8.0, 8.0, 1.0, 2.0],
+                               [23.0, 20.0, 8.0, 8.0, 0.9, 1.0]], np.float32))
+    c = mt.counters()
+    # The second detection overlaps less: it starts a track of its own.
+    assert (c["alive"], c["matches"]) == (2, 1)
+    assert int(mt.last_output.matched_det[0]) == 0
+    warm = cfg.auction_warm_start
+    assert bool((mt.bank.auction_col_of >= 0).all()) == warm
 
 
 @pytest.mark.parametrize("change", [

@@ -6,25 +6,14 @@
 // chosen pyramid level into VMEM and resamples it with two one-hot
 // hat-weight matmuls, W_y . block . W_x^T, on the matrix unit.
 //
-// What bounds it on the H100: memory latency.  At the bench shape (128
-// tracks, S = 64) a call reads at most 4 taps x 4096 outputs x 128 tracks,
-// ~2 M pixels, mostly from L2 (one u8 1080p level is 2 MB), and computes
-// ~10 flops per output; the matmul form would spend 2 x 144 x 256 x 64
-// MACs per track on weights that are zero at all but two taps per axis.
-//
-// Design: one CTA of 256 threads per track.  The level, block origin and
-// sample coordinates come from the torch-side coordinate math (outside the
-// kernel in JAX too).  The CTA first turns its S row and S column
-// coordinates into two taps each (row/column index and hat weight) in
-// shared memory, then every thread computes 16 outputs with the 4-tap
-// bilinear form, which equals the one-hot matmul form because the hat
-// weights are nonzero at two pixels per axis.  The level is read directly
-// through its pointer and true extent; a tap outside the TPU kernel's block
-// [r0, r0+144) x [c0, c0+256) or past the level's true extent gets zero
-// weight, so windows over 1024 px (clamped to level 3) reproduce the TPU
-// kernel's block truncation and the port's levels need no padding.  The u8
-// instantiation folds the 1/255 dequantization into the row weights, as the
-// TPU kernel does.
+// What bounds it on the H100: at the bench shape (128 tracks, S = 64) a
+// call writes 128 x 64 x 64 float32 = 2.1 MB (0.6 us at 3.35 TB/s) and reads
+// at most 4 taps x 4096 outputs x 128 tracks, ~2 M pixels, mostly from L2
+// (one u8 1080p level is 2 MB), at ~10 flops per output; the matmul form
+// would spend 2 x 144 x 256 x 64 MACs per track on weights that are zero at
+// all but two taps per axis.  Neither bytes nor flops set its time: a launch
+// and the chain of one CTA (taps, a barrier, one round of gathers, the
+// stores) do, and the SMs' issue rate once CTAs queue.
 //
 // K3, roi_scales_kernel, replaces tpu_mot/kernels/roi.py:
 // extract_patches_scales_pallas (body _scales_kernel): one window DMA per
@@ -34,32 +23,43 @@
 // kernels/roi.sample_coords_scales).  What bounds it on the H100: the bytes
 // it writes, K x T x S x S float32 = 6.3 MB at the heavy bench shape
 // (~1.9 us at 3.35 TB/s); the pixels it reads are the same ~2 M per scale
-// as K1's, three overlapping windows of one block.  What it in fact waits
-// for is neither: the first tiled design formed every tap in the thread
-// that used it, ~70 operations issued per output, and was bound by the
-// SMs' issue rate (replacing its gathers by constants took away under a
-// third of its time).  Design:
+// as K1's, three overlapping windows of one block.
+//
+// Both kernels are one function, `resample_tile`: K1 is its K = 1 case with
+// its own rows per thread, under its own kernel name so that a profile
+// tells the two apart.  The level, block origin and sample coordinates come
+// from the torch-side coordinate math (outside the kernel in JAX too).  A
+// first tiled design formed every tap in the thread that used it, ~70
+// operations issued per output, and was bound by the SMs' issue rate
+// (replacing its gathers by constants took away under a third of its time);
+// the first K1 gave a thread 16 outputs one after another, each with four
+// dependent scalar gathers, and was held by the latency of 16 serial gather
+// rounds.  Design:
 // the grid runs over (track, scale, row tile), so that the card and not
 // 128 CTAs holds the outputs in flight, and a CTA of 256 threads does as
 // little arithmetic per output as it can:
-//   - the tile's taps are formed once, by `tap_of` (K1's expressions), into
-//     a shared-memory table of 16-byte entries: one per output row of the
-//     tile (1/255 folded in) and one per output column, the columns laid
-//     out [j][quad] so that neighbouring threads read neighbouring entries;
-//     one barrier;
-//   - a thread owns four adjacent columns of kRowsPerThread = 4 output rows,
-//     a CTA's pass (16 rows at S = 64) apart: it reads its four column taps
-//     once, issues the sixteen gathers of each row together before any is
-//     used, and writes one float4 per row, so every pass of the CTA writes
-//     whole 256-byte rows from 16 neighbouring threads;
-//   - S = 64 is compiled in (no division; one CTA per track and scale, 384
-//     CTAs at the heavy bench shape, one wave at 3 CTAs per SM); any other
-//     S up to 1024 runs the same function with S read at run time, and
-//     where S is no multiple of 4 or `out` is not 16-byte aligned the
-//     outputs are written one by one.
-// The scales of a track are neighbours in the grid: their windows overlap
-// in one level and meet in L1/L2 (one u8 1080p level is 2 MB), which does
-// what the TPU kernel's shared DMA did.
+//   - the tile's taps are formed once, by `tap_of`, into a shared-memory
+//     table of 16-byte entries: one per output row of the tile (1/255 folded
+//     in for u8 pyramids, as the TPU kernel does) and one per output column,
+//     the columns laid out [j][quad] so that neighbouring threads read
+//     neighbouring entries; one barrier;
+//   - a thread owns four adjacent columns of kRows output rows, a CTA's
+//     pass (16 rows at S = 64) apart: it reads its four column taps once,
+//     issues the sixteen gathers of each row together before any is used,
+//     and writes one float4 per row, so every pass of the CTA writes whole
+//     256-byte rows from 16 neighbouring threads;
+//   - S = 64 is compiled in (no division); any other S up to 1024 runs the
+//     same function with S read at run time, and where S is no multiple of
+//     4 or `out` is not 16-byte aligned the outputs are written one by one.
+// The 4-tap bilinear form equals the TPU kernel's one-hot matmul form
+// because the hat weights are nonzero at two pixels per axis.  A level is
+// read directly through its pointer and true extent; a tap outside the TPU
+// kernel's block [r0, r0+144) x [c0, c0+256) or past the level's true
+// extent gets zero weight, so windows over 1024 px (clamped to level 3)
+// reproduce the TPU kernel's block truncation and the port's levels need no
+// padding.  The scales of a track are neighbours in the grid: their windows
+// overlap in one level and meet in L1/L2, which does what the TPU kernel's
+// shared DMA did.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -106,97 +106,6 @@ __device__ inline Tap tap_of(float coord, int origin, int blk, int extent) {
   return tp;
 }
 
-// K1's shared-memory taps of one resample: per output row i the two level
-// rows and their weights, per output column j the two level columns and
-// theirs.
-struct Taps {
-  int* ri0;
-  int* ri1;
-  float* rw0;
-  float* rw1;
-  int* ci0;
-  int* ci1;
-  float* cw0;
-  float* cw1;
-};
-
-__device__ inline Taps taps_in(float* smem, int S) {
-  Taps tp;
-  tp.ri0 = reinterpret_cast<int*>(smem);
-  tp.ri1 = tp.ri0 + S;
-  tp.rw0 = reinterpret_cast<float*>(tp.ri1 + S);
-  tp.rw1 = tp.rw0 + S;
-  tp.ci0 = reinterpret_cast<int*>(tp.rw1 + S);
-  tp.ci1 = tp.ci0 + S;
-  tp.cw0 = reinterpret_cast<float*>(tp.ci1 + S);
-  tp.cw1 = tp.cw0 + S;
-  return tp;
-}
-
-// The CTA turns S row and S column level coordinates (ys, xs) into two
-// taps each; `scale` (the u8 dequantization) is folded into the row
-// weights.  The caller synchronises before reading the taps.
-__device__ inline void make_taps(Taps tp, const float* __restrict__ ys,
-                                 const float* __restrict__ xs, int r0, int c0,
-                                 int lh, int lw, int S, int blk_rows,
-                                 int blk_cols, float scale) {
-  for (int k = threadIdx.x; k < 2 * S; k += blockDim.x) {
-    const bool is_row = k < S;
-    const int i = is_row ? k : k - S;
-    const Tap t = tap_of(is_row ? ys[i] : xs[i], is_row ? r0 : c0,
-                         is_row ? blk_rows : blk_cols, is_row ? lh : lw);
-    if (is_row) {
-      tp.ri0[i] = t.g0;
-      tp.ri1[i] = t.g1;
-      tp.rw0[i] = __fmul_rn(t.w0, scale);
-      tp.rw1[i] = __fmul_rn(t.w1, scale);
-    } else {
-      tp.ci0[i] = t.g0;
-      tp.ci1[i] = t.g1;
-      tp.cw0[i] = t.w0;
-      tp.cw1[i] = t.w1;
-    }
-  }
-}
-
-// The 4-tap bilinear form of the hat-weight matmuls for all S x S outputs.
-template <typename T>
-__device__ inline void resample(Taps tp, const T* __restrict__ img, int lw,
-                                int S, float* __restrict__ o) {
-  for (int idx = threadIdx.x; idx < S * S; idx += blockDim.x) {
-    const int i = idx / S;
-    const int j = idx - i * S;
-    const T* row0 = img + (size_t)tp.ri0[i] * lw;
-    const T* row1 = img + (size_t)tp.ri1[i] * lw;
-    const int x0 = tp.ci0[j];
-    const int x1 = tp.ci1[j];
-    // Row pass (W_y . block) at the two column taps, then the column pass.
-    const float t0 = __fadd_rn(__fmul_rn(tp.rw0[i], (float)row0[x0]),
-                               __fmul_rn(tp.rw1[i], (float)row1[x0]));
-    const float t1 = __fadd_rn(__fmul_rn(tp.rw0[i], (float)row0[x1]),
-                               __fmul_rn(tp.rw1[i], (float)row1[x1]));
-    o[idx] = __fadd_rn(__fmul_rn(t0, tp.cw0[j]), __fmul_rn(t1, tp.cw1[j]));
-  }
-}
-
-// K1: one CTA per track, one resample.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-roi_kernel(Levels<T> lv, const int* __restrict__ lvl,
-           const int* __restrict__ r0g, const int* __restrict__ c0g,
-           const float* __restrict__ ys, const float* __restrict__ xs,
-           float* __restrict__ out, int S, int blk_rows, int blk_cols,
-           float scale) {
-  extern __shared__ float smem[];
-  const Taps tp = taps_in(smem, S);
-  const int t = blockIdx.x;
-  const int L = lvl[t];
-  make_taps(tp, ys + (size_t)t * S, xs + (size_t)t * S, r0g[t], c0g[t],
-            lv.h[L], lv.w[L], S, blk_rows, blk_cols, scale);
-  __syncthreads();
-  resample(tp, lv.p[L], lv.w[L], S, out + (size_t)t * S * S);
-}
-
 // Entry L of a kernel parameter's array by selects: indexing it with a
 // register would copy the array to local memory first.
 template <typename A>
@@ -204,47 +113,51 @@ __device__ __forceinline__ A pick(const A (&a)[4], int L) {
   return L == 0 ? a[0] : L == 1 ? a[1] : L == 2 ? a[2] : a[3];
 }
 
-// K3: grid = T tracks x K scales x row tiles, scale and tile fastest; the K
-// resamples of a track share its level and block origin.  ys, xs [K, T, S],
-// out [K, T, S, S].  A thread owns columns 4 cq .. 4 cq + 3 of kRowsPerThread
-// output rows, a CTA's pass apart, so that each pass of the CTA writes whole
-// rows.  kS is S where it is compiled in (64), 0 where S is read at run
-// time; `vec` says that S is a multiple of 4 and out is 16-byte aligned.
+// The resample of one tile, shared by K1 and K3.  The grid runs over T
+// tracks x K scales x row tiles, scale and tile fastest; the K resamples of
+// a track share its level and block origin.  ys, xs [K, T, S], out
+// [K, T, S, S]; K1 is the K = 1 case.  A thread owns columns 4 cq ..
+// 4 cq + 3 of kRows output rows, a CTA's pass apart, so that each pass of
+// the CTA writes whole rows.  kS is S where it is compiled in (64), 0 where
+// S is read at run time; `vec` says that S is a multiple of 4 and out is
+// 16-byte aligned.
 constexpr int kCompiledS = 64;
-constexpr int kRowsPerThread = 4;
+// Rows a thread owns.  K3 at the bench shape (128 tracks x 3 scales, S = 64)
+// is 384 CTAs with 4, one wave at 3 CTAs per SM.  K1 has a third of the
+// CTAs, so its count was measured (an H100 at 700 W, 128 tracks, S = 64, u8
+// 1080p, `python -m tpu_mot_torch.tools.kernel_cost`): see kRoiRows below.
+constexpr int kScalesRows = 4;
 
 __host__ __device__ constexpr int quads_per_row(int S) { return (S + 3) / 4; }
 
-// Output rows one pass of a CTA covers; S <= kMaxScalesS keeps it at least 1.
+// Output rows one pass of a CTA covers; S <= kMaxS keeps it at least 1.
 __host__ __device__ constexpr int rows_per_pass(int S) {
   return kThreads / quads_per_row(S);
 }
 
-// Row tiles of one (track, scale).
-__host__ __device__ constexpr int row_tiles(int S) {
-  return (S + rows_per_pass(S) * kRowsPerThread - 1) /
-         (rows_per_pass(S) * kRowsPerThread);
+// Row tiles of one (track, scale) where a thread owns `rows` output rows.
+__host__ __device__ constexpr int row_tiles(int S, int rows) {
+  return (S + rows_per_pass(S) * rows - 1) / (rows_per_pass(S) * rows);
 }
 
-constexpr int kMaxScalesS = 4 * kThreads;
+constexpr int kMaxS = 4 * kThreads;
 
 // Shared memory of one CTA's tap tables.
-size_t scales_smem_bytes(int S) {
-  return sizeof(Tap) *
-         (rows_per_pass(S) * kRowsPerThread + 4 * quads_per_row(S));
+size_t tap_smem_bytes(int S, int rows) {
+  return sizeof(Tap) * (rows_per_pass(S) * rows + 4 * quads_per_row(S));
 }
 
-template <typename T, int kS>
-__global__ void __launch_bounds__(kThreads)
-roi_scales_kernel(Levels<T> lv, const int* __restrict__ lvl,
-                  const int* __restrict__ r0g, const int* __restrict__ c0g,
-                  const float* __restrict__ ys, const float* __restrict__ xs,
-                  float* __restrict__ out, int T_, int K, int S_rt,
-                  int blk_rows, int blk_cols, float scale, bool vec) {
+template <typename T, int kS, int kRows>
+__device__ __forceinline__ void resample_tile(
+    const Levels<T>& lv, const int* __restrict__ lvl,
+    const int* __restrict__ r0g, const int* __restrict__ c0g,
+    const float* __restrict__ ys, const float* __restrict__ xs,
+    float* __restrict__ out, int T_, int K, int S_rt, int blk_rows,
+    int blk_cols, float scale, bool vec) {
   const int S = kS ? kS : S_rt;
   const int qpr = quads_per_row(S);
   const int rows = rows_per_pass(S);
-  const int tiles = row_tiles(S);
+  const int tiles = row_tiles(S, kRows);
   const int tile = blockIdx.x % tiles;
   const int tk = blockIdx.x / tiles;   // t * K + k
   const int t = tk / K;
@@ -257,7 +170,7 @@ roi_scales_kernel(Levels<T> lv, const int* __restrict__ lvl,
   // then the column taps as [j][cq].
   extern __shared__ float4 tap_smem[];
   Tap* rowtap = reinterpret_cast<Tap*>(tap_smem);
-  const int n_row = rows * kRowsPerThread;
+  const int n_row = rows * kRows;
   Tap* coltap = rowtap + n_row;
   for (int e = threadIdx.x; e < n_row + 4 * qpr; e += kThreads) {
     if (e < n_row) {
@@ -285,10 +198,10 @@ roi_scales_kernel(Levels<T> lv, const int* __restrict__ lvl,
   for (int j = 0; j < 4; ++j) tx[j] = coltap[j * qpr + cq];
   // All the gathers first (sixteen per row), then the arithmetic.  A row
   // past the last one repeats it (and is not written).
-  float rw0[kRowsPerThread], rw1[kRowsPerThread];
-  T p[kRowsPerThread][4][4];
+  float rw0[kRows], rw1[kRows];
+  T p[kRows][4][4];
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
+  for (int r = 0; r < kRows; ++r) {
     const Tap ty = rowtap[r * rows + il];
     rw0[r] = ty.w0;
     rw1[r] = ty.w1;
@@ -303,7 +216,7 @@ roi_scales_kernel(Levels<T> lv, const int* __restrict__ lvl,
     }
   }
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
+  for (int r = 0; r < kRows; ++r) {
     const int i = i0 + r * rows;
     if (i >= S) break;
     float o[4];
@@ -329,125 +242,197 @@ roi_scales_kernel(Levels<T> lv, const int* __restrict__ lvl,
   }
 }
 
+// K1: one resample per track; ys, xs [T, S] read as [1, T, S].
+template <typename T, int kS, int kRows>
+__global__ void __launch_bounds__(kThreads)
+roi_kernel(Levels<T> lv, const int* __restrict__ lvl,
+           const int* __restrict__ r0g, const int* __restrict__ c0g,
+           const float* __restrict__ ys, const float* __restrict__ xs,
+           float* __restrict__ out, int T_, int S_rt, int blk_rows,
+           int blk_cols, float scale, bool vec) {
+  resample_tile<T, kS, kRows>(lv, lvl, r0g, c0g, ys, xs, out, T_, 1, S_rt,
+                              blk_rows, blk_cols, scale, vec);
+}
+
+// K3: K resamples per track.
+template <typename T, int kS>
+__global__ void __launch_bounds__(kThreads)
+roi_scales_kernel(Levels<T> lv, const int* __restrict__ lvl,
+                  const int* __restrict__ r0g, const int* __restrict__ c0g,
+                  const float* __restrict__ ys, const float* __restrict__ xs,
+                  float* __restrict__ out, int T_, int K, int S_rt,
+                  int blk_rows, int blk_cols, float scale, bool vec) {
+  resample_tile<T, kS, kScalesRows>(lv, lvl, r0g, c0g, ys, xs, out, T_, K,
+                                    S_rt, blk_rows, blk_cols, scale, vec);
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The arguments of one launch, as the C entry points take them.
+struct Call {
+  int is_u8;
+  const void* p[4];
+  int h[4];
+  int w[4];
+  const int* lvl;
+  const int* r0;
+  const int* c0;
+  const float* ys;
+  const float* xs;
+  float* out;
+  int T, K, S, blk_rows, blk_cols;
+  float scale;
+  cudaStream_t stream;
+};
+
 template <typename T>
-Levels<T> levels_of(const void* const* p, const int* h, const int* w) {
+Levels<T> levels_of(const Call& c) {
   Levels<T> lv;
   for (int k = 0; k < 4; ++k) {
-    lv.p[k] = static_cast<const T*>(p[k]);
-    lv.h[k] = h[k];
-    lv.w[k] = w[k];
+    lv.p[k] = static_cast<const T*>(c.p[k]);
+    lv.h[k] = c.h[k];
+    lv.w[k] = c.w[k];
   }
   return lv;
 }
 
+// K1's kernel for a thread that owns kRows rows.
+template <typename T, int kRows>
+const void* roi_kernel_rows(int S) {
+  return S == kCompiledS ? (const void*)roi_kernel<T, kCompiledS, kRows>
+                         : (const void*)roi_kernel<T, 0, kRows>;
+}
+
 template <typename T>
-int launch(const void* const* p, const int* h, const int* w, const void* lvl,
-           const void* r0, const void* c0, const void* ys, const void* xs,
-           void* out, int T_, int K, int S, int blk_rows, int blk_cols,
-           float scale, cudaStream_t stream) {
-  const Levels<T> lv = levels_of<T>(p, h, w);
-  const size_t smem = (size_t)8 * S * 4;
-  const int* il = static_cast<const int*>(lvl);
-  const int* ir = static_cast<const int*>(r0);
-  const int* ic = static_cast<const int*>(c0);
-  const float* fy = static_cast<const float*>(ys);
-  const float* fx = static_cast<const float*>(xs);
-  float* o = static_cast<float*>(out);
-  if (K == 0) {
-    roi_kernel<T><<<T_, kThreads, smem, stream>>>(
-        lv, il, ir, ic, fy, fx, o, S, blk_rows, blk_cols, scale);
-    return (int)cudaGetLastError();
-  }
-  if (S < 1 || S > kMaxScalesS) return (int)cudaErrorInvalidValue;
-  const bool vec = S % 4 == 0 && aligned16(out);
-  const int grid = T_ * K * row_tiles(S);
-  const size_t taps = scales_smem_bytes(S);
-  if (S == kCompiledS) {
-    roi_scales_kernel<T, kCompiledS><<<grid, kThreads, taps, stream>>>(
-        lv, il, ir, ic, fy, fx, o, T_, K, S, blk_rows, blk_cols, scale, vec);
-  } else {
-    roi_scales_kernel<T, 0><<<grid, kThreads, taps, stream>>>(
-        lv, il, ir, ic, fy, fx, o, T_, K, S, blk_rows, blk_cols, scale, vec);
-  }
+const void* roi_kernel_of(int S, int rows) {
+  return rows == 4   ? roi_kernel_rows<T, 4>(S)
+         : rows == 2 ? roi_kernel_rows<T, 2>(S)
+         : rows == 1 ? roi_kernel_rows<T, 1>(S)
+                     : nullptr;
+}
+
+template <typename T>
+const void* roi_scales_kernel_of(int S) {
+  return S == kCompiledS ? (const void*)roi_scales_kernel<T, kCompiledS>
+                         : (const void*)roi_scales_kernel<T, 0>;
+}
+
+// K1 where rows > 0 (a thread owns that many rows: 4, 2 or 1), else K3.
+template <typename T>
+int launch(const Call& c, int rows) {
+  if (c.S < 1 || c.S > kMaxS) return (int)cudaErrorInvalidValue;
+  const void* kernel =
+      rows ? roi_kernel_of<T>(c.S, rows) : roi_scales_kernel_of<T>(c.S);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const int per_thread = rows ? rows : kScalesRows;
+  Levels<T> lv = levels_of<T>(c);
+  Call a = c;
+  bool vec = c.S % 4 == 0 && aligned16(c.out);
+  const int grid = c.T * c.K * row_tiles(c.S, per_thread);
+  const size_t smem = tap_smem_bytes(c.S, per_thread);
+  // The two kernels' parameters differ in K alone.
+  void* k1_args[] = {&lv,   &a.lvl, &a.r0, &a.c0,       &a.ys,
+                     &a.xs, &a.out, &a.T,  &a.S,        &a.blk_rows,
+                     &a.blk_cols,   &a.scale,           &vec};
+  void* k3_args[] = {&lv,   &a.lvl, &a.r0, &a.c0,       &a.ys,
+                     &a.xs, &a.out, &a.T,  &a.K,        &a.S,
+                     &a.blk_rows,   &a.blk_cols,        &a.scale, &vec};
+  cudaLaunchKernel(kernel, dim3(grid), dim3(kThreads),
+                   rows ? k1_args : k3_args, smem, c.stream);
   return (int)cudaGetLastError();
 }
 
-int dispatch(int is_u8, const void* const* p, const int* h, const int* w,
-             const void* lvl, const void* r0, const void* c0, const void* ys,
-             const void* xs, void* out, int T, int K, int S, int blk_rows,
-             int blk_cols, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_u8) {
-    return launch<uint8_t>(p, h, w, lvl, r0, c0, ys, xs, out, T, K, S,
-                           blk_rows, blk_cols, scale, s);
-  }
-  return launch<float>(p, h, w, lvl, r0, c0, ys, xs, out, T, K, S, blk_rows,
-                       blk_cols, scale, s);
+int dispatch(const Call& c, int rows) {
+  return c.is_u8 ? launch<uint8_t>(c, rows) : launch<float>(c, rows);
 }
 
-}  // namespace
+// K1's rows per thread.  Measured at S = 64, u8 1080p on an H100 at 700 W,
+// each variant in two turns: at 128 tracks 4 rows (128 CTAs) took 3.40-3.41
+// us, 2 rows (256 CTAs) 3.43-3.48, 1 row (512 CTAs) 3.48-3.60; at 384 rows
+// (the single-object bank's 3-scale call) 4 rows took 5.31-5.40 us, 2 rows
+// 6.63-6.67, 1 row 7.11-7.14.  Under one CTA per SM the time is one CTA's
+// chain, which 12 more gathers in flight do not lengthen; past one wave a
+// CTA that forms its taps for fewer outputs pays for them again.  4 stays.
+constexpr int kRoiRows = 4;
 
-// K1.  levels l0..l3: contiguous [h_k, w_k] uint8 (is_u8) or float32
-// images; lvl, r0, c0: [T] int32; ys, xs: [T, S] float32 level coordinates;
-// out: [T, S, S] float32.  Launches on `stream`, returns cudaGetLastError().
-extern "C" int tpu_mot_roi_extract(int is_u8, const void* l0, const void* l1,
-                                   const void* l2, const void* l3, int h0,
-                                   int h1, int h2, int h3, int w0, int w1,
-                                   int w2, int w3, const void* lvl,
-                                   const void* r0, const void* c0,
-                                   const void* ys, const void* xs, void* out,
-                                   int T, int S, int blk_rows, int blk_cols,
-                                   float scale, void* stream) {
-  const void* p[4] = {l0, l1, l2, l3};
-  const int h[4] = {h0, h1, h2, h3};
-  const int w[4] = {w0, w1, w2, w3};
-  return dispatch(is_u8, p, h, w, lvl, r0, c0, ys, xs, out, T, 0, S,
-                  blk_rows, blk_cols, scale, stream);
-}
-
-// K3.  As K1 with K >= 1 scales: ys, xs [K, T, S]; out [K, T, S, S].
-extern "C" int tpu_mot_roi_extract_scales(
-    int is_u8, const void* l0, const void* l1, const void* l2, const void* l3,
-    int h0, int h1, int h2, int h3, int w0, int w1, int w2, int w3,
-    const void* lvl, const void* r0, const void* c0, const void* ys,
-    const void* xs, void* out, int T, int K, int S, int blk_rows,
-    int blk_cols, float scale, void* stream) {
-  const void* p[4] = {l0, l1, l2, l3};
-  const int h[4] = {h0, h1, h2, h3};
-  const int w[4] = {w0, w1, w2, w3};
-  return dispatch(is_u8, p, h, w, lvl, r0, c0, ys, xs, out, T, K, S,
-                  blk_rows, blk_cols, scale, stream);
-}
-
-// The largest S that K3 takes.
-extern "C" int tpu_mot_roi_scales_max_s() { return kMaxScalesS; }
-
-// What K3 launches for S x S outputs from a u8 or float32 pyramid: info[0]
-// the code path (1 = S compiled in, 0 = S read at run time), info[1]
-// threads per CTA, info[2] registers per thread, info[3] dynamic shared
-// memory per CTA (none), info[4] CTAs that fit on one SM at once.  Returns
-// a CUDA error code.
-extern "C" int tpu_mot_roi_scales_info(int is_u8, int S, int* info) {
-  const bool fast = S == kCompiledS;
-  const void* kernel =
-      is_u8 ? (fast ? (const void*)roi_scales_kernel<uint8_t, kCompiledS>
-                    : (const void*)roi_scales_kernel<uint8_t, 0>)
-            : (fast ? (const void*)roi_scales_kernel<float, kCompiledS>
-                    : (const void*)roi_scales_kernel<float, 0>);
+// What a kernel launches: info[0] the code path (1 = S compiled in, 0 = S
+// read at run time), info[1] threads per CTA, info[2] registers per thread,
+// info[3] dynamic shared memory per CTA, info[4] CTAs that fit on one SM at
+// once.  Returns a CUDA error code.
+int kernel_info(const void* kernel, int S, int rows, int* info) {
+  if (S < 1 || S > kMaxS) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
   int ctas = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &ctas, kernel, kThreads, scales_smem_bytes(S));
-  info[0] = fast;
+      &ctas, kernel, kThreads, tap_smem_bytes(S, rows));
+  info[0] = S == kCompiledS;
   info[1] = kThreads;
   info[2] = attr.numRegs;
-  info[3] = (int)scales_smem_bytes(S);
+  info[3] = (int)tap_smem_bytes(S, rows);
   info[4] = ctas;
   return (int)err;
+}
+
+}  // namespace
+
+#define ROI_LEVEL_PARAMS                                                    \
+  int is_u8, const void *l0, const void *l1, const void *l2, const void *l3, \
+      int h0, int h1, int h2, int h3, int w0, int w1, int w2, int w3,        \
+      const void *lvl, const void *r0, const void *c0, const void *ys,       \
+      const void *xs, void *out
+
+#define ROI_CALL(T_, K_, S_)                                               \
+  Call {                                                                   \
+    is_u8, {l0, l1, l2, l3}, {h0, h1, h2, h3}, {w0, w1, w2, w3},           \
+        static_cast<const int*>(lvl), static_cast<const int*>(r0),         \
+        static_cast<const int*>(c0), static_cast<const float*>(ys),        \
+        static_cast<const float*>(xs), static_cast<float*>(out), T_, K_,   \
+        S_, blk_rows, blk_cols, scale, static_cast<cudaStream_t>(stream)   \
+  }
+
+// K1.  levels l0..l3: contiguous [h_k, w_k] uint8 (is_u8) or float32
+// images; lvl, r0, c0: [T] int32; ys, xs: [T, S] float32 level coordinates;
+// out: [T, S, S] float32.  Launches on `stream`, returns cudaGetLastError().
+extern "C" int tpu_mot_roi_extract(ROI_LEVEL_PARAMS, int T, int S,
+                                   int blk_rows, int blk_cols, float scale,
+                                   void* stream) {
+  return dispatch(ROI_CALL(T, 1, S), kRoiRows);
+}
+
+// K1 with a thread owning `rows` output rows (4, 2 or 1), for measuring
+// the choice of kRoiRows.
+extern "C" int tpu_mot_roi_extract_rows(ROI_LEVEL_PARAMS, int T, int S,
+                                        int rows, int blk_rows, int blk_cols,
+                                        float scale, void* stream) {
+  if (rows != 4 && rows != 2 && rows != 1) return (int)cudaErrorInvalidValue;
+  return dispatch(ROI_CALL(T, 1, S), rows);
+}
+
+// K3.  As K1 with K >= 1 scales: ys, xs [K, T, S]; out [K, T, S, S].
+extern "C" int tpu_mot_roi_extract_scales(ROI_LEVEL_PARAMS, int T, int K,
+                                          int S, int blk_rows, int blk_cols,
+                                          float scale, void* stream) {
+  return dispatch(ROI_CALL(T, K, S), 0);
+}
+
+// The largest S that K1 and K3 take.
+extern "C" int tpu_mot_roi_max_s() { return kMaxS; }
+
+// What K1 (`kernel_info`) launches for S x S outputs from a u8 or float32
+// pyramid.
+extern "C" int tpu_mot_roi_info(int is_u8, int S, int* info) {
+  return kernel_info(is_u8 ? roi_kernel_rows<uint8_t, kRoiRows>(S)
+                           : roi_kernel_rows<float, kRoiRows>(S),
+                     S, kRoiRows, info);
+}
+
+// The same for K3.
+extern "C" int tpu_mot_roi_scales_info(int is_u8, int S, int* info) {
+  return kernel_info(is_u8 ? roi_scales_kernel_of<uint8_t>(S)
+                           : roi_scales_kernel_of<float>(S),
+                     S, kScalesRows, info);
 }

@@ -40,10 +40,14 @@ SIGNATURES = {
     "tpu_mot_roi_extract": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                             _P),
+    "tpu_mot_roi_extract_rows": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _I, _F, _P),
     "tpu_mot_roi_extract_scales": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                                    _I, _I, _I, _I, _F, _P),
-    "tpu_mot_roi_scales_max_s": (),
+    "tpu_mot_roi_max_s": (),
+    "tpu_mot_roi_info": (_I, _I, _P),
     "tpu_mot_roi_scales_info": (_I, _I, _P),
     "tpu_mot_kcf_smem_limit": (),
     "tpu_mot_kcf_detect_smem_bytes": (_I, _I),

@@ -15,9 +15,11 @@ its plain version; they differ only in the resample.  The plain version
 forms the TPU kernel's one-hot hat-weight matmuls W_y . block . W_x^T; the
 kernels evaluate the equal 4-tap form, which `four_tap_mirror` repeats in
 torch so that the CPU tests can hold the kernels' tap rules to the plain
-version.  K1 runs one CTA per track; K3 runs one CTA per (track, scale, row
-tile) with the tile's taps in a shared-memory table, S = 64 compiled in
-and any other S up to `max_scales_s()` read at run time (`SCALES_PATHS`).
+version.  Both kernels are one tile function: one CTA per (track, scale,
+row tile) with the tile's taps in a shared-memory table, S = 64 compiled in
+and any other S up to `max_scales_s()` read at run time (`SCALES_PATHS`);
+K1 is its K = 1 case, under its own kernel name and with its own number of
+rows per thread, and equals the mirror bit for bit on the card as K3 does.
 
 u8 frames keep a u8 pyramid with the 1/255 dequantization folded into the
 resample weights, as in JAX.  Float frames get a float32 pyramid (the JAX
@@ -323,24 +325,33 @@ def four_tap_mirror(levels, frame_hw, lvl, r0, c0, ys, xs) -> torch.Tensor:
     return t0 * cw0[..., None, :] + t1 * cw1[..., None, :]
 
 
-# K3's code paths (csrc/roi.cu, `roi_scales_kernel`), chosen by S alone.
+# The code paths of K1 and K3 (csrc/roi.cu, `resample_tile`), chosen by S
+# alone.
 SCALES_PATHS = ("row tiles, S read at run time", "row tiles, S = 64")
 
 
 @functools.lru_cache(maxsize=None)
 def max_scales_s() -> int:
-    """The largest template size S that K3 takes."""
-    return _build.load().tpu_mot_roi_scales_max_s()
+    """The largest template size S that K1 and K3 take."""
+    return _build.load().tpu_mot_roi_max_s()
+
+
+def _launch_info(entry: str, u8: bool, s: int) -> dict:
+    info = _build.launch_info(getattr(_build.load(), entry), int(u8), s)
+    info["path"] = SCALES_PATHS[info["path"]]
+    return info
+
+
+def launch_info(u8: bool, s: int) -> dict:
+    """What K1 launches for S x S templates from a u8 or float32 pyramid:
+    code path (a name from SCALES_PATHS), threads, registers, shared
+    memory, CTAs per SM."""
+    return _launch_info("tpu_mot_roi_info", u8, s)
 
 
 def scales_launch_info(u8: bool, s: int) -> dict:
-    """What K3 launches for S x S templates from a u8 or float32 pyramid:
-    code path (a name from SCALES_PATHS), threads, registers, shared
-    memory, CTAs per SM."""
-    info = _build.launch_info(_build.load().tpu_mot_roi_scales_info,
-                              int(u8), s)
-    info["path"] = SCALES_PATHS[info["path"]]
-    return info
+    """The same for K3."""
+    return _launch_info("tpu_mot_roi_scales_info", u8, s)
 
 
 def _launch(what, entry, levels, frame_hw, lvl, r0, c0, ys, xs, out,
@@ -377,15 +388,29 @@ def _launch(what, entry, levels, frame_hw, lvl, r0, c0, ys, xs, out,
     _build.check(rc, what)
 
 
-def _resample_cuda(levels, frame_hw, lvl, r0, c0, ys, xs) -> torch.Tensor:
-    """K1 on the card: [T, S] coordinates -> [T, S, S]."""
+def _check_size(what: str, s: int) -> None:
+    if not 1 <= s <= max_scales_s():
+        raise ValueError(f"{what}: template size S={s} outside "
+                         f"1..{max_scales_s()}")
+
+
+def _resample_cuda(levels, frame_hw, lvl, r0, c0, ys, xs,
+                   rows_per_thread: int | None = None) -> torch.Tensor:
+    """K1 on the card: [T, S] coordinates -> [T, S, S].  `rows_per_thread`
+    (4, 2 or 1) launches that variant of the kernel instead of the one the
+    library keeps (tools/kernel_cost.py measures the choice)."""
     global launches
     t, s = ys.shape
     out = torch.empty((t, s, s), dtype=torch.float32, device=ys.device)
     if t == 0:
         return out
-    _launch("extract_patches", "tpu_mot_roi_extract", levels, frame_hw, lvl,
-            r0, c0, ys, xs, out, t, s)
+    _check_size("extract_patches", s)
+    if rows_per_thread is None:
+        _launch("extract_patches", "tpu_mot_roi_extract", levels, frame_hw,
+                lvl, r0, c0, ys, xs, out, t, s)
+    else:
+        _launch("extract_patches", "tpu_mot_roi_extract_rows", levels,
+                frame_hw, lvl, r0, c0, ys, xs, out, t, s, rows_per_thread)
     launches += 1
     return out
 
@@ -398,9 +423,7 @@ def _resample_scales_cuda(levels, frame_hw, lvl, r0, c0, ys, xs
     out = torch.empty((k, t, s, s), dtype=torch.float32, device=ys.device)
     if t == 0 or k == 0:
         return out
-    if not 1 <= s <= max_scales_s():
-        raise ValueError(f"extract_patches_scales: template size S={s} "
-                         f"outside 1..{max_scales_s()}")
+    _check_size("extract_patches_scales", s)
     _launch("extract_patches_scales", "tpu_mot_roi_extract_scales", levels,
             frame_hw, lvl, r0, c0, ys, xs, out, t, k, s)
     launches_scales += 1

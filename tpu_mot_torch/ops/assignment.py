@@ -6,7 +6,9 @@ become neutral zero filler, infeasible pairs sit at benefit -8, and a
 row/column jitter far below eps breaks ties between identical rows
 (`build_benefits`, the same matrix the JAX solvers build).  The solve
 itself is kernels/auction.py: the CUDA kernel for a CUDA tensor, its plain
-torch version on the CPU.  `scipy_assign` is the exact host reference.
+torch version on the CPU.  `auction_assign_warm` is the warm-started solve
+in plain torch, as it is plain XLA in the JAX package (it never reaches the
+kernel).  `scipy_assign` is the exact host reference.
 """
 
 from __future__ import annotations
@@ -19,6 +21,10 @@ from tpu_mot_torch.kernels import auction as auction_k
 COST_CAP = 4.0
 _NEG = -8.0          # benefit of an infeasible pair (below the 0 of dummies)
 DEFAULT_EPS = 0.02   # auction epsilon in cost units; suboptimality <= n*eps
+
+# Loop checks made by `auction_assign_warm`, each one a host sync on a CUDA
+# tensor (a plain count; reset it to 0 to measure a run).
+warm_checks = 0
 
 
 def build_benefits(cost: torch.Tensor, feasible: torch.Tensor,
@@ -73,6 +79,124 @@ def auction_assign_stats(cost: torch.Tensor, feasible: torch.Tensor,
     col_of, iters = solve(b, eps, max_iters)
     converged = torch.all(col_of >= 0)
     return strip_to_rows(col_of, feasible, n_rows, m_cols), iters, converged
+
+
+def auction_assign_warm(cost: torch.Tensor, feasible: torch.Tensor,
+                        init_prices: torch.Tensor, init_col_of: torch.Tensor,
+                        eps: float = DEFAULT_EPS, max_iters: int = 2000,
+                        warm_budget: int = 6
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor, torch.Tensor]:
+    """Warm-started auction (Bertsekas' dynamic assignment), ported from
+    tpu_mot/ops/assignment.auction_assign_warm: returns (row_to_col [N]
+    int32, iters [] int32, converged [] bool, prices [n] float32, col_of [n]
+    int32), n = max(N, M).
+
+    init_prices [n] and init_col_of [n] (row -> column of the carried
+    matching, -1 = none, no column repeated) are a previous call's last two
+    outputs; zeros / -1 give the cold solve.  Every carried pair is checked
+    against eps-complementary slackness under the new benefits: three
+    passes keep the pairs within eps of their row's best value and zero the
+    price of every column outside the kept matching.  A warm phase of at
+    most `warm_budget` active rounds re-auctions the violators; if it runs
+    out and pairs were carried, the state resets to the cold start (zero
+    prices, empty matching, the round count kept) and the standard auction
+    finishes under `max_iters`.  With an empty carry the warm phase is the
+    cold solve and the second loop continues it.
+
+    `iters` counts active rounds.  The loops test their condition every
+    three rounds, as the JAX while_loop does, so up to max_iters + 2 active
+    rounds can run.  In eager PyTorch each test reads a tensor on the host:
+    on a CUDA tensor that is a sync, at least two a call (`warm_checks`
+    counts them).
+    """
+    global warm_checks
+    n_rows, m_cols = cost.shape
+    dev = cost.device
+    if n_rows == 0 or m_cols == 0:
+        return (torch.full((n_rows,), -1, dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev),
+                torch.ones((), dtype=torch.bool, device=dev),
+                init_prices.to(torch.float32), init_col_of.to(torch.int32))
+    n = max(n_rows, m_cols)
+    if tuple(init_prices.shape) != (n,) or tuple(init_col_of.shape) != (n,):
+        raise ValueError(
+            f"init_prices/init_col_of must be [{n}] (squared problem size), "
+            f"got {tuple(init_prices.shape)}/{tuple(init_col_of.shape)}")
+    b = build_benefits(cost, feasible, eps)
+    iota = torch.arange(n, device=dev)
+    row_iota = iota[:, None]
+    col_iota = iota[None, :]
+    neg_inf = float("-inf")
+
+    def round_(prices, col_of, row_of, it):
+        bidding = col_of < 0                                   # [n]
+        values = b - prices[None, :]                           # [n, n]
+        m1 = values.max(dim=1).values
+        j_star = torch.argmax(values, dim=1)                   # first max
+        star = col_iota == j_star[:, None]
+        m2 = torch.where(star, neg_inf, values).max(dim=1).values
+        m2 = torch.where(torch.isfinite(m2), m2, m1)           # one column
+        bid = prices[j_star] + (m1 - m2) + eps
+        # Column-wise best bid (a Jacobi round); the lowest row on ties.
+        bids = torch.where(star & bidding[:, None], bid[:, None], neg_inf)
+        best_bid = bids.max(dim=0).values
+        winner = torch.argmax(bids, dim=0)
+        has_bid = torch.isfinite(best_bid)
+        was_evicted = (has_bid[None, :]
+                       & (row_of[None, :] == row_iota)).any(dim=1)
+        win = has_bid[None, :] & (winner[None, :] == row_iota)
+        won_col = torch.where(win, col_iota, -1).max(dim=1).values
+        col_of = torch.where(won_col >= 0, won_col,
+                             torch.where(was_evicted, -1, col_of))
+        row_of = torch.where(has_bid, winner, row_of)
+        prices = torch.where(has_bid, best_bid, prices)
+        # Only active rounds count: up to two rounds after convergence are
+        # no-ops.
+        return prices, col_of, row_of, it + bidding.any().to(torch.int32)
+
+    def solve(state, limit: int):
+        global warm_checks
+        while True:
+            warm_checks += 1
+            if not bool((state[1] < 0).any() & (state[3] < limit)):
+                return state
+            for _ in range(3):
+                state = round_(*state)
+
+    # Re-validate the carried matching under the new benefits.  p0 stays the
+    # vector the last keep-check ran against, so kept pairs satisfy eps-CS
+    # with respect to the prices the solve starts from.
+    p_carried = init_prices.to(torch.float32)
+    c0 = init_col_of.long()
+    pair_mask = col_iota == c0[:, None]                        # [n, n]
+    keep = c0 >= 0
+    p0 = p_carried
+    for _ in range(3):
+        col_kept = (pair_mask & keep[:, None]).any(dim=0)
+        p0 = torch.where(col_kept, p_carried, 0.0)
+        values0 = b - p0[None, :]
+        m1_0 = values0.max(dim=1).values
+        v_at = torch.where(pair_mask, values0, neg_inf).max(dim=1).values
+        keep = keep & (v_at >= m1_0 - eps)
+    col_of0 = torch.where(keep, c0, -1)
+    row_of0 = torch.where(pair_mask & keep[:, None], row_iota,
+                          -1).max(dim=0).values
+
+    # Phase 1: the budgeted warm solve from the carried state.
+    w_prices, w_col, w_row, w_it = solve(
+        (p0, col_of0, row_of0, torch.zeros((), dtype=torch.int32,
+                                           device=dev)),
+        min(warm_budget, max_iters))
+    # Phase 2: the cold fallback, only if the budget ran out on a state
+    # that started from carried pairs (a select: no host decision).
+    reset = (w_col < 0).any() & keep.any()
+    prices, col_of, _, iters = solve(
+        (torch.where(reset, 0.0, w_prices), torch.where(reset, -1, w_col),
+         torch.where(reset, -1, w_row), w_it), max_iters)
+    converged = torch.all(col_of >= 0)
+    return (strip_to_rows(col_of, feasible, n_rows, m_cols), iters,
+            converged, prices, col_of.to(torch.int32))
 
 
 def scipy_assign(cost: np.ndarray, feasible: np.ndarray) -> np.ndarray:

@@ -29,10 +29,31 @@ def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def association_cost(track_boxes: torch.Tensor, det_boxes: torch.Tensor,
                      track_valid: torch.Tensor, det_valid: torch.Tensor,
-                     iou_gate: float, infeasible: float) -> torch.Tensor:
-    """Gated cost matrix [T, D]: 1 - IoU, or `infeasible` for pairs below
-    the IoU gate or involving a dead track slot / padded detection."""
+                     iou_gate: float, infeasible: float,
+                     appearance: torch.Tensor | None = None,
+                     appearance_weight: float = 0.0,
+                     class_gate: torch.Tensor | None = None,
+                     track_boxes_alt: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """Gated cost matrix [T, D]: (1 - w)(1 - IoU) + w (1 - appearance), or
+    `infeasible` for pairs below the IoU gate or involving a dead track slot
+    / padded detection.
+
+    appearance      : optional [T, D] similarity, clipped to [0, 1] (the KCF
+                      response of track t's model at detection d).
+    class_gate      : optional [T, D] bool; False pairs are infeasible.
+    track_boxes_alt : optional second box per track; each pair scores the
+                      better of the two IoUs, and the gate tests that one.
+    """
     iou = pairwise_iou(track_boxes, det_boxes)
+    if track_boxes_alt is not None:
+        iou = torch.maximum(iou, pairwise_iou(track_boxes_alt, det_boxes))
+    cost = 1.0 - iou
+    if appearance is not None and appearance_weight > 0.0:
+        cost = ((1.0 - appearance_weight) * cost
+                + appearance_weight * (1.0 - appearance.clamp(0.0, 1.0)))
     feasible = ((iou >= iou_gate)
                 & track_valid[:, None] & det_valid[None, :])
-    return torch.where(feasible, 1.0 - iou, infeasible)
+    if class_gate is not None:
+        feasible = feasible & class_gate
+    return torch.where(feasible, cost, infeasible)

@@ -1,6 +1,6 @@
 """Costs of the redesigned kernels' launches on one CUDA card: the auction
-kernel (K2) by rounds, the host cost of the K2, K3, K4 and K5 wrappers, and
-the 3-scale ROI kernel (K3) and the fused train kernel (K5) by size.
+kernel (K2) by rounds, the host cost of the K1-K5 wrappers, and the ROI
+kernels (K1, K3) and the fused train kernel (K5) by size.
 
     python -m tpu_mot_torch.tools.kernel_cost [n]
 
@@ -9,9 +9,10 @@ the 3-scale ROI kernel (K3) and the fused train kernel (K5) by size.
    0, 1, 2, ... rounds up to its full solve, and prints the profiler's
    device time per call at each cap: the time at 0 rounds is launch and
    staging alone, the differences are the rounds.
-2. Calls `auction_solve` (that matrix), the 3-scale ROI resample (128
-   seeded boxes of 24-64 px x 3 scales on a seeded 1080p u8 pyramid, S =
-   64; the resample wrapper alone, its coordinates made once),
+2. Calls `auction_solve` (that matrix), the ROI resample and the 3-scale
+   ROI resample (128 seeded boxes of 24-64 px, x 3 scales for K3, on a
+   seeded 1080p u8 pyramid, S = 64; the resample wrappers alone, their
+   coordinates made once),
    `detect_fused` ([384, 31, 16, 16] against 128 model rows) and
    `train_fused` ([128, 31, 16, 16]) 2000 times each, back to back on
    seeded random inputs, and prints the wall
@@ -20,11 +21,15 @@ the 3-scale ROI kernel (K3) and the fused train kernel (K5) by size.
    stream runs dry between launches and this is the wrapper's host cost;
    the device time per call is printed beside it to tell the cases apart.
 
-3. Runs K3 at 43, 128 and 384 tracks x 3 scales and K5 at 32, 128, 264
-   and 396 tracks (one CTA per track: 128 is under one CTA per SM, 396
-   three) and prints the profiler's device time per call: a time that
-   does not grow with the size is launch and the latency of one CTA's
-   chain, the growth is throughput.
+3. Runs K1 at 43, 128 and 384 rows (384: 128 boxes x 3 per-track scales,
+   the single-object bank's 3-scale search), K3 at 43, 128 and 384 tracks
+   x 3 scales and K5 at 32, 128, 264 and 396 tracks (one CTA per track:
+   128 is under one CTA per SM, 396 three) and prints the profiler's
+   device time per call: a time that does not grow with the size is launch
+   and the latency of one CTA's chain, the growth is throughput.  Where the
+   package has them, K1's variants with a thread owning 4, 2 and 1 output
+   rows (128, 256 and 512 CTAs at 128 rows) are timed in turns at 128 and
+   384 rows.
 
 It uses only the wrappers' signatures, so it times whichever
 tpu_mot_torch package is first on the path: run it by path with PYTHONPATH
@@ -142,17 +147,33 @@ def kcf_inputs(rng, t: int, dev):
             torch.full((t,), 0.075, device=dev))
 
 
+SCALES = (1 / 1.05, 1.0, 1.05)
+
+
 def roi_inputs(rng, t: int, dev):
-    """A seeded 1080p u8 pyramid and the 3-scale coordinates of t boxes of
-    24-64 px."""
+    """A seeded 1080p u8 pyramid and t boxes of 24-64 px."""
     levels = roi.build_pyramid(torch.as_tensor(
         rng.integers(0, 256, HW, dtype=np.uint8), device=dev))
     boxes = torch.as_tensor(np.stack(
         [rng.uniform(0, HW[1], t), rng.uniform(0, HW[0], t),
          rng.uniform(24, 64, t), rng.uniform(24, 64, t)],
         axis=1).astype(np.float32), device=dev)
-    return levels, roi.sample_coords_scales(boxes, 2.5, 64,
-                                            (1 / 1.05, 1.0, 1.05), HW)
+    return levels, boxes
+
+
+def coords_scales(boxes):
+    """K3's coordinates of the boxes at the three scales."""
+    return roi.sample_coords_scales(boxes, 2.5, 64, SCALES, HW)
+
+
+def coords_rows(boxes, three: bool = False):
+    """K1's coordinates: one row per box, or (three) the boxes x 3
+    per-track scales, scale-major, as the single-object bank asks."""
+    if not three:
+        return roi.sample_coords(boxes, 2.5, 64, HW)
+    scales = torch.tensor(SCALES, device=boxes.device).repeat_interleave(
+        boxes.shape[0])
+    return roi.sample_coords(boxes.repeat(3, 1), 2.5, 64, HW, scales)
 
 
 def wrappers_part(b: torch.Tensor, eps: float) -> None:
@@ -160,10 +181,13 @@ def wrappers_part(b: torch.Tensor, eps: float) -> None:
     rng = np.random.default_rng(0)
     t = 128
     model, feat3, feat1, yf, lr = kcf_inputs(rng, t, dev)
-    levels, coords = roi_inputs(rng, t, dev)
+    levels, boxes = roi_inputs(rng, t, dev)
+    coords, coords1 = coords_scales(boxes), coords_rows(boxes)
     for name, fn in (
             (f"auction_solve n={b.shape[0]}",
              lambda: auction.auction_solve(b, eps, 2000)),
+            (f"ROI resample [{t}, 64, 64] u8 1080p",
+             lambda: roi._resample_cuda(levels, HW, *coords1)),
             (f"3-scale ROI resample [3, {t}, 64, 64] u8 1080p",
              lambda: roi._resample_scales_cuda(levels, HW, *coords)),
             (f"detect_fused [{3 * t}, {C}, {S}, {S}]",
@@ -179,11 +203,33 @@ def wrappers_part(b: torch.Tensor, eps: float) -> None:
 def sizes_part(dev) -> None:
     rng = np.random.default_rng(1)
     for t in (43, 128, 384):
-        levels, coords = roi_inputs(rng, t, dev)
+        levels, boxes = roi_inputs(rng, t, dev)
+        coords = coords_scales(boxes)
         ms = device_ms(lambda: roi._resample_scales_cuda(levels, HW,
                                                          *coords))
         print(f"3-scale ROI resample [3, {t}, 64, 64]: device "
               f"{1000 * ms:.2f} us per call")
+    levels, boxes = roi_inputs(rng, 128, dev)
+    rows = {43: coords_rows(boxes[:43]), 128: coords_rows(boxes),
+            384: coords_rows(boxes, three=True)}
+    for t, coords in rows.items():
+        ms = device_ms(lambda: roi._resample_cuda(levels, HW, *coords))
+        print(f"ROI resample [{t}, 64, 64]: device {1000 * ms:.2f} us per "
+              "call")
+    # A package whose K1 has one variant has no launch_info.
+    for t in (128, 384) if hasattr(roi, "launch_info") else ():
+        # 4, 2, 1, 1, 2, 4: each variant in two turns.
+        times = {r: [] for r in (4, 2, 1)}
+        for r in (4, 2, 1, 1, 2, 4):
+            times[r].append(1000 * device_ms(lambda: roi._resample_cuda(
+                levels, HW, *rows[t], rows_per_thread=r)))
+        print(f"ROI resample [{t}, 64, 64] by rows per thread: " + "; ".join(
+            f"{r} rows ({t * 4 // r} CTAs) "
+            f"{' and '.join(f'{x:.2f}' for x in ts)} us"
+            for r, ts in times.items()))
+    if hasattr(roi, "launch_info"):
+        print(f"ROI resample as the library launches it: "
+              f"{roi.launch_info(True, 64)}")
     for t in (32, 128, 264, 396):
         model, _, feat, yf, lr = kcf_inputs(rng, t, dev)
         ms = device_ms(lambda: kcf.train_fused(model, feat, yf, 0.2, 1e-4,

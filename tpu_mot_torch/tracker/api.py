@@ -56,14 +56,14 @@ class MultiTracker:
 
     def __init__(self, cfg: TrackerConfig | None = None, device=None):
         self.cfg = cfg or DEFAULT_CONFIG
-        step_mod.check_supported(self.cfg)
         self.device = resolve_device(device)
         self.bank: TrackBank | None = None
         self.last_output: step_mod.StepOutput | None = None
 
     def _inputs(self, frame, detections):
+        # One width per config, so 5- and 6-column frames share a shape.
         dets, valid = pad_detections(detections, self.cfg.max_detections,
-                                     width=5)
+                                     width=6 if self.cfg.class_aware else 5)
         frame = (frame.to(self.device) if isinstance(frame, torch.Tensor)
                  else torch.as_tensor(np.asarray(frame), device=self.device))
         return (frame, torch.as_tensor(dets, device=self.device),
@@ -121,7 +121,6 @@ class MultiTracker:
                 "cfg": self.cfg}
 
     def load_state(self, snap: dict) -> None:
-        step_mod.check_supported(snap["cfg"])
         self.cfg = snap["cfg"]
         self.bank = map_bank(lambda x: x.to(self.device), snap["bank"])
 

@@ -35,8 +35,7 @@ class TrackBank(NamedTuple):
     age: torch.Tensor               # [T] int32 frames since birth
     score: torch.Tensor             # [T] float32 last confidence
     cls: torch.Tensor               # [T] int32 birth class, -1 empty
-    auction_prices: torch.Tensor    # [max(T, D)] float32 (warm-start carry,
-                                    # unused until the warm auction is ported)
+    auction_prices: torch.Tensor    # [max(T, D)] float32 (warm-start carry)
     auction_col_of: torch.Tensor    # [max(T, D)] int32
     next_id: torch.Tensor           # [] int32
     frame_idx: torch.Tensor         # [] int32

@@ -6,8 +6,12 @@
      folded scale-major into the track axis, hysteresis-weighted best peak,
      PSR of the unit-scale response).  Under detect-site training a slot's
      first post-birth frame gets no KCF refinement.
-  3. IoU cost with gate and infeasible fill ("refined" or "predicted" box)
-  4. Auction assignment
+  3. Cost: IoU (of the "refined" or "predicted" box, or the better of the
+     two under assoc_box="best"), blended with the appearance term (each
+     track's response read at each detection's place) when
+     appearance_weight > 0; gated by IoU and, under class_aware, by class
+  4. Auction assignment: the auction kernel, or under auction_warm_start
+     the warm-started solve from the prices and matching the bank carries
   5. Kalman correct: matched slots with their detection, unmatched slots
      with a trusted KCF peak with the KCF position
   6/7. Lifecycle by masking: confirmations, deaths, births into the
@@ -20,8 +24,11 @@
 
 The step is branch-free on tensor values, like the JAX step: no `.item()`
 and no Python `if` on a tensor, so on the card it queues its kernels
-without a host sync.  Scatters with JAX's mode="drop" write into one extra
-dump slot that is sliced off.
+without a host sync.  The one exception is auction_warm_start: the warm
+auction is plain torch, and each test of its loops reads a tensor on the
+host, at least two syncs a frame (ops/assignment.auction_assign_warm).
+Scatters with JAX's mode="drop" write into one extra dump slot that is
+sliced off.
 
 How the port reads the TrackerConfig impl knobs:
 
@@ -35,14 +42,15 @@ How the port reads the TrackerConfig impl knobs:
   assign_impl "auto"/"pallas" the auction kernel wrapper (CUDA kernel on the
                         card, plain version on the CPU); "xla" the plain
                         version
+  auction_warm_start    the warm-started auction in plain torch, whatever
+                        assign_impl says (it bypasses the kernel in JAX
+                        too); a bank whose carry is not [max(T, D)] falls
+                        back to the cold solve
   kcf_impl    "auto"/"xla"  the torch.fft chain
               "pallas"  the fused KCF kernel wrappers: K4 for detect and,
                         under train_site="refined", K5 for train + blend (on
                         the CPU their plain versions)
   kcf_precision, kcf_block, scan_unroll: ignored (TPU-only; fp32 here)
-
-Branches of the JAX step that are not ported yet raise NotImplementedError
-and name the ROADMAP.md item that will port them; none is approximated.
 """
 
 from __future__ import annotations
@@ -81,24 +89,6 @@ class StepOutput(NamedTuple):
     assign_converged: torch.Tensor  # [] bool
 
 
-def check_supported(cfg: TrackerConfig) -> None:
-    """Raise NotImplementedError for a config that needs an unported
-    branch of the JAX step."""
-    branch_item = "ROADMAP.md §1 item 6, step branches off the main path"
-    todo = [
-        (cfg.appearance_weight > 0.0,
-         f"appearance_weight > 0 ({branch_item})"),
-        (cfg.class_aware or cfg.assoc_box_resolved == "best",
-         f"class_aware / assoc_box='best' ({branch_item})"),
-        (cfg.auction_warm_start,
-         f"auction_warm_start=True ({branch_item})"),
-    ]
-    for hit, what in todo:
-        if hit:
-            raise NotImplementedError(f"tpu_mot_torch does not port {what} "
-                                      "yet")
-
-
 def _roi_kernel_path(cfg: TrackerConfig, frame: torch.Tensor) -> bool:
     if not cfg.use_kcf or cfg.roi_impl == "xla":
         return False
@@ -115,6 +105,30 @@ def _features_at(gray, boxes, cfg: TrackerConfig, levels, frame_hw,
         impl="xla" if levels is None else "pallas", levels=levels,
         frame_hw=frame_hw)
     return feat_ops.extract_features(patches, cfg.kcf)
+
+
+def _sample_response(response: torch.Tensor, centers: torch.Tensor,
+                     win: torch.Tensor, det_centers: torch.Tensor,
+                     size: int) -> torch.Tensor:
+    """The appearance term: track t's correlation response read bilinearly
+    at detection d's place in t's search window -> [T, D]; 0 where the
+    detection lies outside the window.
+
+    response [T, S, S]; centers, win [T, 2] (predicted centers, window
+    (w, h)); det_centers [D, 2].  The sample is two hat-weight products, as
+    in the JAX step (weights nonzero at the two bracketing pixels).
+    """
+    rel = det_centers[None, :, :] - centers[:, None, :]          # [T, D, 2]
+    u = rel / torch.clamp_min(win[:, None, :], 1e-3) * size + size // 2
+    ux = u[..., 0].clamp(0.0, size - 1.0)                        # [T, D]
+    uy = u[..., 1].clamp(0.0, size - 1.0)
+    iota = torch.arange(size, dtype=torch.float32, device=response.device)
+    wy = torch.clamp_min(1.0 - torch.abs(uy[..., None] - iota), 0.0)
+    wx = torch.clamp_min(1.0 - torch.abs(ux[..., None] - iota), 0.0)
+    v = (torch.bmm(wy, response) * wx).sum(dim=-1)               # [T, D]
+    inside = ((u[..., 0] >= 0) & (u[..., 0] <= size - 1)
+              & (u[..., 1] >= 0) & (u[..., 1] <= size - 1))
+    return torch.where(inside, v, 0.0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,7 +152,6 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
                 column 5, padded to a static D.
     det_valid : [D] bool for real detections.
     """
-    check_supported(cfg)
     t_cap = cfg.max_tracks
     n_det = dets.shape[0]
     s = cfg.kcf.feature_size
@@ -250,15 +263,45 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
         refined = pred_boxes
 
     # ---- 3. Cost matrix ----------------------------------------------
-    assoc = (pred_boxes if cfg.assoc_box_resolved == "predicted"
-             else refined)
-    cost = iou_ops.association_cost(assoc, det_boxes, alive, det_valid,
-                                    cfg.iou_gate, cfg.cost_infeasible)
+    appearance = None
+    if cfg.use_kcf and cfg.appearance_weight > 0.0:
+        appearance = _sample_response(
+            response, pred_boxes[:, :2], pred_boxes[:, 2:4] * cfg.kcf.padding,
+            det_boxes[:, :2], s)
+        if cfg.train_site == "detect":
+            # Day-one slots have no model yet (the kcf_ok gate above): zero
+            # their rows rather than let stale spectra attract matches.
+            appearance = appearance * (bank.age != 1)[:, None]
+    # A track only matches detections of its birth class; empty slots
+    # (cls < 0, already masked by `alive`) pass.
+    class_gate = (((bank.cls[:, None] == det_cls[None, :])
+                   | (bank.cls[:, None] < 0)) if cfg.class_aware else None)
+    assoc_box = cfg.assoc_box_resolved
+    cost = iou_ops.association_cost(
+        pred_boxes if assoc_box == "predicted" else refined, det_boxes,
+        alive, det_valid, cfg.iou_gate, cfg.cost_infeasible,
+        appearance=appearance, appearance_weight=cfg.appearance_weight,
+        class_gate=class_gate,
+        # "best": the Kalman prediction is a second hypothesis per pair.
+        track_boxes_alt=pred_boxes if assoc_box == "best" else None)
     feasible = cost < cfg.cost_infeasible * 0.5
 
     # ---- 4. Assignment -----------------------------------------------
-    matched_det, assign_iters, assign_conv = assignment.auction_assign_stats(
-        cost, feasible, impl=cfg.assign_impl)                       # [T]
+    # The warm start carries last frame's prices and matching; the carry is
+    # sized for cfg.max_detections, and a caller with another detection
+    # padding gets the cold solve.
+    n_sq = max(t_cap, n_det)
+    if (cfg.auction_warm_start
+            and tuple(bank.auction_prices.shape) == (n_sq,)):
+        (matched_det, assign_iters, assign_conv, new_prices,
+         new_col_of) = assignment.auction_assign_warm(
+            cost, feasible, bank.auction_prices, bank.auction_col_of)
+    else:
+        matched_det, assign_iters, assign_conv = (
+            assignment.auction_assign_stats(cost, feasible,
+                                            impl=cfg.assign_impl))  # [T]
+        new_prices = bank.auction_prices
+        new_col_of = bank.auction_col_of
     is_matched = matched_det >= 0
     det_idx = matched_det.long().clamp(0, n_det - 1)
     det_taken = torch.zeros((n_det + 1,), dtype=torch.bool, device=dev)
@@ -372,8 +415,8 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
     new_bank = TrackBank(
         kf_mean=kf_mean, kf_cov=kf_cov, kcf=kcf_model, ids=ids,
         state=state, hits=hits, time_since_update=tsu, age=age,
-        score=score, cls=cls, auction_prices=bank.auction_prices,
-        auction_col_of=bank.auction_col_of, next_id=next_id,
+        score=score, cls=cls, auction_prices=new_prices,
+        auction_col_of=new_col_of, next_id=next_id,
         frame_idx=(bank.frame_idx + 1).to(i32))
 
     out = StepOutput(
