@@ -51,6 +51,28 @@ nonzero exit, no "ok" line):
              dump of the JAX run (tests/golden/bench_assoc_jax_v1.npz) with
              boxes within 0.05 px, and AW's auction rounds and host-side
              loop checks per frame;
+  e2e-detect the detector path of bench_e2e.py (yolov3-tiny, 80 classes at
+             416, seeded weights, on 32 u8 frames of 720p; 128 tracks, 64
+             detections): the candidates before NMS of frames 0-1 against
+             the JAX dump (tests/golden/detect_e2e_jax_v1.npz), NMS on the
+             card equal index for index to NMS on the CPU fed the card's
+             candidates, the detections against the dump's as sets (a
+             floor of matches a frame), run_sequence fed the dump's
+             detections against the dump's tracks (ids and valid equal,
+             every box within 0.05 px: a free run on frames 0-27, then
+             frames 28-31 from JAX's bank after frame 27, which the dump
+             keeps), exact K1 and K2 launches of the fused detect -> track
+             run and the same run with every K1 and K2 call held against
+             its plain version (K1 1e-5 and bit-equal to the 4-tap mirror,
+             K2 col_of and iters exactly), the strided scans (stride 3,
+             N = 32 and 30) and the batched form (equal to run_sequence
+             fed its detections; its forward's detections within 2e-3 of
+             the B = 1 forwards'; to the scanned form step by step from the
+             same bank, but for slot-frames that the two steps match to
+             other detections), bf16 + fast NMS and int8 against float32
+             (int8: one quantised layer bit-equal on the card and the CPU,
+             scores moved by more than float32 noise), then the times of
+             bench_e2e.py's stages;
   kcf-bank   the single-object flow: KCFTracker (T = 1) on a 480 x 640 clip
              of 100 frames (centre error under 2 px, exactly 1 + 2 x 99 K1
              launches), then a bank of the bench fixture's 128 first-frame
@@ -73,7 +95,9 @@ nonzero exit, no "ok" line):
              kernel the code path, registers, shared memory and CTAs per SM;
   profile    where device time goes over 16 frames, default, HF and AW, and
              how often the host reads a device scalar (AW: the warm
-             auction's loop checks).
+             auction's loop checks); then the fused detect -> track run of
+             e2e-detect (launches a frame, the device's busy share) and
+             one detect_batch call alone, greedy and fast NMS.
 The line before the last is {"kernels": [...]}: per kernel its launches
 in the path that runs it (K1, K2: default; K3-K5: HF), "max_abs_err" the
 largest difference from the plain version (K2: in col_of and iters; K4,
@@ -86,6 +110,7 @@ them).  The last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -97,20 +122,26 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tpu_mot_torch import interop
 from tpu_mot_torch.config import KCFConfig, TrackerConfig
 from tpu_mot_torch.data import synthetic
 from tpu_mot_torch.kernels import _build
 from tpu_mot_torch.kernels import auction as auction_k
 from tpu_mot_torch.kernels import kcf as kcf_k
 from tpu_mot_torch.kernels import roi as roi_k
+from tpu_mot_torch.models import detector
+from tpu_mot_torch.models import yolo as yolo_mod
+from tpu_mot_torch.models.yolo import YoloSpec
 from tpu_mot_torch.ops import assignment
 from tpu_mot_torch.ops import features as feat_ops
 from tpu_mot_torch.ops import kcf as kcf_ops
+from tpu_mot_torch.ops import nms as nms_ops
 from tpu_mot_torch.ops import patch as patch_ops
 from tpu_mot_torch.tracker import api
 from tpu_mot_torch.tracker import bank as bank_mod
 from tpu_mot_torch.tracker import kcf_bank
 from tpu_mot_torch.tracker import scan
+from tpu_mot_torch.tracker import step as step_mod
 from tpu_mot_torch.utils import metrics
 
 # MOTA / HOTA of the JAX reference (tpu_mot, jax 0.9.0 on the CPU,
@@ -162,6 +193,31 @@ KCF_BANK_IOU_REF = {"gray refined": 0.76836115, "gray detect": 0.78892004,
 BANK_TOL = 0.05
 BANK_TIES = 1e-3
 
+# The detector path, bench_e2e.py:58-86 (BASELINE.json configs[3]): 32 u8
+# frames of 720p with 128 objects, yolov3-tiny (80 classes, 416 input,
+# float32, weights from interop.numpy_yolo_params at seed 0), greedy NMS at
+# IoU 0.45 and score 0.3 into 64 slots, 128 track slots.  E2E_DUMP is the
+# JAX reference on it (tpu_mot on the CPU; the tracker with
+# roi_impl="pallas"): per frame dets, valid, classes; pre-NMS boxes, scores
+# and classes of the first E2E_PRE frames; the tracker's ids, valid, boxes.
+# Regenerate with `python tests/test_torch_detector.py regen-e2e-dump`.
+E2E_H, E2E_W, E2E_FRAMES, E2E_DETS, E2E_PRE = 720, 1280, 32, 64, 2
+E2E_SEED, E2E_IOU, E2E_SCORE, E2E_STRIDE = 0, 0.45, 0.3, 3
+E2E_DUMP = HEAVY_DUMP.with_name("detect_e2e_jax_v1.npz")
+# The dump also holds JAX's bank after frame E2E_BANK_FRAME - 1: a free
+# run of the tracker is held to the dump on the frames before it, and the
+# frames from it on are stepped from JAX's bank.  (Past it a slot that has
+# lost its object turns a last-bit difference into pixels; see PERF.md §6.)
+E2E_BANK_FRAME = 28
+# Bounds of the card against the dump and of int8 against float32 (see
+# PERF.md §6), and runs per timed stage.  int8's scores before NMS must
+# differ from float32's by more than float32's own noise (E2E_INT8_SCORE_MIN;
+# the card against the JAX dump: 2.7e-7) and less than E2E_INT8_SCORE_TOL.
+E2E_PRE_SCORE_TOL, E2E_PRE_BOX_TOL = 1e-5, 2e-3
+E2E_MATCH_FLOOR = 60
+E2E_INT8_SCORE_MIN, E2E_INT8_SCORE_TOL = 1e-4, 0.02
+E2E_REPS = 5
+
 # Published H100 SXM peaks (the least-time bound of each kernel).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -211,6 +267,27 @@ def bench_fixture():
         d[f], v[f] = api.pad_detections(dets_list[f], cfg.max_detections)
     frames_u8 = (frames * 255).astype(np.uint8)
     return frames_u8, d, v, boxes, vis, dets_list, cfg
+
+
+def e2e_fixture():
+    """bench_e2e.py:58-86: (frames u8 [32, 720, 1280], detections from the
+    ground truth [32, 64, 5] and valid (the tracker-only stage's input), the
+    tracker config, the detector spec)."""
+    rng = np.random.default_rng(0)
+    objs = synthetic.make_objects(N_OBJ, E2E_H, E2E_W, rng, min_size=24,
+                                  max_size=64, max_speed=3.0)
+    frames, boxes, vis = synthetic.render_sequence(
+        objs, E2E_FRAMES, E2E_H, E2E_W, seed=0, noise=0.01)
+    dets_list = synthetic.detections_from_gt(boxes, vis, seed=0,
+                                             frame_hw=(E2E_H, E2E_W))
+    d = np.zeros((E2E_FRAMES, E2E_DETS, 5), np.float32)
+    v = np.zeros((E2E_FRAMES, E2E_DETS), bool)
+    for f in range(E2E_FRAMES):
+        d[f], v[f] = api.pad_detections(dets_list[f], E2E_DETS)
+    cfg = TrackerConfig(max_tracks=128, max_detections=E2E_DETS,
+                        frame_height=E2E_H, frame_width=E2E_W)
+    return ((frames * 255).astype(np.uint8), d, v, cfg,
+            YoloSpec("yolov3-tiny", num_classes=80))
 
 
 def assoc_fixture():
@@ -866,6 +943,466 @@ def phase_e2e_assoc(frames, d, v, cfg, gt_boxes, vis):
                                  f"{cls_same}")
 
 
+def set_matches(dets, valid, classes, ref_dets, ref_valid, ref_classes,
+                tol: float = 0.05) -> list[int]:
+    """Per frame, how many of the reference's valid detections have a valid
+    detection of the same class whose centre is within tol px (NumPy
+    [N, D, 5], [N, D], [N, D])."""
+    out = []
+    for f in range(ref_valid.shape[0]):
+        got_c = classes[f][valid[f]]
+        got_xy = dets[f][valid[f], :2]
+        n = 0
+        for i in np.where(ref_valid[f])[0]:
+            near = np.abs(got_xy - ref_dets[f, i, :2]).max(axis=1) <= tol
+            n += bool((near & (got_c == ref_classes[f, i])).any())
+        out.append(n)
+    return out
+
+
+def triple(out) -> tuple:
+    """(ids, valid, boxes) of a stacked StepOutput, as NumPy."""
+    return tuple(x.cpu().numpy() for x in (out.ids, out.valid, out.boxes))
+
+
+def compare_tracks(got, ref, tol: float = 0.05, start: int = 0,
+                   excused=None) -> tuple[bool, str]:
+    """Two runs' (ids, valid, boxes) [N, T(, 4)]: whether ids and valid are
+    equal on every frame and the boxes of every slot-frame valid in both
+    within tol px, and a summary (frames numbered from start).  Slot-frames
+    in excused ([N, T] bool) are counted apart and not held to tol."""
+    ids, valid, boxes = got
+    r_ids, r_valid, r_boxes = ref
+    same = [bool(np.array_equal(ids[f], r_ids[f])
+                 and np.array_equal(valid[f], r_valid[f]))
+            for f in range(ids.shape[0])]
+    both = valid & r_valid
+    diff = np.abs(boxes - r_boxes).max(axis=-1)
+    over = (diff > tol) & both
+    n_excused = 0
+    if excused is not None:
+        n_excused = int((over & excused).sum())
+        over &= ~excused
+    far = np.where(over)[0]
+    diff = diff[both]
+    first = same.index(False) if not all(same) else None
+    txt = (f"ids and valid equal on {sum(same)}/{len(same)} frames (first "
+           f"other: {None if first is None else start + first}); boxes "
+           f"within {tol} px on {int((diff <= tol).sum())} of {diff.size} "
+           f"valid slot-frames (largest difference "
+           f"{float(diff.max()) if diff.size else 0.0:.3g} px; first frame "
+           f"over {tol} px: {start + int(far[0]) if far.size else None}")
+    if excused is not None:
+        txt += f"; {n_excused} excused over {tol} px"
+    return bool(all(same) and diff.size and not far.size), txt + ")"
+
+
+def same_tracks(got, ref, what: str, tol: float = 0.05, start: int = 0,
+                excused=None) -> str:
+    """compare_tracks's summary; raises unless the runs are equal."""
+    ok, txt = compare_tracks(got, ref, tol, start, excused)
+    if not ok:
+        raise AssertionError(f"{what}: {txt}")
+    return txt
+
+
+def dump_bank(dump, device) -> bank_mod.TrackBank:
+    """JAX's tracker bank kept in the e2e dump (its "bank_" keys)."""
+    fields = {}
+    for name in bank_mod.TrackBank._fields:
+        if name == "kcf":
+            fields[name] = kcf_ops.KCFModel(**{
+                p: interop.cf_to_complex(dump[f"bank_{p}_re"],
+                                         dump[f"bank_{p}_im"], device)
+                for p in ("xf", "alphaf")})
+        else:
+            fields[name] = torch.as_tensor(dump[f"bank_{name}"],
+                                           device=device)
+    return bank_mod.TrackBank(**fields)
+
+
+def lockstep(bank, frames, dets, valid, other_dets, other_valid, cfg):
+    """Step the tracker frame by frame with two sets of detections from the
+    same bank, the first set's bank going on: both stacked StepOutputs, so
+    a difference is one step's, not a drift."""
+    outs, others = [], []
+    for i in range(frames.shape[0]):
+        others.append(step_mod.step(bank, frames[i], other_dets[i],
+                                    other_valid[i], cfg)[1])
+        bank, out = step_mod.step(bank, frames[i], dets[i], valid[i], cfg)
+        outs.append(out)
+    return tuple(step_mod.StepOutput(*[torch.stack(x) for x in zip(*o)])
+                 for o in (outs, others))
+
+
+def checked_run(bank, frames, dets, valid, cfg):
+    """run_sequence with each K1 and K2 call also held against its plain
+    version on the inputs the path gives it (launches made here compare and
+    are not counted).  Returns the outputs and, per call: K1's largest
+    |kernel - plain| and whether it is bit-equal to the 4-tap mirror; K2's
+    col_of and iters equal to the plain version's, and its rounds."""
+    k1_err, k1_mirror, k2_same, k2_rounds = [], [], [], []
+    resample, solve = roi_k._resample_cuda, auction_k.auction_solve
+
+    def k1(levels, frame_hw, lvl, r0, c0, ys, xs):
+        got = resample(levels, frame_hw, lvl, r0, c0, ys, xs)
+        want = roi_k._resample_ref(levels, frame_hw, lvl, r0, c0, ys, xs)
+        mirror = roi_k.four_tap_mirror(levels, frame_hw, lvl, r0, c0,
+                                       ys[None], xs[None])[0]
+        k1_err.append(float((got - want).abs().max()))
+        k1_mirror.append(torch.equal(got, mirror))
+        return got
+
+    def k2(b, eps, max_iters):
+        col, it = solve(b, eps, max_iters)
+        want_col, want_it = auction_k.auction_solve_ref(b, eps, max_iters)
+        k2_same.append(torch.equal(col, want_col)
+                       and int(it) == int(want_it))
+        k2_rounds.append(int(it))
+        return col, it
+
+    roi_k._resample_cuda, auction_k.auction_solve = k1, k2
+    try:
+        _, out = scan.run_sequence(bank, frames, dets, valid, cfg)
+    finally:
+        roi_k._resample_cuda, auction_k.auction_solve = resample, solve
+    return out, k1_err, k1_mirror, k2_same, k2_rounds
+
+
+def timed(fn, reps: int) -> list[float]:
+    """Seconds of each of reps synchronised calls of fn, after one warm
+    call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def phase_e2e_detect(dev, card: str):
+    """The detector path of bench_e2e.py on the card: yolov3-tiny on 32 u8
+    frames of 720p, then the tracker at 128 slots (see E2E_DUMP)."""
+    t_phase = time.perf_counter()
+    frames_np, d_np, v_np, cfg, spec = e2e_fixture()
+    frames = torch.as_tensor(frames_np, device=dev)
+    d = torch.as_tensor(d_np, device=dev)
+    v = torch.as_tensor(v_np, device=dev)
+    dump = np.load(E2E_DUMP)
+    hw = (E2E_H, E2E_W)
+    det = detector.YoloDetector.random_init(
+        spec, seed=E2E_SEED, device=dev, max_out=E2E_DETS, iou_thr=E2E_IOU,
+        score_thr=E2E_SCORE)
+    model = det.model
+    n_params = sum(p.numel() for p in model.parameters()) + sum(
+        b.numel() for n, b in model.named_buffers()
+        if not n.endswith("num_batches_tracked"))
+    log("e2e-detect", f"{spec.name}, {spec.num_classes} classes at "
+                      f"{spec.input_size}, {spec.dtype}, {n_params} "
+                      f"parameters and BatchNorm statistics; {E2E_FRAMES} frames {E2E_H}x{E2E_W} u8, "
+                      f"{cfg.max_tracks} tracks, {E2E_DETS} detections")
+
+    def detect(m, fr, impl="greedy"):
+        return detector.detect_batch(m, fr, hw, E2E_DETS, E2E_IOU,
+                                     E2E_SCORE, nms_impl=impl)
+
+    # 1. every candidate before NMS against the JAX dump
+    boxes, scores, classes = detector.decode_frames(model, frames, hw)
+    pre = slice(0, E2E_PRE)
+    s_diff = float(np.abs(scores[pre].cpu().numpy()
+                          - dump["pre_scores"]).max())
+    b_diff = float(np.abs(boxes[pre].cpu().numpy()
+                          - dump["pre_boxes"]).max())
+    c_same = float((classes[pre].cpu().numpy()
+                    == dump["pre_classes"]).mean())
+    log("e2e-detect", f"before NMS, frames 0-{E2E_PRE - 1} "
+                      f"({scores.shape[1]} candidates each) against the JAX "
+                      f"dump: max |score diff| {s_diff:.3g} (limit "
+                      f"{E2E_PRE_SCORE_TOL:g}), max box diff {b_diff:.3g} "
+                      f"frame px (limit {E2E_PRE_BOX_TOL:g}; boxes up to "
+                      f"{np.abs(dump['pre_boxes']).max():.1f} px), classes "
+                      f"equal on {100 * c_same:.3f}%")
+    if not (s_diff <= E2E_PRE_SCORE_TOL and b_diff <= E2E_PRE_BOX_TOL
+            and c_same == 1.0):
+        raise AssertionError(f"e2e-detect: pre-NMS score {s_diff}, box "
+                             f"{b_diff}, classes equal {c_same}")
+
+    # 2. NMS on the card against NMS on the CPU fed the card's candidates,
+    # and the detections against the dump's as sets
+    idx, val = nms_ops.nms_classwise(boxes, scores, classes, E2E_DETS,
+                                     E2E_IOU, E2E_SCORE)
+    idx_c, val_c = nms_ops.nms_classwise(boxes.cpu(), scores.cpu(),
+                                         classes.cpu(), E2E_DETS, E2E_IOU,
+                                         E2E_SCORE)
+    nms_same = (torch.equal(idx.cpu(), idx_c)
+                and torch.equal(val.cpu(), val_c))
+    dets, valid, cls = detect(model, frames)
+    safe = idx.long().clamp_min(0)
+    gathered = torch.equal(dets[..., :4], boxes.gather(
+        1, safe[..., None].expand(-1, -1, 4))) and torch.equal(valid, val)
+    matches = set_matches(dets.cpu().numpy(), valid.cpu().numpy(),
+                          cls.cpu().numpy(), dump["dets"], dump["valid"],
+                          dump["classes"])
+    log("e2e-detect", f"NMS on the card equals NMS on the CPU fed the card's "
+                      f"candidates, index for index on {E2E_FRAMES} frames: "
+                      f"{nms_same}; detect_batch gives those detections: "
+                      f"{gathered}; valid per frame "
+                      f"{valid.sum(1).tolist()}")
+    log("e2e-detect", f"detections matching the JAX dump's (same class, "
+                      f"centre within 0.05 px), of 64 per frame: min "
+                      f"{min(matches)}, median {statistics.median(matches)},"
+                      f" per frame {matches} (floor {E2E_MATCH_FLOOR})")
+    if not (nms_same and gathered and min(matches) >= E2E_MATCH_FLOOR):
+        raise AssertionError(f"e2e-detect: NMS card == CPU {nms_same}, "
+                             f"detect_batch consistent {gathered}, matches "
+                             f"{matches}")
+
+    # 3. the tracker fed the dump's detections against the dump's tracks:
+    # a free run on the frames before E2E_BANK_FRAME, then the frames from
+    # it on stepped from JAX's bank
+    k = E2E_BANK_FRAME
+    bank0 = bank_mod.empty_bank(cfg, device=dev)
+    dump_d = torch.as_tensor(dump["dets"], device=dev)
+    dump_v = torch.as_tensor(dump["valid"], device=dev)
+    ref = (dump["ids"], dump["track_valid"], dump["boxes"])
+    _, free = scan.run_sequence(bank0, frames, dump_d, dump_v, cfg)
+    free = triple(free)
+    log("e2e-detect", f"run_sequence fed the dump's detections, frames 0-"
+                      f"{k - 1} against the dump's tracks: " + same_tracks(
+                          [x[:k] for x in free], [x[:k] for x in ref],
+                          "tracker vs JAX dump"))
+    _, tail = scan.run_sequence(dump_bank(dump, dev), frames[k:],
+                                dump_d[k:], dump_v[k:], cfg)
+    log("e2e-detect", f"run_sequence from JAX's bank after frame {k - 1}, "
+                      f"frames {k}-{E2E_FRAMES - 1} against the dump's "
+                      "tracks: " + same_tracks(
+                          triple(tail), [x[k:] for x in ref],
+                          "tracker from JAX's bank vs JAX dump", start=k))
+    log("e2e-detect", "the free run over every frame against the dump "
+                      "(printed, not held): " + compare_tracks(free, ref)[1])
+
+    # 4. launches of the fused detect -> track run
+    reset_counts()
+    dets, valid, _ = detect(model, frames)
+    _, fused = scan.run_sequence(bank0, frames, dets, valid, cfg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: 0 for k in KERNELS}
+    want.update(roi_extract=E2E_FRAMES, auction_solve=E2E_FRAMES)
+    log("e2e-detect", f"fused detect_batch + run_sequence, {E2E_FRAMES} "
+                      f"frames on {frames.device}: kernel launches {counts}; "
+                      f"{int(fused.valid.sum())} valid slot-frames")
+    if counts != want:
+        raise AssertionError(f"e2e-detect: launches {counts}, expected {want}")
+    check_tracks = fused.boxes.cpu().numpy()
+    if not np.isfinite(check_tracks).all() or not fused.valid.any():
+        raise AssertionError("e2e-detect: fused run's tracks not finite")
+    # the same run again with K1 and K2 held against their plain versions
+    # on every call: the path's own pyramids, boxes and benefit matrices
+    checked, k1_err, k1_mirror, k2_same, rounds = checked_run(
+        bank0, frames, dets, valid, cfg)
+    same_run = all(torch.equal(getattr(checked, f), getattr(fused, f))
+                   for f in ("ids", "valid", "boxes", "assign_iters"))
+    log("e2e-detect", f"fused run checked call by call: K1 on the {E2E_H}p "
+                      f"u8 pyramid, {len(k1_err)} calls, max |kernel - plain|"
+                      f" {max(k1_err):.3g} (limit {ROI_TOL:g}), bit-equal to "
+                      f"the 4-tap mirror on {sum(k1_mirror)}; K2 on the "
+                      f"[{cfg.max_tracks}, {cfg.max_tracks}] benefits, "
+                      f"{len(k2_same)} calls, col_of and iters exactly equal "
+                      f"on {sum(k2_same)} (rounds median "
+                      f"{statistics.median(rounds)}, max {max(rounds)}); "
+                      f"outputs equal the counted run's: {same_run}")
+    if not (len(k1_err) == len(k2_same) == E2E_FRAMES and same_run
+            and max(k1_err) <= ROI_TOL and all(k1_mirror) and all(k2_same)):
+        raise AssertionError(f"e2e-detect: K1 errors {k1_err}, mirror "
+                             f"{k1_mirror}; K2 equal {k2_same}; same run "
+                             f"{same_run}")
+
+    # 5. variants: the strided scans, bf16 + fast NMS, int8
+    for n in (E2E_FRAMES, E2E_FRAMES - E2E_FRAMES % E2E_STRIDE):
+        fr = frames[:n]
+        ref_d = torch.zeros((n, E2E_DETS, 5), device=dev)
+        ref_v = torch.zeros((n, E2E_DETS), dtype=torch.bool, device=dev)
+        for i in range(0, n, E2E_STRIDE):
+            dd, vv, _ = detect(model, fr[i:i + 1])
+            ref_d[i], ref_v[i] = dd[0], vv[0]
+        _, ref = scan.run_sequence(bank0, fr, ref_d, ref_v, cfg)
+        _, st = scan.run_sequence_strided_detector(
+            bank0, fr, model, cfg, E2E_STRIDE, E2E_IOU, E2E_SCORE)
+        lowering = "grouped" if n % E2E_STRIDE == 0 else "per-frame branch"
+        log("e2e-detect", f"run_sequence_strided_detector stride "
+                          f"{E2E_STRIDE}, N={n} ({lowering} in JAX) against "
+                          "run_sequence fed the same detections: "
+                          + same_tracks(triple(st), triple(ref),
+                                        f"strided N={n}"))
+        if n == E2E_FRAMES:
+            scanned, scanned_d, scanned_v = st, ref_d, ref_v
+    # the batched form: one forward over the stride frames, then
+    # run_sequence; its detections against the B=1 forwards' above
+    d_b, v_b, c_b = detect(model, frames[::E2E_STRIDE])
+    ref_d = torch.zeros_like(scanned_d)
+    ref_v = torch.zeros_like(scanned_v)
+    ref_d[::E2E_STRIDE], ref_v[::E2E_STRIDE] = d_b, v_b
+    _, ref = scan.run_sequence(bank0, frames, ref_d, ref_v, cfg)
+    _, batched = scan.run_sequence_strided_batched(
+        bank0, frames, model, cfg, E2E_STRIDE, E2E_IOU, E2E_SCORE)
+    n_det = d_b.shape[0]
+    log("e2e-detect", f"run_sequence_strided_batched (one forward over "
+                      f"{n_det} frames) against run_sequence fed that "
+                      "forward's detections: "
+                      + same_tracks(triple(batched), triple(ref), "batched"))
+    one_d = scanned_d[::E2E_STRIDE]
+    both_v = v_b & scanned_v[::E2E_STRIDE]
+    det_diff = float((d_b - one_d).abs()[both_v].max())
+    same_v = torch.equal(v_b, scanned_v[::E2E_STRIDE])
+    log("e2e-detect", f"the batched forward's detections against the {n_det}"
+                      f" B=1 forwards': bit-equal {torch.equal(d_b, one_d)}, "
+                      f"valid equal {same_v}, largest difference "
+                      f"{det_diff:.3g} (px or score; limit "
+                      f"{E2E_PRE_BOX_TOL:g}) over slots valid in both")
+    if not (same_v and det_diff <= E2E_PRE_BOX_TOL):
+        raise AssertionError(f"e2e-detect: batched forward's detections "
+                             f"{det_diff} from the B=1 forwards', valid "
+                             f"equal {same_v}")
+    # batched against scanned: the two forwards' detections differ in the
+    # last bits (cuDNN picks its algorithm by batch size), so both are
+    # stepped from the scanned form's bank on every frame (a free run
+    # carries a last-bit difference into pixels on a slot that has lost its
+    # object).  A step may still match a track to another of two near-tied
+    # detections (the auction is eps-optimal, eps 0.02): such slot-frames
+    # are excused, every other box is held to 0.05 px.
+    step_scanned, step_batched = lockstep(bank0, frames, scanned_d,
+                                          scanned_v, ref_d, ref_v, cfg)
+    again = all(torch.equal(getattr(step_scanned, f), getattr(scanned, f))
+                for f in ("ids", "valid", "boxes"))
+    flips = (step_batched.matched_det != step_scanned.matched_det)
+    log("e2e-detect", "the batched form against the scanned form, both "
+                      "stepped from the scanned form's bank on every frame "
+                      "(excused: slot-frames matched to another detection, "
+                      f"{int(flips.sum())} on frames "
+                      f"{sorted(set(flips.nonzero()[:, 0].tolist()))}): "
+                      + same_tracks(triple(step_batched),
+                                    triple(step_scanned),
+                                    "batched vs scanned, step by step",
+                                    excused=flips.cpu().numpy())
+                      + f"; the scanned steps equal the scanned run: {again}")
+    log("e2e-detect", "the batched form against the scanned form, free runs "
+                      "(printed, not held): " + compare_tracks(
+                          triple(batched), triple(scanned))[1])
+    if not again:
+        raise AssertionError("e2e-detect: stepping the scanned form's "
+                             "detections differs from the scanned run")
+
+    state = model.state_dict()
+    m16 = detector.YoloDetector(dataclasses.replace(spec, dtype="bfloat16"),
+                                state, device=dev).model
+    m8 = detector.YoloDetector(dataclasses.replace(spec, dtype="int8"),
+                               state, device=dev).model
+    d32, v32, _ = (x.cpu().numpy() for x in detect(model, frames))
+    d16, v16, _ = (x.cpu().numpy() for x in detect(m16, frames, "fast"))
+    top = float(np.abs(d16[:, 0, 4] - d32[:, 0, 4]).max())
+    log("e2e-detect", f"bf16 + fast NMS against float32 + greedy: largest "
+                      f"top-score difference {top:.3g} (limit 0.05, "
+                      f"tests/test_detector.py:305); valid per frame "
+                      f"{sorted(set(v16.sum(1).tolist()))}")
+    # one quantised layer, ConvBlock_1 on its input in the int8 net: its
+    # integer sums are exact in float64, so the card equals the CPU bit for
+    # bit
+    seen = []
+    hook = m8.ConvBlock_1.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0][:2]))
+    _, s8, _ = detector.decode_frames(m8, frames, hw)
+    hook.remove()
+    conv1 = m8.ConvBlock_1.conv
+    q_card, q_cpu = (yolo_mod._quant_conv(
+        x, w, conv1.stride[0], conv1.padding[0], False)
+        for x, w in ((seen[0], conv1.weight),
+                     (seen[0].cpu(), conv1.weight.cpu())))
+    q_same = torch.equal(q_card.cpu(), q_cpu)
+    q_vs_f32 = rel_err(q_card, torch.nn.functional.conv2d(
+        seen[0], conv1.weight, None, conv1.stride, conv1.padding))
+    log("e2e-detect", f"int8 ConvBlock_1 on {tuple(seen[0].shape)}: the "
+                      f"quantised conv on the card bit-equal to the CPU's: "
+                      f"{q_same}; its largest difference from the float32 "
+                      f"conv, relative to the largest |output|: "
+                      f"{q_vs_f32:.3g}")
+    s8_diff = float((s8 - scores).abs().max())
+    d8, v8, _ = (x.cpu().numpy() for x in detect(m8, frames))
+    twins = []
+    for b in range(E2E_FRAMES):
+        for i in np.where(v32[b])[0]:
+            dist = np.linalg.norm(d8[b, v8[b], :2] - d32[b, i, :2], axis=1)
+            twins.append(bool(dist.size and dist.min() < 4.0))
+    n_diff = int(np.abs(v8.sum(1) - v32.sum(1)).max())
+    log("e2e-detect", f"int8 against float32, both greedy: valid count "
+                      f"difference per frame at most {n_diff} (limit 1, "
+                      f"tests/test_detector.py:475; every frame fills its "
+                      f"{E2E_DETS} slots, so it cannot fail here); max "
+                      f"|score diff| before NMS {s8_diff:.3g} (over "
+                      f"{E2E_INT8_SCORE_MIN:g}: quantised; at most "
+                      f"{E2E_INT8_SCORE_TOL:g}); float32 detections with an "
+                      f"int8 twin within 4 px: {sum(twins)} of {len(twins)} "
+                      "(printed, not held: near-tied candidates, see "
+                      "PERF.md)")
+    if not (np.isfinite(d16).all() and top <= 0.05 and np.isfinite(d8).all()
+            and n_diff <= 1 and q_same
+            and E2E_INT8_SCORE_MIN < s8_diff <= E2E_INT8_SCORE_TOL):
+        raise AssertionError(f"e2e-detect: bf16 top {top}, int8 count "
+                             f"{n_diff}, int8 scores {s8_diff}, int8 layer "
+                             f"card == CPU {q_same}")
+
+    # 6. times of bench_e2e.py's stages (frames on the card, synchronised)
+    runs = {
+        "detector": lambda: detect(model, frames),
+        "tracker": lambda: scan.run_sequence(bank0, frames, d, v, cfg),
+        "fused": lambda: scan.run_sequence(bank0, frames,
+                                           *detect(model, frames)[:2], cfg),
+        "fused bf16 + fast NMS": lambda: scan.run_sequence(
+            bank0, frames, *detect(m16, frames, "fast")[:2], cfg),
+        "fused int8 + fast NMS": lambda: scan.run_sequence(
+            bank0, frames, *detect(m8, frames, "fast")[:2], cfg),
+        "strided-3 scanned": lambda: scan.run_sequence_strided_detector(
+            bank0, frames, model, cfg, E2E_STRIDE, E2E_IOU, E2E_SCORE),
+        "strided-3 batched": lambda: scan.run_sequence_strided_batched(
+            bank0, frames, model, cfg, E2E_STRIDE, E2E_IOU, E2E_SCORE),
+    }
+    for name, fn in runs.items():
+        secs = timed(fn, E2E_REPS)
+        med = statistics.median(secs)
+        log("e2e-detect", f"times {name}: {1000 * med / E2E_FRAMES:.3f} "
+                          f"ms/frame, {E2E_FRAMES / med:.1f} frames/s (median"
+                          f" of {[round(s, 4) for s in secs]} s per "
+                          f"{E2E_FRAMES} frames; {card})")
+
+    log("e2e-detect", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    return model, frames, cfg
+
+
+def phase_profile_detect(model, frames, cfg, n_frames: int = 16):
+    """The fused detect -> track run of e2e-detect over n_frames under the
+    profiler, then one detect_batch call on the whole batch with each NMS
+    (launches, device time)."""
+    hw = (E2E_H, E2E_W)
+
+    def fused():
+        d, v, _ = detector.detect_batch(model, frames[:n_frames], hw,
+                                        E2E_DETS, E2E_IOU, E2E_SCORE)
+        scan.run_sequence(bank_mod.empty_bank(cfg, device=frames.device),
+                          frames[:n_frames], d, v, cfg)
+
+    phase_profile("E2E-720 fused detect -> track", fused, n_frames)
+    for impl in ("greedy", "fast"):
+        kernels, _, _ = profiled(lambda: detector.detect_batch(
+            model, frames, hw, E2E_DETS, E2E_IOU, E2E_SCORE, nms_impl=impl))
+        log("profile", f"E2E-720 detect_batch alone, {frames.shape[0]} "
+                       f"frames, {impl} NMS: {sum(r[2] for r in kernels)} "
+                       f"kernel launches, device "
+                       f"{sum(r[1] for r in kernels) / 1e3:.3f} ms a call")
+
+
 def box_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """IoU of paired (cx, cy, w, h) boxes [..., 4]."""
     lo = np.maximum(a[..., :2] - a[..., 2:] / 2, b[..., :2] - b[..., 2:] / 2)
@@ -1030,18 +1567,6 @@ def phase_kcf_bank(dev, frames, gt_boxes):
                 f"{ref} - 0.02)")
 
 
-def timed_runs(frames, d, v, cfg, reps: int) -> list[float]:
-    out = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        scan.run_sequence(bank_mod.empty_bank(cfg, device=frames.device),
-                          frames, d, v, cfg)
-        torch.cuda.synchronize()
-        out.append(time.perf_counter() - t0)
-    return out
-
-
 def kernel_line(name: str, info: dict) -> str:
     return (f"{name} launches: path {info['path']}; {info['threads']} "
             f"threads per CTA, {info['registers']} registers per thread, "
@@ -1059,7 +1584,8 @@ def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_bs, hf_inputs,
             ("HF", heavy_config(cfg, "HF"), 3, (frames, d, v)),
             ("A", a_cfg, 3, (a_frames, a_d, a_v)),
             ("AW", a_cfg.replace(**ASSOC["AW"]), 3, (a_frames, a_d, a_v))):
-        runs = timed_runs(fr, dd, vv, c, reps)
+        runs = timed(lambda: scan.run_sequence(
+            bank_mod.empty_bank(c, device=fr.device), fr, dd, vv, c), reps)
         med = statistics.median(runs)
         log("times", f"run_sequence {name}: {N_FRAMES / med:.1f} frames/s, "
                      f"{1000 * med / N_FRAMES:.3f} ms/frame (median of "
@@ -1211,22 +1737,25 @@ OUR_KERNELS = ("roi_kernel", "roi_scales_kernel", "auction_kernel",
                "kcf_train_kernel", "kcf_train_fft16_kernel")
 
 
-def phase_profile(frames, d, v, cfg, name, n_frames: int = 16):
-    """Device time by kernel over a short run_sequence window."""
+def profiled(fn) -> tuple[list, float, object]:
+    """fn() once under the profiler: its device kernels (device_kernels),
+    the call's wall time in us, and the profile."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = frames.device
-    bank = bank_mod.empty_bank(cfg, device=dev)
-    checks = assignment.warm_checks
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        scan.run_sequence(bank, frames[:n_frames], d[:n_frames],
-                          v[:n_frames], cfg)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = device_kernels(prof)
+    return device_kernels(prof), wall_us, prof
+
+
+def phase_profile(name, run, n_frames: int = 16):
+    """Device time by kernel while run() tracks a window of n_frames."""
+    checks = assignment.warm_checks
+    kernels, wall_us, prof = profiled(run)
     # Reads of a device scalar on the host: each one waits for the stream.
     reads = sum(e.count for e in prof.key_averages()
                 if e.key == "aten::_local_scalar_dense")
@@ -1239,10 +1768,12 @@ def phase_profile(frames, d, v, cfg, name, n_frames: int = 16):
             for k in OUR_KERNELS}
     ours_txt = ", ".join(f"{k} {us / 1e3:.3f} ms" for k, us in ours.items()
                          if us > 0)
-    log("profile", f"{name}, {n_frames} frames: device kernels "
-                   f"{busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall under "
-                   f"the profiler ({100 * busy / wall_us:.1f}% busy), "
-                   f"{len(kernels)} kernel kinds; {ours_txt}")
+    log("profile", f"{name}, {n_frames} frames: "
+                   f"{sum(r[2] for r in kernels) / n_frames:.1f} kernel "
+                   f"launches a frame; device kernels {busy / 1e3:.3f} ms of "
+                   f"{wall_us / 1e3:.3f} ms wall under the profiler "
+                   f"({100 * busy / wall_us:.1f}% busy), {len(kernels)} "
+                   f"kernel kinds; {ours_txt}")
     for key, us, count in kernels[:12]:
         log("profile", f"  {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
 
@@ -1303,6 +1834,9 @@ def main() -> int:
                 f"uploaded in {time.perf_counter() - t0:.1f} s")
     phase_e2e_assoc(a_frames, a_d, a_v, a_cfg, a_gt, a_vis)
 
+    # the detector path: bench_e2e.py's fixture, detect -> track
+    detect_run = phase_e2e_detect(dev, card)
+
     # the single-object flow
     phase_kcf_tracker()
     phase_kcf_bank(dev, frames, gt_boxes)
@@ -1310,9 +1844,14 @@ def main() -> int:
     # times
     times = phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_b,
                         hf_inputs, (a_frames, a_d, a_v, a_cfg))
-    phase_profile(frames, d, v, cfg, "default")
-    phase_profile(frames, d, v, cfg_hf, "HF")
-    phase_profile(a_frames, a_d, a_v, a_cfg.replace(**ASSOC["AW"]), "AW")
+    for name, (fr, dd, vv, c) in (
+            ("default", (frames, d, v, cfg)),
+            ("HF", (frames, d, v, cfg_hf)),
+            ("AW", (a_frames, a_d, a_v, a_cfg.replace(**ASSOC["AW"])))):
+        phase_profile(name, lambda: scan.run_sequence(
+            bank_mod.empty_bank(c, device=dev), fr[:16], dd[:16], vv[:16],
+            c))
+    phase_profile_detect(*detect_run)
 
     hf = heavy_launches["HF"]
     rows = [

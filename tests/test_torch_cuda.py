@@ -15,7 +15,10 @@ torch.fft chain, relative to the largest magnitude of each tensor: 1e-4
 for the response and xf, 1e-3 for alphaf (the divide by k^ + lambda
 amplifies float32 error where k^ is small); the tracker on the card
 against the tracker on the CPU: ids and valid exact, boxes 1e-3 (cuFFT
-and the kernels' own transforms against pocketfft).
+and the kernels' own transforms against pocketfft); the detector's heads
+on the card against the CPU's within 1e-4 of the largest |head| (cuDNN
+with TF32 off against oneDNN), and NMS on the card equal index for index
+to NMS on the CPU fed the card's own candidates.
 """
 
 import numpy as np
@@ -28,9 +31,12 @@ from tpu_mot_torch.config import KCFConfig
 from tpu_mot_torch.kernels import auction as t_auction
 from tpu_mot_torch.kernels import kcf as t_kcfk
 from tpu_mot_torch.kernels import roi as t_roi
+from tpu_mot_torch.models import detector as t_det
+from tpu_mot_torch.models import yolo as t_yolo
 from tpu_mot_torch.ops import assignment as t_assign
 from tpu_mot_torch.ops import iou as t_iou
 from tpu_mot_torch.ops import kcf as t_kcf
+from tpu_mot_torch.ops import nms as t_nms
 from tpu_mot_torch.tracker import api as t_api
 from tpu_mot_torch.tracker import bank as t_bank
 from tpu_mot_torch.tracker import kcf_bank as t_kcf_bank
@@ -548,3 +554,106 @@ def test_kcf_tracker_on_card(cuda):
         assert np.hypot(box[0] - gt[f, 0, 0], box[1] - gt[f, 0, 1]) < 2.0
         assert np.isfinite(peak)
     assert t_roi.launches - roi0 == 1 + 2 * (len(clip) - 1)
+
+
+DET_HW = (96, 128)
+
+
+def small_detector(name, device, dtype="float32"):
+    spec = t_yolo.YoloSpec(name, num_classes=3, input_size=64, dtype=dtype)
+    return t_det.YoloDetector.random_init(spec, seed=2, max_out=16,
+                                          score_thr=0.2, device=device)
+
+
+@pytest.mark.parametrize("name", ["yolov3-tiny", "yolov2-tiny", "yolov2",
+                                  "yolov3"])
+def test_detector_heads_on_card_match_cpu(cuda, name):
+    x = torch.as_tensor(np.random.default_rng(1).random(
+        (2, 1, 64, 64)).astype(np.float32))
+    with torch.no_grad():
+        want = small_detector(name, "cpu").model(x)
+        got = small_detector(name, cuda).model(x.to(cuda))
+    for a, b in zip(want, got):
+        assert b.device.type == "cuda" and b.dtype == torch.float32
+        err = (b.cpu() - a).abs().max().item()
+        assert err <= 1e-4 * a.abs().max().item(), err
+
+
+@pytest.mark.parametrize("cin,stride,gray", [(16, 1, False), (64, 2, False),
+                                             (1024, 1, False), (3, 1, True)])
+def test_int8_conv_on_card_equals_cpu(cuda, cin, stride, gray):
+    """The int8 conv's integer sums are exact on both devices (float64;
+    1024 channels pass float32's 2^24), so the outputs are bit-equal.  A
+    whole int8 net is not compared: a float32 rounding difference between
+    cuDNN and the CPU upstream can move one activation by a quantisation
+    step."""
+    rng = np.random.default_rng(cin)
+    x = torch.as_tensor(rng.standard_normal(
+        (2, 1 if gray else cin, 9, 11)).astype(np.float32))
+    w = torch.as_tensor(rng.standard_normal((5, cin, 3, 3)).astype(
+        np.float32))
+    want = t_yolo._quant_conv(x, w, stride, 1, gray)
+    got = t_yolo._quant_conv(x.to(cuda), w.to(cuda), stride, 1, gray)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("impl", ["greedy", "fast"])
+def test_nms_on_card_equals_cpu(cuda, impl):
+    det = small_detector("yolov3-tiny", cuda)
+    frames = torch.as_tensor(np.random.default_rng(5).integers(
+        0, 256, (3,) + DET_HW, dtype=np.uint8), device=cuda)
+    boxes, scores, classes = t_det.decode_frames(det.model, frames, DET_HW)
+    got = t_nms.nms_classwise(boxes, scores, classes, 16, 0.45, 0.2,
+                              impl=impl)
+    want = t_nms.nms_classwise(boxes.cpu(), scores.cpu(), classes.cpu(), 16,
+                               0.45, 0.2, impl=impl)
+    assert got[1].any()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    dets, valid, cls = t_det.detect_batch(det.model, frames, DET_HW, 16,
+                                          0.45, 0.2, nms_impl=impl)
+    assert dets.device.type == "cuda" and torch.equal(valid, got[1])
+
+
+def test_bfloat16_detector_on_card(cuda):
+    """bf16 on the card: finite, its top score within 0.05 of float32's
+    (tests/test_detector.py:305)."""
+    frames = torch.as_tensor(np.random.default_rng(4).random(
+        (2,) + DET_HW).astype(np.float32), device=cuda)
+    d32, _, _ = t_det.detect_batch(small_detector("yolov2-tiny", cuda).model,
+                                   frames, DET_HW, 8, 0.45, 0.0)
+    d16, _, _ = t_det.detect_batch(
+        small_detector("yolov2-tiny", cuda, "bfloat16").model, frames,
+        DET_HW, 8, 0.45, 0.0, nms_impl="fast")
+    assert torch.isfinite(d16).all()
+    assert (d16[:, 0, 4] - d32[:, 0, 4]).abs().max().item() <= 0.05
+
+
+@pytest.mark.parametrize("n", [6, 7])
+def test_strided_scans_on_card(cuda, n):
+    """The strided scans on the card equal run_sequence fed the detector's
+    detections on the stride frames and none elsewhere (ids and valid
+    exact, boxes within 0.05 px), with K1 and K2 launched once a frame."""
+    spec = t_yolo.YoloSpec("yolov2-tiny", num_classes=1, input_size=64)
+    det = t_det.YoloDetector.random_init(spec, seed=0, device=cuda)
+    cfg = TrackerConfig(max_tracks=8, max_detections=8, frame_height=96,
+                        frame_width=128)
+    frames = torch.as_tensor(np.random.default_rng(2).random(
+        (n, 96, 128)).astype(np.float32), device=cuda)
+    d = torch.zeros((n, 8, 5), device=cuda)
+    v = torch.zeros((n, 8), dtype=torch.bool, device=cuda)
+    for i in range(0, n, 3):
+        d[i], v[i], _ = (x[0] for x in t_det.detect_batch(
+            det.model, frames[i:i + 1], (96, 128), 8, 0.45, 0.2))
+    assert v.any()
+    bank0 = t_bank.empty_bank(cfg, device=cuda)
+    _, want = t_scan.run_sequence(bank0, frames, d, v, cfg)
+    for fn in (t_scan.run_sequence_strided_detector,
+               t_scan.run_sequence_strided_batched):
+        roi0, auc0 = t_roi.launches, t_auction.launches
+        _, got = fn(bank0, frames, det.model, cfg, 3, score_thr=0.2)
+        torch.cuda.synchronize()
+        assert (t_roi.launches - roi0, t_auction.launches - auc0) == (n, n)
+        assert torch.equal(got.ids, want.ids), fn.__name__
+        assert torch.equal(got.valid, want.valid), fn.__name__
+        assert (got.boxes - want.boxes).abs().max().item() <= 0.05

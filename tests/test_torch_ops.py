@@ -401,8 +401,9 @@ def test_port_imports_without_jax():
                 mods.append(rel[:-len(".__init__")]
                             if rel.endswith(".__init__") else rel)
     assert {"tpu_mot_torch.tracker.kcf_bank", "tpu_mot_torch.tracker.scan",
-            "tpu_mot_torch.ops.assignment", "tpu_mot_torch.interop"} <= set(
-                mods)
+            "tpu_mot_torch.ops.assignment", "tpu_mot_torch.interop",
+            "tpu_mot_torch.models.yolo", "tpu_mot_torch.models.detector",
+            "tpu_mot_torch.ops.nms"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
@@ -410,6 +411,9 @@ def test_port_imports_without_jax():
         sys.modules["tpu_mot"] = None
         for m in {sorted(mods)!r} + ["chip_smoke"]:
             importlib.import_module(m)
+        scan = sys.modules["tpu_mot_torch.tracker.scan"]
+        assert callable(scan.run_sequence_strided_detector)
+        assert callable(scan.run_sequence_strided_batched)
         assert not any(k.split(".")[0] in ("jax", "flax", "tpu_mot")
                        for k, v in sys.modules.items() if v is not None)
         print("ok")

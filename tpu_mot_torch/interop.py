@@ -3,9 +3,14 @@
 The JAX package keeps spectra as split-complex CF pairs (re, im) of
 float32; the port keeps complex64.  A JAX TrackBank converts to the port's
 bank and back field by field, so both packages can start from the same
-mid-sequence bank; so does the single-object flow's KCFBank.  Nothing here
+mid-sequence bank; so does the single-object flow's KCFBank.  YOLO
+parameters convert between the flax tree ({"params", "batch_stats"} of
+nested dicts, HWIO kernels) and the port's state dict (OIHW), and
+`numpy_yolo_params` draws a flax-layout tree from a NumPy seed, so both
+packages can run the same weights without JAX on the card.  Nothing here
 imports jax: JAX values are read as NumPy arrays through attribute access,
-and the reverse direction returns NumPy fields to build the JAX bank from.
+and the reverse direction returns NumPy fields to build the JAX values
+from.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_mot_torch.models.yolo import YoloSpec, layer_shapes
 from tpu_mot_torch.ops.kcf import KCFModel
 from tpu_mot_torch.tracker.bank import TrackBank
 from tpu_mot_torch.tracker.kcf_bank import KCFBank
@@ -86,3 +92,81 @@ def kcf_bank_to_numpy(bank: KCFBank) -> dict:
     return {"model": _model_to_numpy(bank.model),
             "boxes": bank.boxes.detach().cpu().numpy(),
             "alive": bank.alive.detach().cpu().numpy()}
+
+
+def yolo_params_from_jax(tree) -> dict:
+    """A flax YOLO variable tree {"params": {name: {"conv": {"kernel"
+    HWIO[, "bias"]}[, "bn": {"scale", "bias"}]}}, "batch_stats": {name:
+    {"bn": {"mean", "var"}}}} (NumPy or JAX leaves) -> the port's state
+    dict (float32 tensors on the CPU; kernels OIHW)."""
+    def t(x):
+        return torch.from_numpy(np.array(x, np.float32))
+
+    sd = {}
+    for name, p in tree["params"].items():
+        conv = p["conv"]
+        sd[f"{name}.conv.weight"] = t(np.transpose(np.asarray(conv["kernel"]),
+                                                   (3, 2, 0, 1)))
+        if "bias" in conv:
+            sd[f"{name}.conv.bias"] = t(conv["bias"])
+        if "bn" in p:
+            stats = tree["batch_stats"][name]["bn"]
+            sd[f"{name}.bn.weight"] = t(p["bn"]["scale"])
+            sd[f"{name}.bn.bias"] = t(p["bn"]["bias"])
+            sd[f"{name}.bn.running_mean"] = t(stats["mean"])
+            sd[f"{name}.bn.running_var"] = t(stats["var"])
+            sd[f"{name}.bn.num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.int64)
+    return sd
+
+
+def yolo_params_to_jax(state_dict) -> dict:
+    """The port's YOLO state dict -> the flax variable tree of NumPy
+    float32 arrays (the inverse of yolo_params_from_jax)."""
+    params, stats = {}, {}
+    for key, v in state_dict.items():
+        name, part, field = key.split(".")
+        if field == "num_batches_tracked":
+            continue
+        a = v.detach().cpu().numpy().astype(np.float32)
+        if part == "conv":
+            conv = params.setdefault(name, {}).setdefault("conv", {})
+            if field == "weight":
+                conv["kernel"] = np.ascontiguousarray(
+                    np.transpose(a, (2, 3, 1, 0)))
+            else:
+                conv["bias"] = a
+        elif field in ("weight", "bias"):
+            params.setdefault(name, {}).setdefault("bn", {})[
+                "scale" if field == "weight" else "bias"] = a
+        else:
+            stats.setdefault(name, {}).setdefault("bn", {})[
+                "mean" if field == "running_mean" else "var"] = a
+    return {"params": params, "batch_stats": stats}
+
+
+def numpy_yolo_params(spec: YoloSpec, seed: int = 0) -> dict:
+    """A flax-layout YOLO variable tree drawn from
+    np.random.default_rng(seed), layer by layer in construction order:
+    kernels N(0, 1/fan_in) (lecun-normal's scale, not its draw), BatchNorm
+    scale U(0.5, 1.5), bias N(0, 0.1), mean N(0, 0.1), var U(0.5, 1.5)
+    (not the identity, so that a swapped field shows), head biases
+    N(0, 0.1).  The same seed gives the same weights in both packages and
+    on any device."""
+    rng = np.random.default_rng(seed)
+    params, stats = {}, {}
+    for name, (kh, kw, ci, co), has_bn in layer_shapes(spec):
+        kernel = (rng.standard_normal((kh, kw, ci, co))
+                  / np.sqrt(kh * kw * ci)).astype(np.float32)
+        params[name] = {"conv": {"kernel": kernel}}
+        if has_bn:
+            params[name]["bn"] = {
+                "scale": rng.uniform(0.5, 1.5, co).astype(np.float32),
+                "bias": (0.1 * rng.standard_normal(co)).astype(np.float32)}
+            stats[name] = {"bn": {
+                "mean": (0.1 * rng.standard_normal(co)).astype(np.float32),
+                "var": rng.uniform(0.5, 1.5, co).astype(np.float32)}}
+        else:
+            params[name]["conv"]["bias"] = (
+                0.1 * rng.standard_normal(co)).astype(np.float32)
+    return {"params": params, "batch_stats": stats}

@@ -7,22 +7,25 @@ import torch
 
 
 def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """IoU matrix [T, D] between box sets a [T, 4] and b [D, 4]."""
-    ax1 = a[:, 0] - a[:, 2] / 2
-    ay1 = a[:, 1] - a[:, 3] / 2
-    ax2 = a[:, 0] + a[:, 2] / 2
-    ay2 = a[:, 1] + a[:, 3] / 2
-    bx1 = b[:, 0] - b[:, 2] / 2
-    by1 = b[:, 1] - b[:, 3] / 2
-    bx2 = b[:, 0] + b[:, 2] / 2
-    by2 = b[:, 1] + b[:, 3] / 2
-    iw = torch.clamp_min(torch.minimum(ax2[:, None], bx2[None, :])
-                         - torch.maximum(ax1[:, None], bx1[None, :]), 0.0)
-    ih = torch.clamp_min(torch.minimum(ay2[:, None], by2[None, :])
-                         - torch.maximum(ay1[:, None], by1[None, :]), 0.0)
+    """IoU matrix [..., T, D] between box sets a [..., T, 4] and
+    b [..., D, 4] (leading axes broadcast: a batch of frames)."""
+    ax1 = a[..., 0] - a[..., 2] / 2
+    ay1 = a[..., 1] - a[..., 3] / 2
+    ax2 = a[..., 0] + a[..., 2] / 2
+    ay2 = a[..., 1] + a[..., 3] / 2
+    bx1 = b[..., 0] - b[..., 2] / 2
+    by1 = b[..., 1] - b[..., 3] / 2
+    bx2 = b[..., 0] + b[..., 2] / 2
+    by2 = b[..., 1] + b[..., 3] / 2
+    iw = torch.clamp_min(torch.minimum(ax2[..., :, None], bx2[..., None, :])
+                         - torch.maximum(ax1[..., :, None],
+                                         bx1[..., None, :]), 0.0)
+    ih = torch.clamp_min(torch.minimum(ay2[..., :, None], by2[..., None, :])
+                         - torch.maximum(ay1[..., :, None],
+                                         by1[..., None, :]), 0.0)
     inter = iw * ih
-    area_a = (a[:, 2] * a[:, 3])[:, None]
-    area_b = (b[:, 2] * b[:, 3])[None, :]
+    area_a = (a[..., 2] * a[..., 3])[..., :, None]
+    area_b = (b[..., 2] * b[..., 3])[..., None, :]
     union = area_a + area_b - inter
     return torch.where(union > 0, inter / union, 0.0)
 

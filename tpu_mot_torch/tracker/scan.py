@@ -4,7 +4,8 @@ per-frame outputs.  PyTorch runs eagerly, so the JAX lax.scan is a Python
 loop; on the card every frame's kernels are queued without a host sync.
 `track_sequence` is the host convenience around it: NumPy frames and
 per-frame detection lists in, per-frame track lists out, the clip moved to
-the device chunk by chunk.
+the device chunk by chunk.  The strided scans put the detector in the loop,
+run on every `stride`-th frame: frame by frame, or in one batched forward.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from tpu_mot_torch.config import TrackerConfig
+from tpu_mot_torch.models.detector import detect_batch, dets_with_classes
 from tpu_mot_torch.tracker import bank as bank_mod
 from tpu_mot_torch.tracker import step as step_mod
 
@@ -42,8 +44,77 @@ def run_sequence(bank: bank_mod.TrackBank, frames: torch.Tensor,
             out = out._replace(valid=out.valid & fv)
         bank = new_bank
         outs.append(out)
-    stacked = step_mod.StepOutput(*[torch.stack(xs) for xs in zip(*outs)])
-    return bank, stacked
+    return bank, _stack(outs)
+
+
+def _stack(outs: list) -> step_mod.StepOutput:
+    return step_mod.StepOutput(*[torch.stack(xs) for xs in zip(*outs)])
+
+
+def _detect(model, frames, cfg, iou_thr, score_thr, nms_impl):
+    """detect_batch at the tracker's capacity and frame size; under
+    cfg.class_aware the class ids ride as a 6th column."""
+    d, v, c = detect_batch(model, frames, (cfg.frame_height, cfg.frame_width),
+                           cfg.max_detections, iou_thr, score_thr,
+                           nms_impl=nms_impl)
+    return (dets_with_classes(d, c) if cfg.class_aware else d), v
+
+
+def run_sequence_strided_detector(bank: bank_mod.TrackBank,
+                                  frames: torch.Tensor, model,
+                                  cfg: TrackerConfig, stride: int,
+                                  iou_thr: float = 0.45,
+                                  score_thr: float = 0.3,
+                                  nms_impl: str = "greedy"):
+    """Detect and track a clip with the detector run on frames where
+    i % stride == 0, one frame at a time (streaming arrival); the steps in
+    between get no detections and the KCF correlation carries the tracks.
+
+    model : a YOLO net (models.yolo.build_model, YoloDetector.model) on the
+            frames' device.
+    Both JAX lowerings (groups of `stride` frames when N divides, a
+    lax.cond per frame otherwise) are this one loop.  Contract: equal to
+    run_sequence fed the detections of the stride frames and none
+    elsewhere.  Returns (final bank, StepOutput stacked over N)."""
+    w_cols = 6 if cfg.class_aware else 5
+    empty_d = torch.zeros((cfg.max_detections, w_cols), dtype=torch.float32,
+                          device=frames.device)
+    empty_v = torch.zeros((cfg.max_detections,), dtype=torch.bool,
+                          device=frames.device)
+    outs = []
+    for i in range(frames.shape[0]):
+        if i % stride == 0:
+            d, v = _detect(model, frames[i:i + 1], cfg, iou_thr, score_thr,
+                           nms_impl)
+            d, v = d[0], v[0]
+        else:
+            d, v = empty_d, empty_v
+        bank, out = step_mod.step(bank, frames[i], d, v, cfg)
+        outs.append(out)
+    return bank, _stack(outs)
+
+
+def run_sequence_strided_batched(bank: bank_mod.TrackBank,
+                                 frames: torch.Tensor, model,
+                                 cfg: TrackerConfig, stride: int,
+                                 iou_thr: float = 0.45,
+                                 score_thr: float = 0.3,
+                                 nms_impl: str = "greedy"):
+    """run_sequence_strided_detector for a chunk that is all there: the
+    detector frames (i % stride == 0) run as ONE batched forward, their
+    detections are scattered into a zeroed [N, D, 5|6] buffer, and
+    run_sequence tracks the chunk.  The same result up to float noise (the
+    forward is per sample at inference), at the batched forward's cost."""
+    n = frames.shape[0]
+    d, v = _detect(model, frames[::stride], cfg, iou_thr, score_thr,
+                   nms_impl)
+    dets = torch.zeros((n,) + tuple(d.shape[1:]), dtype=torch.float32,
+                       device=frames.device)
+    valid = torch.zeros((n, cfg.max_detections), dtype=torch.bool,
+                        device=frames.device)
+    dets[::stride] = d
+    valid[::stride] = v
+    return run_sequence(bank, frames, dets, valid, cfg)
 
 
 def track_sequence(frames, detections, cfg: TrackerConfig | None = None,
