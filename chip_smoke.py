@@ -83,6 +83,32 @@ nonzero exit, no "ok" line):
              within 0.05 px of a step from the same bank with K1's plain
              version in K1's place (a free run with the plain version is
              printed beside it: lost slots drift apart by pixels);
+  serve      multi-stream serving, BASELINE.json configs[4] on one card:
+             8 streams of the bench generator (stream s at seed s, 32
+             frames of 1080p u8, 128 tracks) through parallel/serve.py, one
+             set of launches a multi-stream frame (K1 and K2 once a frame
+             for all streams; HF K1-K5): exact launch counts; ids, valid and
+             boxes (0.05 px) and each stream's MOTA against the JAX run's
+             dump (tests/golden/serve_jax_v1.npz), stream 0 against the
+             default cell; multi_stream_step against 8 single steps from
+             the same banks on every frame (default 32, HF 8 frames: ids,
+             valid, state, matches and rounds equal, boxes 1e-4); every
+             K1-K5 call of a serving run against its plain version (K1, K3
+             1.8e-7 and bit-equal to the 4-tap mirror; K2's batch equal to
+             the plain version and to a launch per problem; K4, K5 as in
+             kcf), K2 batches of odd n (5, 161); the shared yolov3-tiny
+             (tools/bench_configs4.py's: 80 classes at 416, 64 detections):
+             the fused step's shared and data-parallel forms equal, the
+             strided serving (stride 4) equal to the stream sequence fed
+             each head frame's detections, class-blind and class-aware, the
+             batched forward within 2e-3 of B = 1 forwards; the
+             StreamSupervisor (0 failures on a clean stream, 1 after a
+             poisoned bank); aggregate stream-frames/s at S = 1, 2, 4, 8
+             against 8 run_sequence calls and of the fused detect -> track
+             step (f32 greedy, bf16 + fast NMS, strided-4), interleaved
+             samples with their spread; peak device memory; later, in the
+             times and profile phases, each kernel at its serving shape and
+             the launches and busy share of a multi-stream frame;
   times      run_sequence frames/s (default: median of 5; H, HF, A, AW:
              median of 3); each kernel against its plain version: the
              median ms per call from a CUDA event pair around each call
@@ -99,7 +125,9 @@ nonzero exit, no "ok" line):
              e2e-detect (launches a frame, the device's busy share) and
              one detect_batch call alone, greedy and fast NMS.
 The line before the last is {"kernels": [...]}: per kernel its launches
-in the path that runs it (K1, K2: default; K3-K5: HF), "max_abs_err" the
+in the path that runs it (K1, K2: default; K3-K5: HF), then each kernel's
+serving row ("<name>_serve": its launches in the serving run, its shape),
+"max_abs_err" the
 largest difference from the plain version (K2: in col_of and iters; K4,
 K5: relative to the largest magnitude, see "err_kind"), "ms"/"plain_ms"
 the event times, "device_ms"/"plain_device_ms" the profiler's, "bound_ms"
@@ -137,12 +165,14 @@ from tpu_mot_torch.ops import features as feat_ops
 from tpu_mot_torch.ops import kcf as kcf_ops
 from tpu_mot_torch.ops import nms as nms_ops
 from tpu_mot_torch.ops import patch as patch_ops
+from tpu_mot_torch.parallel import serve
 from tpu_mot_torch.tracker import api
 from tpu_mot_torch.tracker import bank as bank_mod
 from tpu_mot_torch.tracker import kcf_bank
 from tpu_mot_torch.tracker import scan
 from tpu_mot_torch.tracker import step as step_mod
 from tpu_mot_torch.utils import metrics
+from tpu_mot_torch.utils.supervisor import StreamSupervisor
 
 # MOTA / HOTA of the JAX reference (tpu_mot, jax 0.9.0 on the CPU,
 # JAX_PLATFORMS=cpu) on this fixture, from bench.py's correctness block
@@ -218,6 +248,20 @@ E2E_MATCH_FLOOR = 60
 E2E_INT8_SCORE_MIN, E2E_INT8_SCORE_TOL = 1e-4, 0.02
 E2E_REPS = 5
 
+# Multi-stream serving, BASELINE.json configs[4] ("8 concurrent 1080p
+# streams ..., shared detector batch") on one card: stream s is the bench
+# generator (bench.py:76-104) at seed s, SERVE_FRAMES frames each (stream 0
+# is the first SERVE_FRAMES frames of the bench fixture); tracker cells with
+# ground-truth detections padded to 160, detector cells with
+# tools/bench_configs4.py's yolov3-tiny (80 classes at 416, 64 detections,
+# IoU 0.45, score 0.3).  SERVE_DUMP is the JAX reference on it
+# (tpu_mot.parallel.serve.multi_stream_sequence on the CPU,
+# roi_impl="pallas"): ids, valid and boxes [S, N, T(, 4)] and each stream's
+# MOTA and HOTA; regenerate with `python tests/test_torch_serve.py
+# regen-serve-dump`.
+SERVE_STREAMS, SERVE_FRAMES, SERVE_DETS, SERVE_STRIDE = 8, 32, 64, 4
+SERVE_DUMP = HEAVY_DUMP.with_name("serve_jax_v1.npz")
+
 # Published H100 SXM peaks (the least-time bound of each kernel).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -267,6 +311,37 @@ def bench_fixture():
         d[f], v[f] = api.pad_detections(dets_list[f], cfg.max_detections)
     frames_u8 = (frames * 255).astype(np.uint8)
     return frames_u8, d, v, boxes, vis, dets_list, cfg
+
+
+def serve_fixture(n_streams: int = SERVE_STREAMS,
+                  n_frames: int = SERVE_FRAMES):
+    """S streams of the bench generator, stream s at seed s: frames u8
+    [S, N, 1080, 1920], detections from the ground truth [S, N, 160, 5] and
+    valid, ground-truth boxes [S, N, K, 4] and visibility [S, N, K], and
+    the tracker config."""
+    frames, d, v, gt, vis = [], [], [], [], []
+    cfg = TrackerConfig(max_tracks=128, max_detections=160,
+                        frame_height=HEIGHT, frame_width=WIDTH)
+    for s in range(n_streams):
+        objs = synthetic.make_objects(N_OBJ, HEIGHT, WIDTH,
+                                      np.random.default_rng(s), min_size=24,
+                                      max_size=64, max_speed=3.0)
+        fr, boxes, vi = synthetic.render_sequence(
+            objs, n_frames, HEIGHT, WIDTH, seed=s, noise=0.01)
+        dets_list = synthetic.detections_from_gt(boxes, vi, seed=s,
+                                                 frame_hw=(HEIGHT, WIDTH))
+        dd = np.zeros((n_frames, cfg.max_detections, 5), np.float32)
+        vv = np.zeros((n_frames, cfg.max_detections), bool)
+        for f in range(n_frames):
+            dd[f], vv[f] = api.pad_detections(dets_list[f],
+                                              cfg.max_detections)
+        frames.append((fr * 255).astype(np.uint8))
+        d.append(dd)
+        v.append(vv)
+        gt.append(boxes)
+        vis.append(vi)
+    return (np.stack(frames), np.stack(d), np.stack(v), np.stack(gt),
+            np.stack(vis), cfg)
 
 
 def e2e_fixture():
@@ -423,15 +498,18 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 def touched_pixels(lvl: torch.Tensor, ys: torch.Tensor,
-                   xs: torch.Tensor) -> int:
+                   xs: torch.Tensor, frame: torch.Tensor | None = None
+                   ) -> int:
     """Distinct pyramid pixels that windows with level lvl [N] and level
-    coordinates ys, xs [N, S] read with a nonzero bilinear weight."""
+    coordinates ys, xs [N, S] read with a nonzero bilinear weight (of frame
+    `frame` [N] of a stacked pyramid)."""
     def taps(c):
         f = torch.floor(c)
         a = f.long()
         return torch.cat([a, torch.where(c > f, a + 1, a)], dim=1)
 
-    code = ((lvl.long()[:, None, None] * 4096 + taps(ys)[:, :, None]) * 4096
+    plane = lvl.long() if frame is None else frame.long() * 4 + lvl.long()
+    code = ((plane[:, None, None] * 4096 + taps(ys)[:, :, None]) * 4096
             + taps(xs)[:, None, :])
     return int(torch.unique(code).numel())
 
@@ -593,7 +671,8 @@ def record_benefits(frames, d, v, cfg, n_frames: int):
     solve = auction_k.auction_solve
 
     def capture(b, eps, max_iters):
-        seen.append(b.clone())
+        # the single-stream step hands the kernel a batch of one problem
+        seen.append(b.reshape(b.shape[-2:]).clone())
         return solve(b, eps, max_iters)
 
     auction_k.auction_solve = capture
@@ -632,7 +711,10 @@ def record_kcf_inputs(frames, d, v, cfg, n_frames: int):
 
 
 def rel_err(got, want) -> float:
-    return ((got - want).abs().max() / want.abs().max()).item()
+    """Largest |got - want| relative to the largest |want| (0 where both
+    are all zero: a bank's first frame has no model yet)."""
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
 
 
 def gray_kcf_inputs(frames, boxes0, cfg):
@@ -817,7 +899,7 @@ def phase_e2e(frames, d, v, cfg, gt_boxes, vis, dets_list, frames_np):
                                  "run_sequence")
     log("e2e", f"MultiTracker init + 4 updates: confirmed ids and boxes equal"
                f" run_sequence's on frames 0-4 ({len(got[-1])} tracks)")
-    return launches, float(mota), h_all
+    return launches, float(mota), h_all, out
 
 
 def phase_e2e_heavy(frames, d, v, cfg, gt_boxes, vis):
@@ -1035,38 +1117,85 @@ def lockstep(bank, frames, dets, valid, other_dets, other_valid, cfg):
                  for o in (outs, others))
 
 
-def checked_run(bank, frames, dets, valid, cfg):
-    """run_sequence with each K1 and K2 call also held against its plain
-    version on the inputs the path gives it (launches made here compare and
-    are not counted).  Returns the outputs and, per call: K1's largest
-    |kernel - plain| and whether it is bit-equal to the 4-tap mirror; K2's
-    col_of and iters equal to the plain version's, and its rounds."""
-    k1_err, k1_mirror, k2_same, k2_rounds = [], [], [], []
-    resample, solve = roi_k._resample_cuda, auction_k.auction_solve
+def checked_run(run, *args):
+    """run(*args) with each kernel call held against its plain version on
+    the inputs the path gives it (launches made here compare and are not
+    counted).  Returns the outputs; per kernel that ran, its calls' errors:
+    K1 and K3 |kernel - plain| (inf where not bit-equal to the 4-tap
+    mirror), K2 0 where col_of and iters equal the plain version's and a
+    launch per problem's (else inf), K4 the response's and K5 the larger
+    of xf's and alphaf's error relative to the largest magnitude (inf over
+    KCF_TOL); K2's rounds per problem; each kernel's last inputs."""
+    errs = {k: [] for k in KERNELS}
+    rounds, seen = [], {}
+    k1, k3 = roi_k._resample_cuda, roi_k._resample_scales_cuda
+    k2 = auction_k.auction_solve
+    k4, k5 = kcf_k.detect_fused, kcf_k.train_fused
 
-    def k1(levels, frame_hw, lvl, r0, c0, ys, xs):
-        got = resample(levels, frame_hw, lvl, r0, c0, ys, xs)
+    def roi(levels, frame_hw, lvl, r0, c0, ys, xs):
+        got = k1(levels, frame_hw, lvl, r0, c0, ys, xs)
         want = roi_k._resample_ref(levels, frame_hw, lvl, r0, c0, ys, xs)
         mirror = roi_k.four_tap_mirror(levels, frame_hw, lvl, r0, c0,
                                        ys[None], xs[None])[0]
-        k1_err.append(float((got - want).abs().max()))
-        k1_mirror.append(torch.equal(got, mirror))
+        err = float((got - want).abs().max())
+        errs["roi_extract"].append(err if torch.equal(got, mirror)
+                                   else math.inf)
+        seen["roi_extract"] = (levels, frame_hw, lvl, r0, c0, ys, xs)
         return got
 
-    def k2(b, eps, max_iters):
-        col, it = solve(b, eps, max_iters)
+    def roi3(levels, frame_hw, lvl, r0, c0, ys, xs):
+        got = k3(levels, frame_hw, lvl, r0, c0, ys, xs)
+        want = roi_k._resample_scales_ref(levels, frame_hw, lvl, r0, c0, ys,
+                                          xs)
+        mirror = roi_k.four_tap_mirror(levels, frame_hw, lvl, r0, c0, ys, xs)
+        err = float((got - want).abs().max())
+        errs["roi_extract_scales"].append(err if torch.equal(got, mirror)
+                                          else math.inf)
+        seen["roi_extract_scales"] = (levels, frame_hw, lvl, r0, c0, ys, xs)
+        return got
+
+    def auction(b, eps, max_iters):
+        col, it = k2(b, eps, max_iters)
         want_col, want_it = auction_k.auction_solve_ref(b, eps, max_iters)
-        k2_same.append(torch.equal(col, want_col)
-                       and int(it) == int(want_it))
-        k2_rounds.append(int(it))
+        one = [k2(b[p].contiguous(), eps, max_iters)
+               for p in range(b.shape[0])]
+        same = (torch.equal(col, want_col) and torch.equal(it, want_it)
+                and all(torch.equal(col[p], c) and torch.equal(it[p], i)
+                        for p, (c, i) in enumerate(one)))
+        errs["auction_solve"].append(0 if same else math.inf)
+        rounds.extend(it.tolist())
+        seen["auction_solve"] = b.clone()
         return col, it
 
-    roi_k._resample_cuda, auction_k.auction_solve = k1, k2
+    def detect(model, feat, sigma):
+        got = k4(model, feat, sigma)
+        e = rel_err(got, kcf_k.detect_fused_ref(model, feat, sigma))
+        errs["kcf_detect"].append(e if e <= KCF_TOL["response"]
+                                  else math.inf)
+        seen["kcf_detect"] = (kcf_ops.KCFModel(*[x.clone() for x in model]),
+                              feat.clone(), sigma)
+        return got
+
+    def train(model, feat, yf, sigma, lambda_, lr):
+        got = k5(model, feat, yf, sigma, lambda_, lr)
+        want = kcf_k.train_fused_ref(model, feat, yf, sigma, lambda_, lr)
+        e_x, e_a = rel_err(got.xf, want.xf), rel_err(got.alphaf, want.alphaf)
+        errs["kcf_train"].append(max(e_x, e_a) if e_x <= KCF_TOL["xf"]
+                                 and e_a <= KCF_TOL["alphaf"] else math.inf)
+        seen["kcf_train"] = (kcf_ops.KCFModel(*[x.clone() for x in model]),
+                             feat.clone(), yf, sigma, lambda_, lr.clone())
+        return got
+
+    roi_k._resample_cuda, roi_k._resample_scales_cuda = roi, roi3
+    auction_k.auction_solve = auction
+    kcf_k.detect_fused, kcf_k.train_fused = detect, train
     try:
-        _, out = scan.run_sequence(bank, frames, dets, valid, cfg)
+        _, out = run(*args)
     finally:
-        roi_k._resample_cuda, auction_k.auction_solve = resample, solve
-    return out, k1_err, k1_mirror, k2_same, k2_rounds
+        roi_k._resample_cuda, roi_k._resample_scales_cuda = k1, k3
+        auction_k.auction_solve = k2
+        kcf_k.detect_fused, kcf_k.train_fused = k4, k5
+    return out, {k: e for k, e in errs.items() if e}, rounds, seen
 
 
 def timed(fn, reps: int) -> list[float]:
@@ -1202,24 +1331,25 @@ def phase_e2e_detect(dev, card: str):
         raise AssertionError("e2e-detect: fused run's tracks not finite")
     # the same run again with K1 and K2 held against their plain versions
     # on every call: the path's own pyramids, boxes and benefit matrices
-    checked, k1_err, k1_mirror, k2_same, rounds = checked_run(
-        bank0, frames, dets, valid, cfg)
+    checked, errs, rounds, _ = checked_run(scan.run_sequence, bank0, frames,
+                                           dets, valid, cfg)
+    k1_err, k2_err = errs["roi_extract"], errs["auction_solve"]
     same_run = all(torch.equal(getattr(checked, f), getattr(fused, f))
                    for f in ("ids", "valid", "boxes", "assign_iters"))
     log("e2e-detect", f"fused run checked call by call: K1 on the {E2E_H}p "
                       f"u8 pyramid, {len(k1_err)} calls, max |kernel - plain|"
-                      f" {max(k1_err):.3g} (limit {ROI_TOL:g}), bit-equal to "
-                      f"the 4-tap mirror on {sum(k1_mirror)}; K2 on the "
+                      f" {max(k1_err):.3g} (limit {ROI_TOL:g}; inf: not "
+                      f"bit-equal to the 4-tap mirror); K2 on the "
                       f"[{cfg.max_tracks}, {cfg.max_tracks}] benefits, "
-                      f"{len(k2_same)} calls, col_of and iters exactly equal "
-                      f"on {sum(k2_same)} (rounds median "
+                      f"{len(k2_err)} calls, col_of and iters exactly equal "
+                      f"on {k2_err.count(0)} (rounds median "
                       f"{statistics.median(rounds)}, max {max(rounds)}); "
                       f"outputs equal the counted run's: {same_run}")
-    if not (len(k1_err) == len(k2_same) == E2E_FRAMES and same_run
-            and max(k1_err) <= ROI_TOL and all(k1_mirror) and all(k2_same)):
-        raise AssertionError(f"e2e-detect: K1 errors {k1_err}, mirror "
-                             f"{k1_mirror}; K2 equal {k2_same}; same run "
-                             f"{same_run}")
+    if not (len(k1_err) == len(k2_err) == E2E_FRAMES and same_run
+            and max(k1_err) <= ROI_TOL and max(k2_err) == 0
+            and set(errs) == {"roi_extract", "auction_solve"}):
+        raise AssertionError(f"e2e-detect: K1 errors {k1_err}; K2 {k2_err}; "
+                             f"same run {same_run}")
 
     # 5. variants: the strided scans, bf16 + fast NMS, int8
     for n in (E2E_FRAMES, E2E_FRAMES - E2E_FRAMES % E2E_STRIDE):
@@ -1567,6 +1697,525 @@ def phase_kcf_bank(dev, frames, gt_boxes):
                 f"{ref} - 0.02)")
 
 
+# ---- multi-stream serving (BASELINE.json configs[4] on one card) ---------
+
+# K1 and K3 against their plain versions in the serving runs: the 4-tap sum
+# against the hat matmuls, three float32 roundings apart at most (PR 6's
+# detector run: 1.79e-7).
+SERVE_ROI_TOL = 1.8e-7
+SERVE_REPS = 7          # interleaved samples of each serving time
+SERVE_WINDOW = 8        # frames a timed sample tracks
+
+
+def stream_bank(banks, s: int) -> bank_mod.TrackBank:
+    """Stream s's bank of a stacked bank."""
+    return bank_mod.map_bank(lambda x: x[s], banks)
+
+
+def serve_lockstep(banks, frames, d, v, cfg, n_frames: int):
+    """Gate 1: on every frame, multi_stream_step from the stacked banks
+    against the S single-stream steps from the same per-stream banks (the
+    stacked banks go on).  Returns the largest box difference, whether every
+    field was bit-equal, and the number of slot-frames compared."""
+    n_str = frames.shape[0]
+    worst, bit_equal, bad = 0.0, True, []
+    for f in range(n_frames):
+        singles = [stream_bank(banks, s) for s in range(n_str)]
+        banks, out = serve.multi_stream_step(banks, frames[:, f], d[:, f],
+                                             v[:, f], cfg)
+        for s in range(n_str):
+            one_bank, one = step_mod.step(singles[s], frames[s, f], d[s, f],
+                                          v[s, f], cfg)
+            same = all(torch.equal(getattr(out, k)[s], getattr(one, k))
+                       for k in ("ids", "valid", "matched_det",
+                                 "assign_iters")) and torch.equal(
+                banks.state[s], one_bank.state)
+            diff = float((out.boxes[s] - one.boxes).abs().max())
+            worst = max(worst, diff)
+            bit_equal &= same and torch.equal(out.boxes[s], one.boxes)
+            if not same or diff > 1e-4:
+                bad.append((f, s, same, diff))
+    if bad:
+        raise AssertionError(f"serve: stream step against single steps: "
+                             f"(frame, stream, fields equal, box diff) "
+                             f"{bad[:8]}")
+    return worst, bit_equal, n_frames * n_str * cfg.max_tracks
+
+
+def serve_dump_check(out, dump, gt, vis):
+    """Gate 2: the free run against JAX's dump: ids and valid on every
+    frame, boxes within 0.05 px, each stream's MOTA equal to the dump's."""
+    n_str, n = out.ids.shape[:2]
+    ids, valid, boxes = triple(out)
+    lines, motas = [], []
+    for s in range(n_str):
+        ok, txt = compare_tracks((ids[s], valid[s], boxes[s]),
+                                 (dump["ids"][s], dump["valid"][s],
+                                  dump["boxes"][s]))
+        hyp = [(ids[s, f][valid[s, f]], boxes[s, f][valid[s, f]])
+               for f in range(n)]
+        g = [(np.where(vis[s, f])[0], gt[s, f][np.where(vis[s, f])[0]])
+             for f in range(n)]
+        mota = metrics.clear_mot(g, hyp)["mota"]
+        motas.append(mota)
+        if not (ok and mota == dump["mota"][s]):
+            raise AssertionError(f"serve: stream {s} against the JAX dump: "
+                                 f"{txt}; MOTA {mota} (dump "
+                                 f"{dump['mota'][s]})")
+        lines.append(txt)
+    both = valid & dump["valid"]
+    return (float(np.abs(boxes - dump["boxes"]).max(axis=-1)[both].max()),
+            bool(np.array_equal(boxes[both], dump["boxes"][both])), motas)
+
+
+def serve_detector(dev, frames_tm, card):
+    """Gate 4 and the fused detect -> track times: tools/bench_configs4.py's
+    detector over the S streams' frames (time-major [N, S, H, W])."""
+    n, n_str = frames_tm.shape[:2]
+    spec = YoloSpec("yolov3-tiny", num_classes=80)
+    det = detector.YoloDetector.random_init(spec, seed=0, device=dev,
+                                            max_out=SERVE_DETS,
+                                            iou_thr=E2E_IOU,
+                                            score_thr=E2E_SCORE)
+    model = det.model
+    m16 = detector.YoloDetector(dataclasses.replace(spec, dtype="bfloat16"),
+                                model.state_dict(), device=dev).model
+    cfg = TrackerConfig(max_tracks=128, max_detections=SERVE_DETS,
+                        frame_height=HEIGHT, frame_width=WIDTH)
+
+    def detect_fn(m, fr, impl="greedy"):
+        return detector.detect_batch(m, fr, (HEIGHT, WIDTH), SERVE_DETS,
+                                     E2E_IOU, E2E_SCORE, nms_impl=impl)
+
+    def fast_fn(m, fr):
+        return detect_fn(m, fr, "fast")
+
+    banks0 = serve.make_stream_banks(n_str, cfg, device=dev)
+    # the fused step: the shared and data-parallel forms are one forward
+    dp = serve.detect_then_track_step(model, banks0, frames_tm[0], cfg,
+                                      detect_fn)
+    shared = serve.detect_then_track_step_shared(model, banks0, frames_tm[0],
+                                                 cfg, detect_fn)
+    same_fused = all(torch.equal(x, y) for x, y in zip(
+        [*dp[1], *bank_leaves(dp[0])], [*shared[1], *bank_leaves(shared[0])]))
+    # strided-4 against multi_stream_sequence fed each head frame's
+    # detections, class-blind and class-aware; K2's batches captured
+    solve, seen_b = auction_k.auction_solve, []
+
+    def capture(b, eps, max_iters):
+        seen_b.append(b.clone())
+        return solve(b, eps, max_iters)
+
+    heads = {}
+    for i in range(0, n, SERVE_STRIDE):
+        heads[i] = detect_fn(model, frames_tm[i])
+    for class_aware in (False, True):
+        c = cfg.replace(class_aware=class_aware)
+        width = 6 if class_aware else 5
+        dd = torch.zeros((n_str, n, SERVE_DETS, width), device=dev)
+        vv = torch.zeros((n_str, n, SERVE_DETS), dtype=torch.bool,
+                         device=dev)
+        for i, (hd, hv, hc) in heads.items():
+            dd[:, i] = (detector.dets_with_classes(hd, hc) if class_aware
+                        else hd)
+            vv[:, i] = hv
+        auction_k.auction_solve = capture
+        try:
+            _, ref = serve.multi_stream_sequence(
+                serve.make_stream_banks(n_str, c, device=dev),
+                frames_tm.transpose(0, 1), dd, vv, c)
+        finally:
+            auction_k.auction_solve = solve
+        _, st = serve.multi_stream_sequence_strided(
+            model, serve.make_stream_banks(n_str, c, device=dev), frames_tm,
+            c, detect_fn, SERVE_STRIDE)
+        equal = all(torch.equal(getattr(st, k), getattr(ref, k))
+                    for k in ("ids", "valid", "boxes", "cls"))
+        alive = st.ids >= 0
+        log("serve", f"detector cell, class_aware={class_aware}: "
+                     f"multi_stream_sequence_strided (stride {SERVE_STRIDE},"
+                     f" N={n}, one forward over {n_str} frames a head) equal "
+                     "to multi_stream_sequence fed those detections (ids, "
+                     f"valid, boxes, classes): {equal}; "
+                     f"{int(alive.sum())} live and {int(st.valid.sum())} "
+                     f"confirmed slot-frames (a tentative track dies "
+                     f"unmatched for over {c.max_age_tentative} frames, "
+                     f"before the next head frame), classes tracked "
+                     f"{sorted(set(st.cls[alive].tolist()))}")
+        if not (equal and alive.any()):
+            raise AssertionError(f"serve: strided serving (class_aware="
+                                 f"{class_aware}) differs from the "
+                                 "explicit detections, or tracks nothing")
+    # the batched forward against B = 1 forwards of each stream
+    hd, hv, _ = heads[0]
+    log("serve", f"detector cell: valid detections per stream on frame 0 "
+                 f"{hv.sum(1).tolist()} (of {SERVE_DETS})")
+    one = [detect_fn(model, frames_tm[0, s:s + 1]) for s in range(n_str)]
+    od = torch.cat([o[0] for o in one])
+    ov = torch.cat([o[1] for o in one])
+    both = hv & ov
+    diff = float((hd - od).abs()[both].max())
+    n_diff = int(((hd - od).abs().amax(dim=-1) > 0)[both].sum())
+    log("serve", f"detector cell: the forward over {n_str} streams' frames "
+                 f"against {n_str} B = 1 forwards: valid equal "
+                 f"{torch.equal(hv, ov)}, detections differing "
+                 f"{n_diff} of {int(both.sum())}, largest difference "
+                 f"{diff:.3g} (px or score; limit {E2E_PRE_BOX_TOL:g}); "
+                 f"the fused step's shared and data-parallel forms equal: "
+                 f"{same_fused}")
+    if not (torch.equal(hv, ov) and diff <= E2E_PRE_BOX_TOL and same_fused):
+        raise AssertionError(f"serve: batched forward {diff} from B = 1, "
+                             f"shared == DP {same_fused}")
+
+    # times: f32 greedy, bf16 + fast NMS, strided-4 (bf16 + fast NMS), in
+    # turns over SERVE_WINDOW frames
+    w = SERVE_WINDOW
+
+    def fused(m, fn):
+        def run():
+            b = serve.make_stream_banks(n_str, cfg, device=dev)
+            for i in range(w):
+                b, _ = serve.detect_then_track_step_shared(
+                    m, b, frames_tm[i], cfg, fn)
+        return run
+
+    runs = {"fused f32 greedy": fused(model, detect_fn),
+            "fused bf16 + fast NMS": fused(m16, fast_fn),
+            f"strided-{SERVE_STRIDE} bf16 + fast NMS":
+                lambda: serve.multi_stream_sequence_strided(
+                    m16, serve.make_stream_banks(n_str, cfg, device=dev),
+                    frames_tm[:w], cfg, fast_fn, SERVE_STRIDE)}
+    times = interleaved(runs, SERVE_REPS)
+    for name, secs in times.items():
+        log("serve", f"times {name}, S={n_str}: " + rate_line(
+            secs, w, n_str) + f" ({card})")
+    return seen_b[-1]
+
+
+def bank_leaves(bank) -> list:
+    return [x for v in bank for x in (v if isinstance(v, kcf_ops.KCFModel)
+                                      else (v,))]
+
+
+def interleaved(runs: dict, reps: int) -> dict:
+    """Seconds of each run over `reps` rounds, the runs in turns within a
+    round (one warm call each first)."""
+    for fn in runs.values():
+        fn()
+    torch.cuda.synchronize()
+    out = {k: [] for k in runs}
+    for _ in range(reps):
+        for k, fn in runs.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[k].append(time.perf_counter() - t0)
+    return out
+
+
+def rate_line(secs: list, n_frames: int, n_str: int) -> str:
+    med = statistics.median(secs)
+    return (f"{n_str * n_frames / med:.1f} stream-frames/s aggregate, "
+            f"{1000 * med / n_frames:.3f} ms a multi-stream frame (median of "
+            f"{len(secs)}; samples {min(secs):.4f}-{max(secs):.4f} s per "
+            f"{n_frames} frames, spread {max(secs) / min(secs):.2f}x)")
+
+
+def phase_serve(dev, card, default_out):
+    """configs[4] on one card: 8 streams x 1080p through the stream step
+    (see SERVE_DUMP); gates 1-5 and the serving rates.  Returns what
+    serve_kernel_times and serve_profile take."""
+    t_phase = time.perf_counter()
+    frames_np, d_np, v_np, gt, vis, cfg = serve_fixture()
+    frames = torch.as_tensor(frames_np, device=dev)
+    del frames_np
+    d = torch.as_tensor(d_np, device=dev)
+    v = torch.as_tensor(v_np, device=dev)
+    n_str, n = frames.shape[:2]
+    dump = np.load(SERVE_DUMP)
+    log("serve", f"fixture: {n_str} streams x {n} frames of {HEIGHT}x{WIDTH}"
+                 f" u8 ({frames.numel() / 1e6:.0f} MB on the card), "
+                 f"{cfg.max_tracks} tracks and {cfg.max_detections} "
+                 "detections a stream; rendered and uploaded in "
+                 f"{time.perf_counter() - t_phase:.1f} s")
+    banks0 = serve.make_stream_banks(n_str, cfg, device=dev)
+    hf = heavy_config(cfg, "HF")
+
+    # the main paths: default over 8 x 32, HF over 8 x 8, counted
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    for name, c, nf in (("default", cfg, n), ("HF", hf, SERVE_WINDOW)):
+        reset_counts()
+        t0 = time.perf_counter()
+        _, o = serve.multi_stream_sequence(
+            serve.make_stream_banks(n_str, c, device=dev), frames[:, :nf],
+            d[:, :nf], v[:, :nf], c)
+        torch.cuda.synchronize()
+        launches[name] = read_counts()
+        want = {k: 0 for k in KERNELS}
+        want.update(roi_extract=nf, auction_solve=nf)
+        if name == "HF":
+            want.update(roi_extract_scales=nf, kcf_detect=nf, kcf_train=nf)
+        log("serve", f"{name}: multi_stream_sequence {n_str} streams x {nf} "
+                     f"frames in {time.perf_counter() - t0:.3f} s (first "
+                     f"run); kernel launches {launches[name]} (one set a "
+                     "multi-stream frame)")
+        if launches[name] != want:
+            raise AssertionError(f"serve {name}: launches {launches[name]}, "
+                                 f"expected {want}")
+        if name == "default":
+            out = o
+            peak = torch.cuda.max_memory_allocated()
+    check = out.boxes.cpu().numpy()
+    if check.shape != (n_str, n, cfg.max_tracks, 4) or not np.isfinite(
+            check).all():
+        raise AssertionError(f"serve: bad output boxes {check.shape}")
+    log("serve", f"peak device memory of the default run "
+                 f"{peak / 2**20:.1f} MiB ({(peak - mem0) / 2**20:.1f} MiB "
+                 f"over the {mem0 / 2**20:.1f} MiB held before it: the "
+                 "frames, the earlier phases' tensors)")
+
+    # gate 2: the JAX dump, and stream 0 against the default cell
+    box_diff, box_equal, motas = serve_dump_check(out, dump, gt, vis)
+    log("serve", f"against the JAX run's dump ({SERVE_DUMP.name}): ids and "
+                 f"valid equal on {n_str} x {n} frames, largest box "
+                 f"difference {box_diff:.3g} px (bit-equal: {box_equal}); "
+                 f"MOTA per stream {motas} equal to the dump's")
+    stream0 = tuple(x[0] for x in triple(out))
+    txt = same_tracks(stream0, tuple(x[:n] for x in triple(default_out)),
+                      "serve stream 0 vs the default cell")
+    log("serve", f"stream 0 against the default cell's first {n} frames: "
+                 f"{txt}; bit-equal: "
+                 f"{torch.equal(out.boxes[0], default_out.boxes[:n])}")
+
+    # gate 1: the stream step against single steps, in lockstep
+    for name, c, nf in (("default", cfg, n), ("HF", hf, SERVE_WINDOW)):
+        worst, bit, count = serve_lockstep(
+            serve.make_stream_banks(n_str, c, device=dev), frames, d, v, c,
+            nf)
+        log("serve", f"{name}: multi_stream_step against {n_str} single "
+                     f"steps from the same banks on {nf} frames: ids, valid, "
+                     f"state, matched_det, assign_iters equal; largest box "
+                     f"difference {worst:.3g} px over {count} slot-frames "
+                     f"(limit 1e-4); bit-equal: {bit}")
+
+    # gate 3: every kernel call of the serving runs against its plain
+    # version; K2 on odd n
+    limits = {"roi_extract": SERVE_ROI_TOL,
+              "roi_extract_scales": SERVE_ROI_TOL, "auction_solve": 0,
+              "kcf_detect": KCF_TOL["response"],
+              "kcf_train": KCF_TOL["alphaf"]}
+    _, errs, _, seen = checked_run(serve.multi_stream_sequence, banks0,
+                                   frames, d, v, cfg)
+    _, errs_hf, _, seen_hf = checked_run(
+        serve.multi_stream_sequence,
+        serve.make_stream_banks(n_str, hf, device=dev),
+        frames[:, :SERVE_WINDOW], d[:, :SERVE_WINDOW], v[:, :SERVE_WINDOW],
+        hf)
+    for k, e in {**errs, **{"HF " + k: x for k, x in
+                             errs_hf.items()}}.items():
+        limit = limits[k.split()[-1]]
+        log("serve", f"checked serving run, {k}: {len(e)} calls, largest "
+                     f"error {max(e):.3g} (limit {limit:g}; K1/K3: "
+                     "|kernel - plain|, inf where not bit-equal to "
+                     "the 4-tap mirror; K2: 0 = col_of and iters equal to "
+                     "the plain version and to a launch per problem; K4, "
+                     "K5: relative to the largest magnitude)")
+        if not max(e) <= limit:
+            raise AssertionError(f"serve: {k} against its plain version on "
+                                 f"the serving run: errors {e}")
+    errs = {k: max(e) for k, e in errs.items()}
+    errs_hf = {k: max(e) for k, e in errs_hf.items()}
+    rng = np.random.default_rng(5)
+    for nn in (5, 161):
+        cost = torch.as_tensor(rng.uniform(0, 1, (n_str, nn, nn)).astype(
+            np.float32), device=dev)
+        feas = torch.as_tensor(rng.random((n_str, nn, nn)) < 0.8,
+                               device=dev)
+        b = assignment.build_benefits(cost, feas, EPS)
+        col, it = auction_k.auction_solve(b, EPS, 2000)
+        want_col, want_it = auction_k.auction_solve_ref(b, EPS, 2000)
+        one = [auction_k.auction_solve(b[p].contiguous(), EPS, 2000)
+               for p in range(n_str)]
+        same = (torch.equal(col, want_col) and torch.equal(it, want_it)
+                and all(torch.equal(col[p], c) and torch.equal(it[p], i)
+                        for p, (c, i) in enumerate(one)))
+        log("serve", f"K2 batch [{n_str}, {nn}, {nn}] (odd n: every problem "
+                     f"staged by scalar loads): col_of and iters equal to the"
+                     f" plain version and to {n_str} single launches: {same};"
+                     f" rounds {it.tolist()}")
+        if not same:
+            raise AssertionError(f"serve: K2 batch n={nn} differs")
+
+    # gate 4: detector serving
+    frames_tm = frames.transpose(0, 1)
+    det_b = serve_detector(dev, frames_tm, card)
+
+    # gate 5: the supervisor on stream 0
+    sup = StreamSupervisor(cfg)
+    for f in range(n):
+        sup.step(frames[0, f], d[0, f], v[0, f])
+    clean = sup.failures
+    kf = sup.bank.kf_mean.clone()
+    kf[:, 0] = float("nan")
+    sup.bank = sup.bank._replace(kf_mean=kf)
+    rec = sup.step(frames[0, n - 1], d[0, n - 1], v[0, n - 1])
+    log("serve", f"StreamSupervisor on stream 0 ({sup.device}): failures "
+                 f"{clean} over {n} frames; after the bank was poisoned with "
+                 f"NaN: failures {sup.failures}, boxes finite "
+                 f"{bool(torch.isfinite(rec.boxes).all())}")
+    if not (clean == 0 and sup.failures == 1
+            and torch.isfinite(rec.boxes).all()):
+        raise AssertionError(f"serve: supervisor failures {clean} then "
+                             f"{sup.failures}")
+
+    # numbers: aggregate stream-frames/s at S = 1, 2, 4, 8 against eight
+    # run_sequence calls, from the banks after frame 16 over frames 16-23
+    w = SERVE_WINDOW
+    banks16, _ = serve.multi_stream_sequence(banks0, frames[:, :16],
+                                             d[:, :16], v[:, :16], cfg)
+    win = slice(16, 16 + w)
+
+    def streams(k):
+        b = bank_mod.map_bank(lambda x: x[:k].contiguous(), banks16)
+        return lambda: serve.multi_stream_sequence(
+            b, frames[:k, win], d[:k, win], v[:k, win], cfg)
+
+    singles = [stream_bank(banks16, s) for s in range(n_str)]
+    runs = {f"S={k}": streams(k)
+            for k in [k for k in (1, 2, 4) if k < n_str] + [n_str]}
+    runs[f"{n_str} x run_sequence"] = lambda: [scan.run_sequence(
+        singles[s], frames[s, win], d[s, win], v[s, win], cfg)
+        for s in range(n_str)]
+    times = interleaved(runs, SERVE_REPS)
+    for name, secs in times.items():
+        k = n_str if name.endswith("run_sequence") else int(name[2:])
+        log("serve", f"times default {name}: " + rate_line(secs, w, k)
+            + f" ({card})")
+    log("serve", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    # the kernels' serving times and the profile come later in the script:
+    # after a long profiler session the profiler loses device records
+    return dict(seen=seen, seen_hf=seen_hf, det_b=det_b, errs=errs,
+                errs_hf=errs_hf, launches=launches,
+                windows={k: streams(k) for k in (1, n_str)})
+
+
+def serve_profile(windows: dict) -> None:
+    """Launches a multi-stream frame and the device's busy share, default,
+    at S = 1 and S = 8 over SERVE_WINDOW frames."""
+    w = SERVE_WINDOW
+    for k, run in windows.items():
+        kernels, wall_us, _ = profiled(run)
+        busy = sum(r[1] for r in kernels)
+        log("serve", f"profile default S={k}, {w} frames: "
+                     f"{sum(r[2] for r in kernels) / w:.1f} kernel launches "
+                     f"a multi-stream frame; device {busy / 1e3:.3f} ms of "
+                     f"{wall_us / 1e3:.3f} ms wall under the profiler "
+                     f"({100 * busy / wall_us:.1f}% busy)")
+        for key, us, count in kernels[:6]:
+            log("serve", f"  {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+
+
+def serve_kernel_times(seen, seen_hf, det_b, errs, errs_hf, launches):
+    """Each kernel at its serving shape against its plain version (event
+    times in turns, profiler device times) and its bound; the rows of the
+    kernels line."""
+    levels, hw, *c1 = seen["roi_extract"]
+    lv3, hw3, *c3 = seen_hf["roi_extract_scales"]
+    b = seen["auction_solve"]
+    d_model, d_feat, sigma = seen_hf["kcf_detect"]
+    t_model, t_feat, yf, t_sigma, lam, lr = seen_hf["kcf_train"]
+    rows1, s1 = c1[3].shape
+    k3, rows3, s3 = c3[3].shape
+    frame1 = roi_k._row_frames(levels, rows1, c1[3].device)
+    frame3 = roi_k._row_frames(lv3, rows3, c3[3].device)
+    n_prob, n = b.shape[:2]
+    rounds = auction_k.auction_solve(b, EPS, 2000)[1]
+    ni, c, s, _ = d_feat.shape
+    sf = s // 2 + 1
+    nt = t_model.xf.shape[0]
+    bounds = {
+        "roi_extract": bound(
+            rows1 * s1 * s1 * 4 + rows1 * (3 + 2 * s1) * 4
+            + touched_pixels(c1[0], c1[3], c1[4], frame1),
+            10 * rows1 * s1 * s1),
+        "roi_extract_scales": bound(
+            k3 * rows3 * s3 * s3 * 4 + rows3 * 3 * 4 + k3 * rows3 * 2 * s3 * 4
+            + touched_pixels(c3[0].repeat(k3), c3[3].reshape(-1, s3),
+                             c3[4].reshape(-1, s3), frame3.repeat(k3)),
+            10 * k3 * rows3 * s3 * s3),
+        "auction_solve": bound(b.numel() * 4 + n_prob * (n + 1) * 4,
+                               int(rounds.sum()) * 4 * n * n),
+        "kcf_detect": bound(
+            ni * c * s * s * 4 + nt * (c + 1) * s * sf * 8 + ni * s * s * 4,
+            ni * (c * fft_flops(s) + 8 * c * s * sf + 3 * fft_flops(s)
+                  + 10 * s * s + 6 * s * sf)),
+        "kcf_train": bound(
+            nt * c * s * s * 4 + 2 * nt * (c + 1) * s * sf * 8
+            + s * sf * 8 + nt * 4,
+            nt * (c * fft_flops(s) + 8 * c * s * sf + 2 * fft_flops(s)
+                  + 10 * s * s + 16 * s * sf)),
+    }
+    pairs = {
+        "roi_extract": (f"K1 {rows1} rows of {roi_k.n_frames(levels)} u8 "
+                        "1080p frames",
+                        lambda: roi_k._resample_ref(levels, hw, *c1),
+                        lambda: roi_k._resample_cuda(levels, hw, *c1), 50),
+        "roi_extract_scales": (
+            f"K3 {rows3} rows x {k3} scales of {roi_k.n_frames(lv3)} frames",
+            lambda: roi_k._resample_scales_ref(lv3, hw3, *c3),
+            lambda: roi_k._resample_scales_cuda(lv3, hw3, *c3), 50),
+        "auction_solve": (
+            f"K2 batch {list(b.shape)} (rounds {rounds.tolist()})",
+            lambda: auction_k.auction_solve_ref(b, EPS, 2000),
+            lambda: auction_k.auction_solve(b, EPS, 2000), 10),
+        "kcf_detect": (
+            f"K4 feat {tuple(d_feat.shape)} on {nt} model rows",
+            lambda: kcf_k.detect_fused_ref(d_model, d_feat, sigma),
+            lambda: kcf_k.detect_fused(d_model, d_feat, sigma), 50),
+        "kcf_train": (
+            f"K5 feat {tuple(t_feat.shape)}",
+            lambda: kcf_k.train_fused_ref(t_model, t_feat, yf, t_sigma, lam,
+                                          lr),
+            lambda: kcf_k.train_fused(t_model, t_feat, yf, t_sigma, lam, lr),
+            50),
+    }
+    src = {"roi_extract": ("roi.cu", "roi.py:465"),
+           "roi_extract_scales": ("roi.cu", "roi.py:346"),
+           "auction_solve": ("auction.cu", "auction.py:107"),
+           "kcf_detect": ("kcf.cu", "kcf.py:260"),
+           "kcf_train": ("kcf.cu", "kcf.py:295")}
+    err_of = {**errs_hf, **errs}
+    rows = []
+    for key, (what, plain, kernel, reps) in pairs.items():
+        ms, plain_ms = in_turns(plain, kernel, reps)
+        dev_ms, plain_dev_ms = device_ms(kernel, reps), device_ms(plain, reps)
+        b_ms, b_by = bounds[key]
+        log("times", f"serving {what}: per call (CUDA event pairs) kernel "
+                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms; device time per "
+                     f"call (profiler) kernel {dev_ms:.4f} ms, plain "
+                     f"{plain_dev_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
+        path = "default" if key in ("roi_extract", "auction_solve") else "HF"
+        rows.append({
+            "name": f"{key}_serve", "route": "cuda",
+            "source": f"tpu_mot_torch/csrc/{src[key][0]}",
+            "replaces": f"tpu_mot/kernels/{src[key][1]}",
+            "launches": launches[path][key], "max_abs_err": err_of[key],
+            "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+            "plain_device_ms": plain_dev_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "shape": what, "launches_of": f"serve {path}"})
+    nb, nn = det_b.shape[:2]
+    det_rounds = auction_k.auction_solve(det_b, EPS, 2000)[1]
+    det_ms = device_ms(lambda: auction_k.auction_solve(det_b, EPS, 2000), 10)
+    log("times", f"serving K2 batch [{nb}, {nn}, {nn}] of the detector cell "
+                 f"(rounds {det_rounds.tolist()}): device time per call "
+                 f"(profiler) {det_ms:.4f} ms")
+    return rows
+
+
 def kernel_line(name: str, info: dict) -> str:
     return (f"{name} launches: path {info['path']}; {info['threads']} "
             f"threads per CTA, {info['registers']} registers per thread, "
@@ -1819,8 +2468,8 @@ def main() -> int:
                         cfg_hf, cfg)
 
     # end to end: default, then the heavy modes
-    launches, mota, h_all = phase_e2e(frames, d, v, cfg, gt_boxes, vis,
-                                      dets_list, frames_np)
+    launches, mota, h_all, default_out = phase_e2e(
+        frames, d, v, cfg, gt_boxes, vis, dets_list, frames_np)
     heavy_launches = phase_e2e_heavy(frames, d, v, cfg, gt_boxes, vis)
 
     # the association configurations on the class fixture
@@ -1841,9 +2490,14 @@ def main() -> int:
     phase_kcf_tracker()
     phase_kcf_bank(dev, frames, gt_boxes)
 
+    # multi-stream serving: configs[4] on one card
+    served = phase_serve(dev, card, default_out)
+
     # times
     times = phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_b,
                         hf_inputs, (a_frames, a_d, a_v, a_cfg))
+    windows = served.pop("windows")
+    serve_rows = serve_kernel_times(**served)
     for name, (fr, dd, vv, c) in (
             ("default", (frames, d, v, cfg)),
             ("HF", (frames, d, v, cfg_hf)),
@@ -1852,6 +2506,8 @@ def main() -> int:
             bank_mod.empty_bank(c, device=dev), fr[:16], dd[:16], vv[:16],
             c))
     phase_profile_detect(*detect_run)
+    serve_profile(windows)
+
 
     hf = heavy_launches["HF"]
     rows = [
@@ -1877,7 +2533,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": err, **times[name], **extra}
-        for name, src, rep, n, err, extra in rows]}))
+        for name, src, rep, n, err, extra in rows] + serve_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

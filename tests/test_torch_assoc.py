@@ -145,8 +145,9 @@ def test_sample_response_matches_jax():
     want = np.asarray(j_step._sample_response(
         jnp.asarray(response), jnp.asarray(centers), jnp.asarray(win),
         jnp.asarray(dets), s))
+    # one stream: the port's detections carry a leading stream axis
     got = t_step._sample_response(_t(response), _t(centers), _t(win),
-                                  _t(dets), s).numpy()
+                                  _t(dets)[None], s)[0].numpy()
     assert got.shape == (T, D)
     assert got[0, 0] == 0.0 and want[0, 0] == 0.0
     assert got[1, 1] == response[1, 0, s - 1]     # the border pixel itself

@@ -231,3 +231,86 @@ def test_scatter_round_matches_plain_and_pallas_exactly(case, max_iters):
         jnp.asarray(b), EPS, max_iters, interpret=True)
     np.testing.assert_array_equal(col.numpy(), np.asarray(jax_col))
     assert int(it) == int(jax_it)
+
+
+# ---- serving: a batch of problems [S, n, n] --------------------------------
+
+@pytest.mark.parametrize("case", ["n5x3", "mot128x4", "capped", "n33x2"])
+def test_batched_solve_equals_single_solves(case):
+    """Each problem of a batch gets the single solve's col_of and iters,
+    also when one problem runs into max_iters while the others finish
+    early (a finished problem's count stops), in the plain version, the
+    kernel's schedule and the CPU wrapper; the JAX Pallas kernel under vmap
+    agrees."""
+    rng = np.random.default_rng(len(case))
+    max_iters = 2000
+    if case == "n5x3":
+        bs = [_benefits(*_random_problem(rng, 5, 5)) for _ in range(3)]
+    elif case == "mot128x4":
+        bs = [_benefits(*_mot_problem(rng, 128, 128, 100)) for _ in range(4)]
+    elif case == "capped":
+        # quantised benefits need many rounds; a clear diagonal needs one
+        tie = np.round(_benefits(*_random_problem(rng, 40, 40)) * 4) / 4
+        easy = _benefits((0.9 - 0.8 * np.eye(40)).astype(np.float32),
+                         np.ones((40, 40), bool))
+        bs = [easy, tie, easy[::-1].copy()]
+        max_iters = int(t_auction.auction_solve_ref(
+            torch.as_tensor(tie), EPS, 2000)[1]) - 1
+    else:
+        bs = [_benefits(*_random_problem(rng, 33, 33)) for _ in range(2)]
+    b = torch.as_tensor(np.stack(bs).astype(np.float32))
+    col, it = t_auction.auction_solve_ref(b, EPS, max_iters)
+    assert col.shape == b.shape[:2] and it.shape == b.shape[:1]
+    for p in range(b.shape[0]):
+        c1, i1 = t_auction.auction_solve_ref(b[p], EPS, max_iters)
+        assert torch.equal(col[p], c1) and int(it[p]) == int(i1)
+    s_col, s_it = t_auction.auction_solve_scatter_ref(b, EPS, max_iters)
+    assert torch.equal(s_col, col) and torch.equal(s_it, it)
+    w_col, w_it = t_auction.auction_solve(b, EPS, max_iters)
+    assert torch.equal(w_col, col) and torch.equal(w_it, it)
+    import jax
+    j_col, j_it = jax.vmap(lambda x: j_auction.auction_solve_pallas(
+        x, EPS, max_iters, interpret=True))(jnp.asarray(b.numpy()))
+    np.testing.assert_array_equal(col.numpy(), np.asarray(j_col))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(j_it))
+    if case == "capped":
+        assert int(it[1]) == max_iters and (col[1] < 0).any()
+        assert int(it[0]) < max_iters and (col[0] >= 0).all()
+
+
+def test_batched_assignment_and_warm_auction_equal_single_problems():
+    """auction_assign_stats and auction_assign_warm on [S, N, M] (the carry
+    [S, n]) give each problem an unbatched call's outputs, carried prices
+    and matching included."""
+    rng = np.random.default_rng(11)
+    probs = [_mot_problem(rng, 24, 30, 18) for _ in range(3)]
+    cost = torch.as_tensor(np.stack([p[0] for p in probs]))
+    feas = torch.as_tensor(np.stack([p[1] for p in probs]))
+    got = t_assign.auction_assign_stats(cost, feas)
+    assert got[0].shape == (3, 24) and got[1].shape == (3,)
+    for p in range(3):
+        one = t_assign.auction_assign_stats(cost[p], feas[p])
+        assert all(torch.equal(x[p], y) for x, y in zip(got, one))
+    prices = torch.zeros((3, 30))
+    col_of = torch.full((3, 30), -1, dtype=torch.int32)
+    for step in range(3):       # the carry grows warm over three calls
+        c = cost + torch.as_tensor(rng.normal(0, 0.02, cost.shape).astype(
+            np.float32)) * step
+        warm = t_assign.auction_assign_warm(c, feas, prices, col_of)
+        for p in range(3):
+            one = t_assign.auction_assign_warm(c[p], feas[p], prices[p],
+                                               col_of[p])
+            assert all(torch.equal(x[p], y) for x, y in zip(warm, one))
+        prices, col_of = warm[3], warm[4]
+
+
+def test_auction_assign_and_assignment_cost_match_jax():
+    rng = np.random.default_rng(12)
+    for n, m in ((16, 11), (40, 40)):
+        cost, feas = _random_problem(rng, n, m)
+        got = t_assign.auction_assign(torch.as_tensor(cost),
+                                      torch.as_tensor(feas))
+        want = j_assign.auction_assign(jnp.asarray(cost), jnp.asarray(feas))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert (t_assign.assignment_cost(cost, got.numpy())
+                == j_assign.assignment_cost(cost, np.asarray(want)))

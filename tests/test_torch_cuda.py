@@ -37,10 +37,12 @@ from tpu_mot_torch.ops import assignment as t_assign
 from tpu_mot_torch.ops import iou as t_iou
 from tpu_mot_torch.ops import kcf as t_kcf
 from tpu_mot_torch.ops import nms as t_nms
+from tpu_mot_torch.parallel import serve as t_serve
 from tpu_mot_torch.tracker import api as t_api
 from tpu_mot_torch.tracker import bank as t_bank
 from tpu_mot_torch.tracker import kcf_bank as t_kcf_bank
 from tpu_mot_torch.tracker import scan as t_scan
+from tpu_mot_torch.tracker import step as t_step
 
 pytestmark = pytest.mark.cuda
 
@@ -657,3 +659,131 @@ def test_strided_scans_on_card(cuda, n):
         assert torch.equal(got.ids, want.ids), fn.__name__
         assert torch.equal(got.valid, want.valid), fn.__name__
         assert (got.boxes - want.boxes).abs().max().item() <= 0.05
+
+
+# ---- serving: K1/K3 with a frame index, K2 over a batch, the stream step
+
+
+def _stacked_frames(dev, n, pyramid):
+    frames = torch.as_tensor(np.random.default_rng(11).integers(
+        0, 256, (n, H, W), dtype=np.uint8), device=dev)
+    return frames if pyramid == torch.uint8 else frames.float() / 255.0
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("pyramid", [torch.uint8, torch.float32])
+def test_roi_kernels_with_frame_index(cuda, pyramid, k):
+    """Levels of 3 frames [3, H_l, W_l] and 3 x 37 stream-major boxes:
+    one launch, equal to the plain version (1e-5), bit-equal to the 4-tap
+    mirror and to one launch per frame."""
+    frames = _stacked_frames(cuda, 3, pyramid)
+    levels = t_roi.build_pyramid(frames)
+    assert levels[0].shape == (3, H, W) and levels[0].dtype == pyramid
+    boxes = torch.as_tensor(np.concatenate(
+        [_scales_boxes(37)[::-1], _scales_boxes(37),
+         _scales_boxes(37)[::2].repeat(2, 0)[:37]]), device=cuda)
+    before = t_roi.launches, t_roi.launches_scales
+    if k == 1:
+        got = t_roi.extract_patches(None, boxes, 2.5, 64, levels=levels,
+                                    frame_hw=(H, W))
+        want = t_roi.extract_patches_ref(None, boxes, 2.5, 64, levels=levels,
+                                         frame_hw=(H, W))
+        lvl, r0, c0, ys, xs = t_roi.sample_coords(boxes, 2.5, 64, (H, W))
+        mirror = t_roi.four_tap_mirror(levels, (H, W), lvl, r0, c0,
+                                       ys[None], xs[None])[0]
+        one = [t_roi.extract_patches(None, boxes[37 * f:37 * (f + 1)], 2.5,
+                                     64, levels=[lv[f] for lv in levels],
+                                     frame_hw=(H, W)) for f in range(3)]
+        whole = torch.cat(one)
+        assert t_roi.launches == before[0] + 4
+    else:
+        got = t_roi.extract_patches_scales(None, boxes, 2.5, 64, SCALES,
+                                           levels=levels, frame_hw=(H, W))
+        want = t_roi.extract_patches_scales_ref(
+            None, boxes, 2.5, 64, SCALES, levels=levels, frame_hw=(H, W))
+        mirror = t_roi.four_tap_mirror(levels, (H, W), *t_roi.
+                                       sample_coords_scales(
+                                           boxes, 2.5, 64, SCALES, (H, W)))
+        one = [t_roi.extract_patches_scales(
+            None, boxes[37 * f:37 * (f + 1)], 2.5, 64, SCALES,
+            levels=[lv[f] for lv in levels], frame_hw=(H, W))
+            for f in range(3)]
+        whole = torch.cat(one, dim=1)
+        assert t_roi.launches_scales == before[1] + 4
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got, mirror) and torch.equal(got, whole)
+
+
+@pytest.mark.parametrize("n,batch", [(128, 8), (160, 3), (5, 3), (161, 3),
+                                     (7, 1)])
+def test_auction_kernel_over_a_batch(cuda, n, batch):
+    """[S, n, n] in one launch, one CTA a problem: each problem's col_of
+    and iters equal the plain version's and a single launch's (odd n: the
+    per-problem scalar staging; n = 128 the bulk copy)."""
+    rng = np.random.default_rng(n + batch)
+    cost = torch.as_tensor(rng.uniform(0, 1, (batch, n, n)).astype(
+        np.float32), device=cuda)
+    feas = torch.as_tensor(rng.random((batch, n, n)) < 0.8, device=cuda)
+    b = t_assign.build_benefits(cost, feas, t_assign.DEFAULT_EPS)
+    before = t_auction.launches
+    col, it = t_auction.auction_solve(b, t_assign.DEFAULT_EPS, 2000)
+    assert t_auction.launches == before + 1
+    assert col.shape == (batch, n) and it.shape == (batch,)
+    want_col, want_it = t_auction.auction_solve_ref(b, t_assign.DEFAULT_EPS,
+                                                    2000)
+    assert torch.equal(col, want_col) and torch.equal(it, want_it)
+    for p in range(batch):
+        c1, i1 = t_auction.auction_solve(b[p].contiguous(),
+                                         t_assign.DEFAULT_EPS, 2000)
+        assert torch.equal(col[p], c1) and int(it[p]) == int(i1)
+
+
+@pytest.mark.parametrize("mode", ["default", "HF", "AW"])
+def test_multi_stream_step_on_card_equals_single_steps(cuda, mode):
+    """Three streams stepped together on the card against each stream
+    stepped alone on the card: ids, valid, state and matches equal, boxes
+    within 1e-4 px (cuFFT may pick another algorithm for another batch)."""
+    h, w, n_str, n = 240, 320, 3, 6
+    cls = mode == "AW"
+    frames, d, v = [], [], []
+    for s in range(n_str):
+        rng = np.random.default_rng(20 + s)
+        objs = synthetic.make_objects(8, h, w, rng, max_speed=2.0,
+                                      n_classes=3 if cls else 1)
+        fr, boxes, vis = synthetic.render_sequence(objs, n, h, w, seed=s)
+        kw = dict(classes=np.array([o.cls for o in objs])) if cls else {}
+        dl = synthetic.detections_from_gt(boxes, vis, seed=s,
+                                          frame_hw=(h, w), **kw)
+        dd = np.zeros((n, 16, 6 if cls else 5), np.float32)
+        vv = np.zeros((n, 16), bool)
+        for f in range(n):
+            dd[f], vv[f] = t_api.pad_detections(dl[f], 16,
+                                                width=6 if cls else 5)
+        frames.append((fr * 255).astype(np.uint8))
+        d.append(dd)
+        v.append(vv)
+    frames, d, v = (torch.as_tensor(np.stack(x), device=cuda)
+                    for x in (frames, d, v))
+    cfg = TrackerConfig(max_tracks=32, max_detections=16, frame_height=h,
+                        frame_width=w)
+    if mode == "HF":
+        cfg = cfg.replace(kcf=KCFConfig(feature_type="hog", cell_size=4,
+                                        scale_step=1.05),
+                          kcf_impl="pallas", train_site="refined")
+    elif mode == "AW":
+        cfg = cfg.replace(class_aware=True, appearance_weight=0.3,
+                          auction_warm_start=True)
+    banks = t_serve.make_stream_banks(n_str, cfg, device=cuda)
+    singles = [t_bank.empty_bank(cfg, device=cuda) for _ in range(n_str)]
+    for f in range(n):
+        before = t_roi.launches
+        banks, out = t_serve.multi_stream_step(banks, frames[:, f], d[:, f],
+                                               v[:, f], cfg)
+        assert t_roi.launches == before + 1     # K1 once for all streams
+        for s in range(n_str):
+            singles[s], o = t_step.step(singles[s], frames[s, f], d[s, f],
+                                        v[s, f], cfg)
+            for name in ("ids", "valid", "matched_det", "assign_iters"):
+                assert torch.equal(getattr(out, name)[s], getattr(o, name))
+            assert (out.boxes[s] - o.boxes).abs().max().item() <= 1e-4

@@ -403,7 +403,9 @@ def test_port_imports_without_jax():
     assert {"tpu_mot_torch.tracker.kcf_bank", "tpu_mot_torch.tracker.scan",
             "tpu_mot_torch.ops.assignment", "tpu_mot_torch.interop",
             "tpu_mot_torch.models.yolo", "tpu_mot_torch.models.detector",
-            "tpu_mot_torch.ops.nms"} <= set(mods)
+            "tpu_mot_torch.ops.nms", "tpu_mot_torch.parallel.serve",
+            "tpu_mot_torch.utils.supervisor",
+            "tpu_mot_torch.utils.profiling"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None

@@ -298,3 +298,96 @@ def test_four_tap_mirror_k1_shapes_match_extract_patches_ref(pyramid, s,
     if case == "bank3":           # the three scales differ
         t = boxes.shape[0] // 3
         assert not torch.equal(got[:t], got[t:2 * t])
+
+
+# ---- serving: S frames stacked, stream-major rows --------------------------
+
+def test_build_pyramid_mixed_unit_and_byte_frames():
+    """A float batch of one [0, 1] frame and one [0, 255] frame: each
+    frame picks its own domain (the JAX pyramid under vmap), so each
+    stacked level equals the frame's own pyramid and JAX's; u8 stacks
+    likewise."""
+    rng = np.random.default_rng(3)
+    h, w = 121, 203
+    u8 = rng.integers(0, 256, (2, h, w), dtype=np.uint8)
+    mixed = np.stack([u8[0].astype(np.float32) / 255.0,
+                      u8[1].astype(np.float32)])
+    for frames in (mixed, u8):
+        got = t_roi.build_pyramid(_t(frames))
+        assert t_roi.n_frames(got) == 2
+        for s in range(2):
+            one = t_roi.build_pyramid(_t(frames[s]))
+            want = j_roi.build_pyramid(
+                jnp.asarray(frames[s]),
+                dtype=None if frames.dtype == np.uint8 else jnp.float32)
+            for lv in range(t_roi.N_LEVELS):
+                assert torch.equal(got[lv][s], one[lv])
+                g = got[lv][s].numpy()
+                wj = np.asarray(want[lv])[:g.shape[0], :g.shape[1]]
+                np.testing.assert_allclose(g, wj, rtol=0, atol=1e-6)
+    # both float frames end in [0, 1]: the byte frame was scaled
+    top = t_roi.build_pyramid(_t(mixed))[0].amax(dim=(1, 2))
+    assert (top <= 1.0).all() and (top > 0.9).all()
+
+
+@pytest.mark.parametrize("pyramid", ["u8", "f32"])
+def test_stacked_plain_versions_equal_single_frames(pyramid):
+    """Three frames [3, H, W] and 3 x 16 stream-major boxes: K1's and K3's
+    plain versions, the 4-tap mirror and the CPU wrappers equal the calls
+    on each frame alone, bit for bit."""
+    frames = np.stack([_frame_u8(s) for s in (11, 12, 13)])
+    if pyramid == "f32":
+        frames = frames.astype(np.float32) / 255.0
+    levels = t_roi.build_pyramid(_t(frames))
+    boxes = _t(np.concatenate([BOXES, BOXES[::-1], BOXES[::2].repeat(2, 0)]))
+    hw = (H, W)
+    c1 = t_roi.sample_coords(boxes, 2.5, 48, hw)
+    c3 = t_roi.sample_coords_scales(boxes, 2.5, 48, SCALES, hw)
+    got = {"k1": t_roi._resample_ref(levels, hw, *c1),
+           "k3": t_roi._resample_scales_ref(levels, hw, *c3),
+           "mirror": t_roi.four_tap_mirror(levels, hw, *c3),
+           "wrapper": t_roi.extract_patches(None, boxes, 2.5, 48,
+                                            levels=levels, frame_hw=hw),
+           "no pyramid": t_roi.extract_patches_scales_ref(
+               _t(frames), boxes, 2.5, 48, SCALES)}
+    assert got["no pyramid"].shape == (3, 48, 48, 48)
+    for s in range(3):
+        rows = slice(16 * s, 16 * (s + 1))
+        one = [lv[s] for lv in levels]
+        o1 = t_roi.sample_coords(boxes[rows], 2.5, 48, hw)
+        o3 = t_roi.sample_coords_scales(boxes[rows], 2.5, 48, SCALES, hw)
+        assert torch.equal(got["k1"][rows], t_roi._resample_ref(one, hw, *o1))
+        assert torch.equal(got["k3"][:, rows],
+                           t_roi._resample_scales_ref(one, hw, *o3))
+        assert torch.equal(got["mirror"][:, rows],
+                           t_roi.four_tap_mirror(one, hw, *o3))
+        assert torch.equal(got["wrapper"][rows], t_roi.extract_patches(
+            None, boxes[rows], 2.5, 48, levels=one, frame_hw=hw))
+        assert torch.equal(got["no pyramid"][:, rows],
+                           t_roi.extract_patches_scales_ref(
+                               _t(frames[s]), boxes[rows], 2.5, 48, SCALES))
+    assert (got["mirror"] - got["k3"]).abs().max().item() <= 1e-5
+    with pytest.raises(ValueError, match="not a multiple"):
+        t_roi._resample_ref(levels, hw, *t_roi.sample_coords(
+            boxes[:47], 2.5, 48, hw))
+
+
+def test_gather_path_with_frame_index():
+    """The gather path (roi_impl="xla") reads each box's own frame."""
+    from tpu_mot_torch.ops import patch as t_patch
+
+    rng = np.random.default_rng(5)
+    frames = rng.random((3, 96, 128)).astype(np.float32)
+    boxes = np.stack([rng.uniform(0, 128, 12), rng.uniform(0, 96, 12),
+                      rng.uniform(4, 40, 12), rng.uniform(4, 40, 12)],
+                     axis=1).astype(np.float32)
+    frame = torch.arange(3).repeat_interleave(4)
+    got = t_patch.extract_patches(_t(frames), _t(boxes), 2.5, 32,
+                                  frame=frame)
+    for s in range(3):
+        rows = slice(4 * s, 4 * (s + 1))
+        assert torch.equal(got[rows], t_patch.extract_patches(
+            _t(frames[s]), _t(boxes[rows]), 2.5, 32))
+    gray = t_patch.to_gray(_t(rng.random((2, 8, 10, 3)).astype(np.float32)),
+                           batched=True)
+    assert gray.shape == (2, 8, 10)

@@ -12,6 +12,11 @@
 // rows per round.  A multi-CTA or host-driven loop would pay a grid-wide
 // sync or a launch per round instead.
 //
+// Serving solves a batch of S problems [S, n, n] in one launch, one CTA per
+// problem (each reads its own matrix and writes its own col_of and iters):
+// S problems fill S SMs at the latency of one, and each is bit-equal to the
+// single solve.
+//
 // Design: one CTA of 1024 threads.  The matrix comes into dynamic shared
 // memory (above the 48 KB default, hence the opt-in attribute) by one bulk
 // asynchronous copy that completes on an mbarrier while the threads
@@ -98,10 +103,14 @@ __device__ inline void scan_step(float v, int j, float& m1, int& c,
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-auction_kernel(const float* __restrict__ b_g, int* __restrict__ col_out,
-               int* __restrict__ iters_out, int n, float eps, int max_iters,
-               int bulk) {
+auction_kernel(const float* __restrict__ b_batch, int* __restrict__ col_batch,
+               int* __restrict__ iters_batch, int n, float eps,
+               int max_iters, int bulk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  // This CTA's problem.
+  const float* __restrict__ b_g = b_batch + (size_t)blockIdx.x * n * n;
+  int* __restrict__ col_out = col_batch + (size_t)blockIdx.x * n;
+  int* __restrict__ iters_out = iters_batch + blockIdx.x;
   const int ld = row_stride(n);
   float* b = reinterpret_cast<float*>(smem_raw);
   float* prices = b + (size_t)n * ld;
@@ -286,16 +295,24 @@ extern "C" int tpu_mot_auction_info(int n, int* info) {
   return (int)err;
 }
 
-// b: [n, n] float32 benefits (device); col_out: [n] int32; iters_out: []
-// int32.  Launches on `stream` and returns cudaGetLastError().
+// b: [batch, n, n] float32 benefits (device); col_out: [batch, n] int32;
+// iters_out: [batch] int32.  One CTA per problem.  Launches on `stream`
+// and returns cudaGetLastError().
 extern "C" int tpu_mot_auction_solve(const void* b, void* col_out,
-                                     void* iters_out, int n, float eps,
-                                     int max_iters, void* stream) {
+                                     void* iters_out, int n, int batch,
+                                     float eps, int max_iters,
+                                     void* stream) {
+  if (batch < 1 || n < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(n);
   const int rc = prepare(smem);
   if (rc != 0) return rc;
+  // The bulk copy needs every problem's matrix 16-byte aligned.  It takes
+  // n % 4 == 0, so a matrix is n * n * 4 bytes, a multiple of 64, and every
+  // problem's base is aligned exactly when the first one's is; any other n
+  // stages by scalar loads.
   const int bulk = bulk_path(n) && reinterpret_cast<uintptr_t>(b) % 16 == 0;
-  auction_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  auction_kernel<<<batch, kThreads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(b), static_cast<int*>(col_out),
       static_cast<int*>(iters_out), n, eps, max_iters, bulk);
   return (int)cudaGetLastError();

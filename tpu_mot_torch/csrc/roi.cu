@@ -25,6 +25,11 @@
 // (~1.9 us at 3.35 TB/s); the pixels it reads are the same ~2 M per scale
 // as K1's, three overlapping windows of one block.
 //
+// Serving: the levels of S frames are stacked [S, h_L, w_L] and the rows of
+// the track axis are stream-major, so a row's frame is t / rows_per_frame
+// and its level pointer moves by frame * h_L * w_L; S = 1 passes the rows
+// themselves and is the single-frame launch.
+//
 // Both kernels are one function, `resample_tile`: K1 is its K = 1 case with
 // its own rows per thread, under its own kernel name so that a profile
 // tells the two apart.  The level, block origin and sample coordinates come
@@ -115,7 +120,8 @@ __device__ __forceinline__ A pick(const A (&a)[4], int L) {
 
 // The resample of one tile, shared by K1 and K3.  The grid runs over T
 // tracks x K scales x row tiles, scale and tile fastest; the K resamples of
-// a track share its level and block origin.  ys, xs [K, T, S], out
+// a track share its level and block origin, and track t reads frame
+// t / rows_per_frame of the stacked levels.  ys, xs [K, T, S], out
 // [K, T, S, S]; K1 is the K = 1 case.  A thread owns columns 4 cq ..
 // 4 cq + 3 of kRows output rows, a CTA's pass apart, so that each pass of
 // the CTA writes whole rows.  kS is S where it is compiled in (64), 0 where
@@ -152,8 +158,8 @@ __device__ __forceinline__ void resample_tile(
     const Levels<T>& lv, const int* __restrict__ lvl,
     const int* __restrict__ r0g, const int* __restrict__ c0g,
     const float* __restrict__ ys, const float* __restrict__ xs,
-    float* __restrict__ out, int T_, int K, int S_rt, int blk_rows,
-    int blk_cols, float scale, bool vec) {
+    float* __restrict__ out, int T_, int rows_per_frame, int K, int S_rt,
+    int blk_rows, int blk_cols, float scale, bool vec) {
   const int S = kS ? kS : S_rt;
   const int qpr = quads_per_row(S);
   const int rows = rows_per_pass(S);
@@ -164,8 +170,9 @@ __device__ __forceinline__ void resample_tile(
   const int k = tk - t * K;
   const size_t row = (size_t)k * T_ + t;
   const int L = lvl[t];
-  const T* img = pick(lv.p, L);
   const int lw = pick(lv.w, L);
+  const T* img = pick(lv.p, L) +
+                 (size_t)(t / rows_per_frame) * pick(lv.h, L) * lw;
   // The tile's taps, each formed once: n_row row taps (1/255 folded in),
   // then the column taps as [j][cq].
   extern __shared__ float4 tap_smem[];
@@ -242,28 +249,40 @@ __device__ __forceinline__ void resample_tile(
   }
 }
 
+// Three CTAs per SM: K3 at the bench shape (384 CTAs) is one wave at 3.
+// With the frame offset of a stacked pyramid ptxas chose 100 registers
+// and 2 CTAs per SM unbounded (K3 at 128 x 3 6.5 us, K1 at 384 rows 6.8 us,
+// against 5.4 and 5.4 before it); bounded, it takes 80 registers with a
+// few spilled bytes (20 in K1 u8 S = 64): K3 5.4-5.5 us, K1 at 384 rows
+// 5.8 us (an H100 at 700 W, `python -m tpu_mot_torch.tools.kernel_cost`,
+// parent and change in turns).
+constexpr int kMinCtas = 3;
+
 // K1: one resample per track; ys, xs [T, S] read as [1, T, S].
 template <typename T, int kS, int kRows>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinCtas)
 roi_kernel(Levels<T> lv, const int* __restrict__ lvl,
            const int* __restrict__ r0g, const int* __restrict__ c0g,
            const float* __restrict__ ys, const float* __restrict__ xs,
-           float* __restrict__ out, int T_, int S_rt, int blk_rows,
-           int blk_cols, float scale, bool vec) {
-  resample_tile<T, kS, kRows>(lv, lvl, r0g, c0g, ys, xs, out, T_, 1, S_rt,
-                              blk_rows, blk_cols, scale, vec);
+           float* __restrict__ out, int T_, int rows_per_frame, int S_rt,
+           int blk_rows, int blk_cols, float scale, bool vec) {
+  resample_tile<T, kS, kRows>(lv, lvl, r0g, c0g, ys, xs, out, T_,
+                              rows_per_frame, 1, S_rt, blk_rows, blk_cols,
+                              scale, vec);
 }
 
 // K3: K resamples per track.
 template <typename T, int kS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinCtas)
 roi_scales_kernel(Levels<T> lv, const int* __restrict__ lvl,
                   const int* __restrict__ r0g, const int* __restrict__ c0g,
                   const float* __restrict__ ys, const float* __restrict__ xs,
-                  float* __restrict__ out, int T_, int K, int S_rt,
-                  int blk_rows, int blk_cols, float scale, bool vec) {
-  resample_tile<T, kS, kScalesRows>(lv, lvl, r0g, c0g, ys, xs, out, T_, K,
-                                    S_rt, blk_rows, blk_cols, scale, vec);
+                  float* __restrict__ out, int T_, int rows_per_frame,
+                  int K, int S_rt, int blk_rows, int blk_cols, float scale,
+                  bool vec) {
+  resample_tile<T, kS, kScalesRows>(lv, lvl, r0g, c0g, ys, xs, out, T_,
+                                    rows_per_frame, K, S_rt, blk_rows,
+                                    blk_cols, scale, vec);
 }
 
 bool aligned16(const void* p) {
@@ -282,7 +301,7 @@ struct Call {
   const float* ys;
   const float* xs;
   float* out;
-  int T, K, S, blk_rows, blk_cols;
+  int T, rows_per_frame, K, S, blk_rows, blk_cols;
   float scale;
   cudaStream_t stream;
 };
@@ -322,7 +341,9 @@ const void* roi_scales_kernel_of(int S) {
 // K1 where rows > 0 (a thread owns that many rows: 4, 2 or 1), else K3.
 template <typename T>
 int launch(const Call& c, int rows) {
-  if (c.S < 1 || c.S > kMaxS) return (int)cudaErrorInvalidValue;
+  if (c.S < 1 || c.S > kMaxS || c.rows_per_frame < 1 ||
+      c.T % c.rows_per_frame != 0)
+    return (int)cudaErrorInvalidValue;
   const void* kernel =
       rows ? roi_kernel_of<T>(c.S, rows) : roi_scales_kernel_of<T>(c.S);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
@@ -333,12 +354,13 @@ int launch(const Call& c, int rows) {
   const int grid = c.T * c.K * row_tiles(c.S, per_thread);
   const size_t smem = tap_smem_bytes(c.S, per_thread);
   // The two kernels' parameters differ in K alone.
-  void* k1_args[] = {&lv,   &a.lvl, &a.r0, &a.c0,       &a.ys,
-                     &a.xs, &a.out, &a.T,  &a.S,        &a.blk_rows,
-                     &a.blk_cols,   &a.scale,           &vec};
-  void* k3_args[] = {&lv,   &a.lvl, &a.r0, &a.c0,       &a.ys,
-                     &a.xs, &a.out, &a.T,  &a.K,        &a.S,
-                     &a.blk_rows,   &a.blk_cols,        &a.scale, &vec};
+  void* k1_args[] = {&lv,   &a.lvl, &a.r0,  &a.c0,          &a.ys,
+                     &a.xs, &a.out, &a.T,   &a.rows_per_frame, &a.S,
+                     &a.blk_rows,   &a.blk_cols, &a.scale,    &vec};
+  void* k3_args[] = {&lv,   &a.lvl, &a.r0,  &a.c0,          &a.ys,
+                     &a.xs, &a.out, &a.T,   &a.rows_per_frame, &a.K,
+                     &a.S,  &a.blk_rows,    &a.blk_cols,      &a.scale,
+                     &vec};
   cudaLaunchKernel(kernel, dim3(grid), dim3(kThreads),
                    rows ? k1_args : k3_args, smem, c.stream);
   return (int)cudaGetLastError();
@@ -390,31 +412,35 @@ int kernel_info(const void* kernel, int S, int rows, int* info) {
     is_u8, {l0, l1, l2, l3}, {h0, h1, h2, h3}, {w0, w1, w2, w3},           \
         static_cast<const int*>(lvl), static_cast<const int*>(r0),         \
         static_cast<const int*>(c0), static_cast<const float*>(ys),        \
-        static_cast<const float*>(xs), static_cast<float*>(out), T_, K_,   \
-        S_, blk_rows, blk_cols, scale, static_cast<cudaStream_t>(stream)   \
+        static_cast<const float*>(xs), static_cast<float*>(out), T_,       \
+        rows_per_frame, K_, S_, blk_rows, blk_cols, scale,                 \
+        static_cast<cudaStream_t>(stream)                                  \
   }
 
-// K1.  levels l0..l3: contiguous [h_k, w_k] uint8 (is_u8) or float32
-// images; lvl, r0, c0: [T] int32; ys, xs: [T, S] float32 level coordinates;
-// out: [T, S, S] float32.  Launches on `stream`, returns cudaGetLastError().
-extern "C" int tpu_mot_roi_extract(ROI_LEVEL_PARAMS, int T, int S,
-                                   int blk_rows, int blk_cols, float scale,
-                                   void* stream) {
+// K1.  levels l0..l3: contiguous [T / rows_per_frame, h_k, w_k] uint8
+// (is_u8) or float32 images; lvl, r0, c0: [T] int32; ys, xs: [T, S] float32
+// level coordinates, row t in frame t / rows_per_frame; out: [T, S, S]
+// float32.  Launches on `stream`, returns cudaGetLastError().
+extern "C" int tpu_mot_roi_extract(ROI_LEVEL_PARAMS, int T,
+                                   int rows_per_frame, int S, int blk_rows,
+                                   int blk_cols, float scale, void* stream) {
   return dispatch(ROI_CALL(T, 1, S), kRoiRows);
 }
 
 // K1 with a thread owning `rows` output rows (4, 2 or 1), for measuring
 // the choice of kRoiRows.
-extern "C" int tpu_mot_roi_extract_rows(ROI_LEVEL_PARAMS, int T, int S,
-                                        int rows, int blk_rows, int blk_cols,
+extern "C" int tpu_mot_roi_extract_rows(ROI_LEVEL_PARAMS, int T,
+                                        int rows_per_frame, int S, int rows,
+                                        int blk_rows, int blk_cols,
                                         float scale, void* stream) {
   if (rows != 4 && rows != 2 && rows != 1) return (int)cudaErrorInvalidValue;
   return dispatch(ROI_CALL(T, 1, S), rows);
 }
 
 // K3.  As K1 with K >= 1 scales: ys, xs [K, T, S]; out [K, T, S, S].
-extern "C" int tpu_mot_roi_extract_scales(ROI_LEVEL_PARAMS, int T, int K,
-                                          int S, int blk_rows, int blk_cols,
+extern "C" int tpu_mot_roi_extract_scales(ROI_LEVEL_PARAMS, int T,
+                                          int rows_per_frame, int K, int S,
+                                          int blk_rows, int blk_cols,
                                           float scale, void* stream) {
   return dispatch(ROI_CALL(T, K, S), 0);
 }

@@ -52,7 +52,9 @@ def _model_to_numpy(model: KCFModel) -> dict:
 
 
 def bank_from_jax(jbank, device=None) -> TrackBank:
-    """A tpu_mot TrackBank (JAX or NumPy leaves) -> the port's TrackBank."""
+    """A tpu_mot TrackBank (JAX or NumPy leaves) -> the port's TrackBank;
+    a stacked stream bank (tpu_mot.parallel.serve.make_stream_banks, every
+    leaf with a leading [S]) gives the port's stacked bank."""
     fields = {}
     for name in _FIELDS:
         if name == "kcf":
@@ -64,9 +66,10 @@ def bank_from_jax(jbank, device=None) -> TrackBank:
 
 
 def bank_to_numpy(bank: TrackBank) -> dict:
-    """The port's TrackBank -> {field: NumPy array} with the JAX field
-    names; "kcf" maps to {"xf": (re, im), "alphaf": (re, im)}, ready to
-    wrap in tpu_mot's CF / KCFModel / TrackBank."""
+    """The port's TrackBank (or stacked stream bank) -> {field: NumPy
+    array} with the JAX field names; "kcf" maps to {"xf": (re, im),
+    "alphaf": (re, im)}, ready to wrap in tpu_mot's CF / KCFModel /
+    TrackBank."""
     out = {}
     for name in _FIELDS:
         v = getattr(bank, name)

@@ -34,18 +34,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry point -> argument types (every pointer and the stream as void*).
 SIGNATURES = {
-    "tpu_mot_auction_solve": (_P, _P, _P, _I, _F, _I, _P),
+    "tpu_mot_auction_solve": (_P, _P, _P, _I, _I, _F, _I, _P),
     "tpu_mot_auction_max_n": (),
     "tpu_mot_auction_info": (_I, _P),
     "tpu_mot_roi_extract": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                            _P),
+                            _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _F, _P),
     "tpu_mot_roi_extract_rows": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
-                                 _I, _I, _I, _I, _F, _P),
+                                 _I, _I, _I, _I, _I, _F, _P),
     "tpu_mot_roi_extract_scales": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
-                                   _I, _I, _I, _I, _F, _P),
+                                   _I, _I, _I, _I, _I, _F, _P),
     "tpu_mot_roi_max_s": (),
     "tpu_mot_roi_info": (_I, _I, _P),
     "tpu_mot_roi_scales_info": (_I, _I, _P),

@@ -21,6 +21,11 @@ and any other S up to `max_scales_s()` read at run time (`SCALES_PATHS`);
 K1 is its K = 1 case, under its own kernel name and with its own number of
 rows per thread, and equals the mirror bit for bit on the card as K3 does.
 
+Serving stacks the frames of S streams: `build_pyramid` of [S, H, W] gives
+levels [S, H_l, W_l], and rows of the track axis are stream-major (row r
+samples frame r // (rows / S)), so the kernels take the frame of a row
+from one int, the rows per frame, and S = 1 is the single-frame launch.
+
 u8 frames keep a u8 pyramid with the 1/255 dequantization folded into the
 resample weights, as in JAX.  Float frames get a float32 pyramid (the JAX
 default, bf16, is a TPU DMA-budget choice).  The port's levels are not
@@ -85,28 +90,31 @@ def _level_tables(h: int, w: int, device: str):
 
 
 def _pool2x2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 average pool with stride 2 and zero padding at the high end of
-    an odd extent — XLA's reduce_window "SAME", so an edge pixel averages
-    with zeros (unlike avg_pool2d's default)."""
-    h, w = x.shape
+    """2x2 average pool with stride 2 over the last two axes and zero
+    padding at the high end of an odd extent — XLA's reduce_window "SAME",
+    so an edge pixel averages with zeros (unlike avg_pool2d's default)."""
+    h, w = x.shape[-2:]
     x = F.pad(x, (0, w % 2, 0, h % 2))
-    return x.reshape(x.shape[0] // 2, 2, x.shape[1] // 2, 2).sum(
-        dim=(1, 3)) * 0.25
+    return x.reshape(x.shape[:-2] + (x.shape[-2] // 2, 2,
+                                     x.shape[-1] // 2, 2)).sum(
+        dim=(-3, -1)) * 0.25
 
 
 def build_pyramid(gray: torch.Tensor) -> list[torch.Tensor]:
-    """[H, W] uint8 or float frame -> N_LEVELS unpadded level images; level
-    k is a 2^k x 2^k average pool.
+    """[H, W] (or S frames [S, H, W]) uint8 or float -> N_LEVELS unpadded
+    level images [H_l, W_l] ([S, H_l, W_l]); level k is a 2^k x 2^k average
+    pool.
 
     A uint8 frame gives uint8 levels that hold 0..255 and round each pool
     back to u8 (`clip(pooled + 0.5)`).  A float frame gives float32 levels
     in [0, 1]; it may come in unit [0, 1] or byte [0, 255] domain: a
-    max <= 1.5 selects unit (a traced select, no host sync).
+    max <= 1.5 selects unit (a traced select, no host sync), frame by
+    frame, as the JAX pyramid under vmap.
     """
     u8 = gray.dtype == torch.uint8
     if not u8:
         gray = gray.to(torch.float32)
-        unit = gray.amax() <= 1.5
+        unit = gray.amax(dim=(-2, -1), keepdim=True) <= 1.5
         gray = gray * torch.where(unit, 1.0, 1.0 / 255.0)
     levels = []
     cur = gray
@@ -215,29 +223,56 @@ def sample_coords_scales(boxes: torch.Tensor, padding: float, size: int,
 
 def _pyramid(gray, levels, frame_hw):
     if levels is None:
-        return build_pyramid(gray), tuple(gray.shape)
+        return build_pyramid(gray), tuple(gray.shape[-2:])
     if frame_hw is None:
         raise ValueError("frame_hw is required with a prebuilt pyramid")
     return levels, tuple(frame_hw)
 
 
+def n_frames(levels) -> int:
+    """Frames a pyramid holds: 1 for [H_l, W_l] levels, S for
+    [S, H_l, W_l]."""
+    return 1 if levels[0].ndim == 2 else levels[0].shape[0]
+
+
+def rows_per_frame(levels, rows: int) -> int:
+    """Rows of the track axis per frame of the pyramid: the rows are
+    stream-major, row r samples frame r // rows_per_frame."""
+    n = n_frames(levels)
+    if rows % n:
+        raise ValueError(f"{rows} rows are not a multiple of the pyramid's "
+                         f"{n} frames")
+    return rows // n
+
+
+def _row_frames(levels, rows: int, device) -> torch.Tensor | None:
+    """Frame index of each row [rows] for a stacked pyramid, else None."""
+    if levels[0].ndim == 2:
+        return None
+    return torch.div(torch.arange(rows, device=device),
+                     rows_per_frame(levels, rows), rounding_mode="floor")
+
+
 def _gather_blocks(levels, frame_hw, lvl, r0, c0) -> torch.Tensor:
-    """Each track's 144 x 256 block of its (zero-padded) level, float32
-    [T, BLK_ROWS, BLK_COLS]."""
+    """Each track's 144 x 256 block of its (zero-padded) level of its own
+    frame, float32 [T, BLK_ROWS, BLK_COLS]."""
     dev = lvl.device
     shapes = _level_shapes(*frame_hw)
     rows = r0.long()[:, None] + torch.arange(BLK_ROWS, device=dev)
     cols = c0.long()[:, None] + torch.arange(BLK_COLS, device=dev)
     t = lvl.shape[0]
+    frame = _row_frames(levels, t, dev)
     blk = torch.zeros((t, BLK_ROWS, BLK_COLS), dtype=torch.float32,
                       device=dev)
     for lv, level in enumerate(levels):
         ph, pw = shapes[lv]
-        padded = F.pad(level, (0, pw - level.shape[1],
-                               0, ph - level.shape[0]))
+        padded = F.pad(level, (0, pw - level.shape[-1],
+                               0, ph - level.shape[-2]))
         # Other tracks' origins may lie past this level: clamp, discard.
-        g = padded[rows.clamp_max(ph - 1)[:, :, None],
-                   cols.clamp_max(pw - 1)[:, None, :]]
+        idx = (rows.clamp_max(ph - 1)[:, :, None],
+               cols.clamp_max(pw - 1)[:, None, :])
+        g = padded[idx] if frame is None else padded[
+            (frame[:, None, None],) + idx]
         blk = torch.where((lvl == lv)[:, None, None],
                           g.to(torch.float32), blk)
     return blk
@@ -285,7 +320,8 @@ def four_tap_mirror(levels, frame_hw, lvl, r0, c0, ys, xs) -> torch.Tensor:
     extent gets weight 0 and its read is clamped into the level; u8
     pyramids fold 1/255 into the row weights.  An output is
     (rw0 p00 + rw1 p10) cw0 + (rw0 p01 + rw1 p11) cw1, each product and sum
-    rounded to float32 as the kernels round them."""
+    rounded to float32 as the kernels round them.  A stacked pyramid
+    [S, H_l, W_l] is read at each row's frame, as the kernels read it."""
     ext = torch.tensor(level_extents(*frame_hw), dtype=torch.int64,
                        device=ys.device)
     li = lvl.long()
@@ -310,10 +346,16 @@ def four_tap_mirror(levels, frame_hw, lvl, r0, c0, ys, xs) -> torch.Tensor:
     if levels[0].dtype == torch.uint8:
         rw0 = rw0 * (1.0 / 255.0)
         rw1 = rw1 * (1.0 / 255.0)
-    # All levels as one flat image; a track reads at its level's offset.
+    # All levels as one flat image; a track reads at its level's offset,
+    # plus its frame's within a stacked level.
     flat = torch.cat([lv.reshape(-1).to(torch.float32) for lv in levels])
-    sizes = ext[:, 0] * ext[:, 1]
-    offset = (torch.cumsum(sizes, 0) - sizes)[li][None, :, None, None]
+    plane = ext[:, 0] * ext[:, 1]
+    sizes = plane * n_frames(levels)
+    offset = (torch.cumsum(sizes, 0) - sizes)[li]
+    frame = _row_frames(levels, lvl.shape[0], ys.device)
+    if frame is not None:
+        offset = offset + frame * plane[li]
+    offset = offset[None, :, None, None]
     stride = lw[None, :, None, None]
 
     def pixel(rows, cols):
@@ -355,9 +397,10 @@ def scales_launch_info(u8: bool, s: int) -> dict:
 
 
 def _launch(what, entry, levels, frame_hw, lvl, r0, c0, ys, xs, out,
-            *dims) -> None:
+            rows, *dims) -> None:
     """Check what the kernels take and launch `entry` on the current
-    stream; raises on anything else (no fallback)."""
+    stream over `rows` rows of the track axis; raises on anything else (no
+    fallback)."""
     dev = ys.device
     dtype = levels[0].dtype
     if dtype not in (torch.uint8, torch.float32):
@@ -366,14 +409,19 @@ def _launch(what, entry, levels, frame_hw, lvl, r0, c0, ys, xs, out,
     ext = level_extents(*frame_hw)
     if len(levels) != N_LEVELS:
         raise ValueError(f"{what}: need {N_LEVELS} levels")
+    lead = tuple(levels[0].shape[:-2])
+    if len(lead) > 1 or lead == (0,):
+        raise ValueError(f"{what}: levels must be [H_l, W_l] or "
+                         f"[S, H_l, W_l], got {tuple(levels[0].shape)}")
     for lv, level in enumerate(levels):
         if (level.device != dev or level.dtype != dtype
-                or tuple(level.shape) != ext[lv]
+                or tuple(level.shape) != lead + ext[lv]
                 or not level.is_contiguous()):
             raise ValueError(
                 f"{what}: level {lv} must be a contiguous {dtype} "
-                f"{ext[lv]} tensor on {dev}, got {level.dtype} "
+                f"{lead + ext[lv]} tensor on {dev}, got {level.dtype} "
                 f"{tuple(level.shape)} on {level.device}")
+    per_frame = rows_per_frame(levels, rows)
     ints = [x.to(torch.int32).contiguous() for x in (lvl, r0, c0)]
     ys = ys.to(torch.float32).contiguous()
     xs = xs.to(torch.float32).contiguous()
@@ -384,7 +432,8 @@ def _launch(what, entry, levels, frame_hw, lvl, r0, c0, ys, xs, out,
         rc = fn(int(dtype == torch.uint8), *[lv.data_ptr() for lv in levels],
                 *[e[0] for e in ext], *[e[1] for e in ext],
                 *[x.data_ptr() for x in ints], ys.data_ptr(), xs.data_ptr(),
-                out.data_ptr(), *dims, BLK_ROWS, BLK_COLS, scale, stream)
+                out.data_ptr(), rows, per_frame, *dims, BLK_ROWS, BLK_COLS,
+                scale, stream)
     _build.check(rc, what)
 
 
@@ -396,9 +445,10 @@ def _check_size(what: str, s: int) -> None:
 
 def _resample_cuda(levels, frame_hw, lvl, r0, c0, ys, xs,
                    rows_per_thread: int | None = None) -> torch.Tensor:
-    """K1 on the card: [T, S] coordinates -> [T, S, S].  `rows_per_thread`
-    (4, 2 or 1) launches that variant of the kernel instead of the one the
-    library keeps (tools/kernel_cost.py measures the choice)."""
+    """K1 on the card: [T, S] coordinates -> [T, S, S], row t sampling its
+    frame of a stacked pyramid.  `rows_per_thread` (4, 2 or 1) launches
+    that variant of the kernel instead of the one the library keeps
+    (tools/kernel_cost.py measures the choice)."""
     global launches
     t, s = ys.shape
     out = torch.empty((t, s, s), dtype=torch.float32, device=ys.device)
@@ -417,7 +467,8 @@ def _resample_cuda(levels, frame_hw, lvl, r0, c0, ys, xs,
 
 def _resample_scales_cuda(levels, frame_hw, lvl, r0, c0, ys, xs
                           ) -> torch.Tensor:
-    """K3 on the card: [K, T, S] coordinates -> [K, T, S, S]."""
+    """K3 on the card: [K, T, S] coordinates -> [K, T, S, S], track t
+    sampling its frame of a stacked pyramid."""
     global launches_scales
     k, t, s = ys.shape
     out = torch.empty((k, t, s, s), dtype=torch.float32, device=ys.device)
@@ -442,7 +493,8 @@ def extract_patches(gray, boxes, padding: float, size: int, levels=None,
                     frame_hw=None, scales=None) -> torch.Tensor:
     """ROI extraction [H, W] frame + [T, 4] boxes (+ optional [T] per-track
     scales) -> [T, size, size].  Pass a prebuilt pyramid (`levels`,
-    `frame_hw`) to share it across calls.
+    `frame_hw`) to share it across calls; a pyramid of S frames (or
+    frames [S, H, W]) takes stream-major boxes, T/S a frame.
 
     K1 for CUDA tensors, the plain version for CPU tensors; raises on
     anything the kernel does not take."""
@@ -466,7 +518,8 @@ def extract_patches_scales(gray, boxes, padding: float, size: int,
                            scale_vals: tuple, levels=None, frame_hw=None
                            ) -> torch.Tensor:
     """Scale-pyramid ROI extraction, one block per track: [H, W] frame +
-    [T, 4] boxes + K scales -> [K, T, size, size] (scale-major).
+    [T, 4] boxes + K scales -> [K, T, size, size] (scale-major).  A
+    pyramid of S frames takes stream-major boxes, T/S a frame.
 
     Against K separate `extract_patches` calls it differs only in the
     level: one per track, from the largest scale's window (tracks whose

@@ -38,13 +38,16 @@ def association_cost(track_boxes: torch.Tensor, det_boxes: torch.Tensor,
                      class_gate: torch.Tensor | None = None,
                      track_boxes_alt: torch.Tensor | None = None
                      ) -> torch.Tensor:
-    """Gated cost matrix [T, D]: (1 - w)(1 - IoU) + w (1 - appearance), or
-    `infeasible` for pairs below the IoU gate or involving a dead track slot
-    / padded detection.
+    """Gated cost matrix [..., T, D]: (1 - w)(1 - IoU) + w (1 - appearance),
+    or `infeasible` for pairs below the IoU gate or involving a dead track
+    slot / padded detection.  Leading axes (serving: one per stream) run
+    through every argument: track_boxes [..., T, 4], det_boxes [..., D, 4],
+    track_valid [..., T], det_valid [..., D].
 
-    appearance      : optional [T, D] similarity, clipped to [0, 1] (the KCF
-                      response of track t's model at detection d).
-    class_gate      : optional [T, D] bool; False pairs are infeasible.
+    appearance      : optional [..., T, D] similarity, clipped to [0, 1]
+                      (the KCF response of track t's model at detection d).
+    class_gate      : optional [..., T, D] bool; False pairs are
+                      infeasible.
     track_boxes_alt : optional second box per track; each pair scores the
                       better of the two IoUs, and the gate tests that one.
     """
@@ -56,7 +59,7 @@ def association_cost(track_boxes: torch.Tensor, det_boxes: torch.Tensor,
         cost = ((1.0 - appearance_weight) * cost
                 + appearance_weight * (1.0 - appearance.clamp(0.0, 1.0)))
     feasible = ((iou >= iou_gate)
-                & track_valid[:, None] & det_valid[None, :])
+                & track_valid[..., :, None] & det_valid[..., None, :])
     if class_gate is not None:
         feasible = feasible & class_gate
     return torch.where(feasible, cost, infeasible)

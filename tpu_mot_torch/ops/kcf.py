@@ -89,7 +89,7 @@ def shift_spectrum(zf: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
     signed, which fractional shifts require; the rfft column axis is
     already non-negative.
 
-    zf [T, C, S, Sf], dy/dx [T] float.
+    zf [..., T, C, S, Sf], dy/dx [..., T] float.
     """
     s = zf.shape[-2]
     sf = zf.shape[-1]
@@ -98,10 +98,10 @@ def shift_spectrum(zf: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
         torch.float32)
     kx = torch.arange(sf, device=dev).to(torch.float32)
     theta = (2.0 * math.pi) * (
-        ky[None, :, None] * (dy[:, None, None] / s)
-        + kx[None, None, :] * (dx[:, None, None] / width))       # [T, S, Sf]
-    c = torch.cos(theta)[:, None]
-    sn = torch.sin(theta)[:, None]
+        ky[:, None] * (dy[..., None, None] / s)
+        + kx * (dx[..., None, None] / width))                    # [T, S, Sf]
+    c = torch.cos(theta).unsqueeze(-3)
+    sn = torch.sin(theta).unsqueeze(-3)
     re, im = zf.real, zf.imag
     return torch.complex(re * c - im * sn, re * sn + im * c)
 
@@ -182,11 +182,13 @@ def train_blend_auto(model: KCFModel, feat: torch.Tensor, yf: torch.Tensor,
 def peak_displacement(response: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Response peak with a parabolic sub-pixel fit per axis, clipped to
-    half a pixel: [T, S, S] -> (dy [T], dx [T], peak [T]) in template
-    pixels relative to the patch center.  The argmax takes the first
-    maximum, as jnp.argmax does."""
-    t, s, _ = response.shape
-    flat = response.reshape(t, s * s)
+    half a pixel: [..., T, S, S] -> (dy, dx, peak), each [..., T], in
+    template pixels relative to the patch center.  The argmax takes the
+    first maximum, as jnp.argmax does."""
+    lead = response.shape[:-2]
+    s = response.shape[-1]
+    flat = response.reshape(-1, s * s)
+    t = flat.shape[0]
     idx = torch.argmax(flat, dim=1)
     rows = torch.arange(t, device=response.device)
     peak = flat[rows, idx]
@@ -208,15 +210,18 @@ def peak_displacement(response: torch.Tensor
     rx = flat[rows, py * s + torch.clamp_max(px + 1, s - 1)]
     dy = py.to(torch.float32) + subpixel(py, ly, ry) - (s // 2)
     dx = px.to(torch.float32) + subpixel(px, lx, rx) - (s // 2)
-    return dy, dx, peak
+    return dy.reshape(lead), dx.reshape(lead), peak.reshape(lead)
 
 
 def psr(response: torch.Tensor, peak: torch.Tensor,
         exclude: int = 5) -> torch.Tensor:
     """Peak-to-sidelobe ratio (peak - mean_sidelobe) / std_sidelobe with an
-    exclusion window of `exclude` pixels around the peak: [T] -> [T]."""
-    t, sz, _ = response.shape
-    flat = response.reshape(t, sz * sz)
+    exclusion window of `exclude` pixels around the peak: response
+    [..., T, S, S], peak [..., T] -> [..., T]."""
+    lead = response.shape[:-2]
+    sz = response.shape[-1]
+    response = response.reshape(-1, sz, sz)
+    flat = response.reshape(-1, sz * sz)
     idx = torch.argmax(flat, dim=1)
     py = (idx // sz).to(torch.float32)
     px = (idx % sz).to(torch.float32)
@@ -229,7 +234,7 @@ def psr(response: torch.Tensor, peak: torch.Tensor,
     mean = torch.where(side, response, 0.0).sum(dim=(1, 2)) / n
     var = torch.where(side, (response - mean[:, None, None]) ** 2,
                       0.0).sum(dim=(1, 2)) / n
-    return (peak - mean) / torch.sqrt(var + 1e-8)
+    return ((peak.reshape(-1) - mean) / torch.sqrt(var + 1e-8)).reshape(lead)
 
 
 @functools.lru_cache(maxsize=None)

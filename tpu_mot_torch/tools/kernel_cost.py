@@ -230,6 +230,9 @@ def sizes_part(dev) -> None:
     if hasattr(roi, "launch_info"):
         print(f"ROI resample as the library launches it: "
               f"{roi.launch_info(True, 64)}")
+    if hasattr(roi, "scales_launch_info"):
+        print(f"3-scale ROI resample as the library launches it: "
+              f"{roi.scales_launch_info(True, 64)}")
     for t in (32, 128, 264, 396):
         model, _, feat, yf, lr = kcf_inputs(rng, t, dev)
         ms = device_ms(lambda: kcf.train_fused(model, feat, yf, 0.2, 1e-4,

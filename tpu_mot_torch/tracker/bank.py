@@ -23,7 +23,8 @@ CONFIRMED = 2
 
 
 class TrackBank(NamedTuple):
-    """Dense per-slot state; [T] leading axis everywhere."""
+    """Dense per-slot state; [T] leading axis everywhere (serving stacks S
+    banks: a leading [S] on every field, parallel/serve.py)."""
 
     kf_mean: torch.Tensor           # [T, 8] float32 cx cy w h + velocities
     kf_cov: torch.Tensor            # [T, 8, 8] float32

@@ -27,8 +27,11 @@ and no Python `if` on a tensor, so on the card it queues its kernels
 without a host sync.  The one exception is auction_warm_start: the warm
 auction is plain torch, and each test of its loops reads a tensor on the
 host, at least two syncs a frame (ops/assignment.auction_assign_warm).
-Scatters with JAX's mode="drop" write into one extra dump slot that is
-sliced off.
+Its one body, `step_streams`, runs S streams at once (serving,
+parallel/serve.py): every bank field gains a leading [S] and the
+per-track math runs on [S*T] rows; `step` is that body at S = 1.
+Scatters with JAX's mode="drop" write into one extra dump slot per stream
+that is sliced off.
 
 How the port reads the TrackerConfig impl knobs:
 
@@ -74,7 +77,8 @@ from tpu_mot_torch.tracker.bank import CONFIRMED, EMPTY, TENTATIVE, TrackBank
 
 
 class StepOutput(NamedTuple):
-    """Per-frame result, dense over slots (mask with `valid`)."""
+    """Per-frame result, dense over slots (mask with `valid`); from
+    `step_streams` every field has a leading [S]."""
     ids: torch.Tensor            # [T] int32
     boxes: torch.Tensor          # [T, 4] cx cy w h
     scores: torch.Tensor         # [T] float32
@@ -96,14 +100,14 @@ def _roi_kernel_path(cfg: TrackerConfig, frame: torch.Tensor) -> bool:
 
 
 def _features_at(gray, boxes, cfg: TrackerConfig, levels, frame_hw,
-                 scales=None) -> torch.Tensor:
-    """Features [T, C, F, F] of the windows at `boxes`: through the pyramid
-    and the ROI kernel wrapper when `levels` is given, else the gather
-    path."""
+                 scales=None, frame=None) -> torch.Tensor:
+    """Features [N, C, F, F] of the windows at `boxes`: through the pyramid
+    and the ROI kernel wrapper when `levels` is given (stream-major boxes,
+    N/S a frame), else the gather path (box n in frame `frame[n]`)."""
     patches = patch_ops.extract_patches_auto(
         gray, boxes, cfg.kcf.padding, cfg.kcf.template_size, scales=scales,
         impl="xla" if levels is None else "pallas", levels=levels,
-        frame_hw=frame_hw)
+        frame_hw=frame_hw, frame=frame)
     return feat_ops.extract_features(patches, cfg.kcf)
 
 
@@ -111,24 +115,28 @@ def _sample_response(response: torch.Tensor, centers: torch.Tensor,
                      win: torch.Tensor, det_centers: torch.Tensor,
                      size: int) -> torch.Tensor:
     """The appearance term: track t's correlation response read bilinearly
-    at detection d's place in t's search window -> [T, D]; 0 where the
+    at detection d's place in t's search window -> [S, T, D]; 0 where the
     detection lies outside the window.
 
-    response [T, S, S]; centers, win [T, 2] (predicted centers, window
-    (w, h)); det_centers [D, 2].  The sample is two hat-weight products, as
-    in the JAX step (weights nonzero at the two bracketing pixels).
+    response [S*T, size, size]; centers, win [S*T, 2] (predicted centers,
+    window (w, h)), stream-major; det_centers [S, D, 2], each stream's
+    detections.  The sample is two hat-weight products, as in the JAX step
+    (weights nonzero at the two bracketing pixels).
     """
-    rel = det_centers[None, :, :] - centers[:, None, :]          # [T, D, 2]
-    u = rel / torch.clamp_min(win[:, None, :], 1e-3) * size + size // 2
-    ux = u[..., 0].clamp(0.0, size - 1.0)                        # [T, D]
+    n_str, n_det = det_centers.shape[:2]
+    rel = (det_centers[:, None, :, :]
+           - centers.reshape(n_str, -1, 1, 2))                   # [S, T, D, 2]
+    u = (rel / torch.clamp_min(win.reshape(n_str, -1, 1, 2), 1e-3) * size
+         + size // 2).reshape(-1, n_det, 2)                      # [S*T, D, 2]
+    ux = u[..., 0].clamp(0.0, size - 1.0)                        # [S*T, D]
     uy = u[..., 1].clamp(0.0, size - 1.0)
     iota = torch.arange(size, dtype=torch.float32, device=response.device)
     wy = torch.clamp_min(1.0 - torch.abs(uy[..., None] - iota), 0.0)
     wx = torch.clamp_min(1.0 - torch.abs(ux[..., None] - iota), 0.0)
-    v = (torch.bmm(wy, response) * wx).sum(dim=-1)               # [T, D]
+    v = (torch.bmm(wy, response) * wx).sum(dim=-1)               # [S*T, D]
     inside = ((u[..., 0] >= 0) & (u[..., 0] <= size - 1)
               & (u[..., 1] >= 0) & (u[..., 1] <= size - 1))
-    return torch.where(inside, v, 0.0)
+    return torch.where(inside, v, 0.0).reshape(n_str, -1, n_det)
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,22 +150,52 @@ def _scale_consts(scale_step: float, scale_weight: float, device: str):
     return vals.to(device), wts.to(device)
 
 
-def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
-         det_valid: torch.Tensor, cfg: TrackerConfig
-         ) -> tuple[TrackBank, StepOutput]:
-    """One frame: returns (new bank, outputs).  All tensors on one device.
+@functools.lru_cache(maxsize=None)
+def _stream_consts(n_str: int, t_cap: int, n_det: int, device: str):
+    """Per-stream index tensors, built once per shape and device: each
+    track row's stream [S*T] (the gather path's frame index), the offsets
+    of each stream's block in the flattened [S*(T+1)] and [S*(D+1)]
+    dump-slot scatters, and the slot and detection indices of every
+    stream [S*T], [S*D]."""
+    streams = torch.arange(n_str)
+    return tuple(x.to(device) for x in (
+        streams.repeat_interleave(t_cap),
+        streams[:, None] * (t_cap + 1),
+        streams[:, None] * (n_det + 1),
+        torch.arange(t_cap).repeat(n_str),
+        torch.arange(n_det).repeat(n_str)))
 
-    frame     : [H, W] / [H, W, 3] image (uint8 or float).
-    dets      : [D, 5] (cx, cy, w, h, score), or [D, 6] with a class id in
-                column 5, padded to a static D.
-    det_valid : [D] bool for real detections.
+
+def step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
+                 det_valid: torch.Tensor, cfg: TrackerConfig
+                 ) -> tuple[TrackBank, StepOutput]:
+    """One frame of S streams in one set of launches: returns (new banks,
+    outputs), every field with a leading [S].  All tensors on one device.
+
+    bank      : TrackBank whose every field has a leading [S] (kf_mean
+                [S, T, 8], kcf.xf [S, T, C, F, Fh], next_id [S], ...).
+    frames    : [S, H, W] / [S, H, W, 3] images (uint8 or float).
+    dets      : [S, D, 5|6] padded detections; det_valid [S, D] bool.
+
+    Stream s's results are those of `step` on stream s alone (the JAX
+    package's jax.vmap(step)).  Per-track math runs on the [S*T] rows,
+    stream-major, so one kernel launch serves every stream: the ROI kernels
+    read row r's frame r // T of the stacked pyramid, and under the 3-scale
+    search the rows fold scale-major [3, S*T], so the fused KCF kernels'
+    item i reads model row i % (S*T).  The cost is [S, T, D], the auction
+    one batch of S problems, and the lifecycle's cumsums run along each
+    stream's slots.
     """
+    n_str = frames.shape[0]
     t_cap = cfg.max_tracks
-    n_det = dets.shape[0]
+    rows = n_str * t_cap
+    n_det = dets.shape[1]
     s = cfg.kcf.feature_size
-    dev = frame.device
-    frame_hw = tuple(frame.shape[:2])
-    if _roi_kernel_path(cfg, frame):
+    dev = frames.device
+    frame_hw = tuple(frames.shape[1:3])
+    (row_stream, off_t, off_d, slot_iota,
+     det_iota) = _stream_consts(n_str, t_cap, n_det, str(dev))
+    if _roi_kernel_path(cfg, frames):
         # The level shapes and block-origin clamps come from the config's
         # frame size; a frame that disagrees would sample wrong windows.
         if frame_hw != (cfg.frame_height, cfg.frame_width):
@@ -165,23 +203,31 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
                 f"frame shape {frame_hw} != configured "
                 f"({cfg.frame_height}, {cfg.frame_width}); the ROI kernel "
                 "path requires them to match")
-        u8_gray = frame.ndim == 2 and frame.dtype == torch.uint8
-        gray = None if u8_gray else patch_ops.to_gray(frame)
-        levels = roi.build_pyramid(frame if u8_gray else gray)
+        u8_gray = frames.ndim == 3 and frames.dtype == torch.uint8
+        gray = None if u8_gray else patch_ops.to_gray(frames, batched=True)
+        levels = roi.build_pyramid(frames if u8_gray else gray)
     else:
-        gray = patch_ops.to_gray(frame)
+        gray = patch_ops.to_gray(frames, batched=True)
         levels = None
 
-    alive = bank.state > EMPTY
-    det_valid = det_valid & (dets[:, 4] >= cfg.det_score_min)
-    det_boxes = dets[:, :4]
-    det_cls = (torch.round(dets[:, 5]).to(torch.int32)
-               if dets.shape[1] >= 6 else
-               torch.zeros((n_det,), dtype=torch.int32, device=dev))
+    def per_row(x):
+        return x.reshape((rows,) + x.shape[2:])
+
+    def per_stream(x):
+        return x.reshape((n_str, t_cap) + x.shape[1:])
+
+    kcf_rows = kcf_ops.KCFModel(*[per_row(x) for x in bank.kcf])
+    alive = bank.state > EMPTY                                   # [S, T]
+    det_valid = det_valid & (dets[..., 4] >= cfg.det_score_min)
+    det_boxes = dets[..., :4]                                    # [S, D, 4]
+    det_cls = (torch.round(dets[..., 5]).to(torch.int32)
+               if dets.shape[-1] >= 6 else
+               torch.zeros((n_str, n_det), dtype=torch.int32, device=dev))
 
     # ---- 1. Kalman predict -------------------------------------------
-    kf_mean, kf_cov = kalman.predict(bank.kf_mean, bank.kf_cov, cfg.kalman)
-    pred_boxes = kf_mean[:, :4]
+    kf_mean, kf_cov = kalman.predict(per_row(bank.kf_mean),
+                                     per_row(bank.kf_cov), cfg.kalman)
+    pred_boxes = kf_mean[:, :4]                                  # [S*T, 4]
 
     # ---- 2. KCF detect at predicted ROIs ----------------------------
     use_fft_kcf = kcf_ops._resolve_impl(cfg.kcf_impl) == "xla"
@@ -191,21 +237,21 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
         wh = pred_boxes[:, 2:4]                    # best-scale box size
         if cfg.kcf.scale_step == 1.0:
             feats_unit = _features_at(gray, pred_boxes, cfg, levels,
-                                      frame_hw)
+                                      frame_hw, frame=row_stream)
             if use_fft_kcf:
                 zf_div = fft_ops.rfft2(feats_unit)
-                response = kcf_ops.detect_from_spectrum(bank.kcf, zf_div,
+                response = kcf_ops.detect_from_spectrum(kcf_rows, zf_div,
                                                         sigma, s)
             else:
-                response = kcf_ops.detect_auto(bank.kcf, feats_unit, sigma,
+                response = kcf_ops.detect_auto(kcf_rows, feats_unit, sigma,
                                                cfg.kcf_impl)
             dy, dx, peak = kcf_ops.peak_displacement(response)
             if cfg.confidence_mode == "psr":
                 peak = kcf_ops.psr(response, peak)
         else:
             # The 3-scale search at 1/step, 1, step: the scales fold into
-            # the track axis scale-major ([3T]), and each track keeps its
-            # hysteresis-weighted best peak.
+            # the track axis scale-major ([3, S*T]), and each track keeps
+            # its hysteresis-weighted best peak.
             sstep = cfg.kcf.scale_step
             scale_vals, scale_wts = _scale_consts(
                 sstep, cfg.kcf.scale_weight, str(dev))
@@ -216,25 +262,24 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
                     (1.0 / sstep, 1.0, sstep), levels=levels,
                     frame_hw=frame_hw)
                 f3 = feat_ops.extract_features(
-                    p3.reshape((3 * t_cap,) + p3.shape[2:]), cfg.kcf)
+                    p3.reshape((3 * rows,) + p3.shape[2:]), cfg.kcf)
             else:
                 f3 = _features_at(gray, pred_boxes.repeat(3, 1), cfg, None,
                                   frame_hw,
-                                  scales=scale_vals.repeat_interleave(t_cap))
-            f3 = f3.reshape((3, t_cap) + f3.shape[1:])       # [3, T, C, F, F]
+                                  scales=scale_vals.repeat_interleave(rows),
+                                  frame=row_stream.repeat(3))
+            f3 = f3.reshape((3, rows) + f3.shape[1:])      # [3, S*T, C, F, F]
             feats_unit = f3[1]
             if use_fft_kcf:
                 zf3 = fft_ops.rfft2(f3)
-                r3 = kcf_ops.detect_from_spectrum(bank.kcf, zf3, sigma, s)
+                r3 = kcf_ops.detect_from_spectrum(kcf_rows, zf3, sigma, s)
                 zf_div = zf3[1]
             else:
-                r3 = kcf_ops.detect_scales_auto(bank.kcf, f3, sigma,
-                                                cfg.kcf_impl)  # [3, T, S, S]
+                r3 = kcf_ops.detect_scales_auto(kcf_rows, f3, sigma,
+                                                cfg.kcf_impl)  # [3, S*T, S, S]
             response = r3[1]
-            dys, dxs, peaks = (x.reshape(3, t_cap) for x in
-                               kcf_ops.peak_displacement(
-                                   r3.reshape(3 * t_cap, s, s)))
-            best = torch.argmax(peaks * scale_wts, dim=0)[None]   # [1, T]
+            dys, dxs, peaks = kcf_ops.peak_displacement(r3)   # [3, S*T]
+            best = torch.argmax(peaks * scale_wts, dim=0)[None]   # [1, S*T]
             dy = dys.gather(0, best)[0]
             dx = dxs.gather(0, best)[0]
             peak = peaks.gather(0, best)[0]
@@ -243,78 +288,93 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
                 # PSR of the unit-scale response (the scale choice itself
                 # reads the raw weighted peaks).
                 peak = kcf_ops.psr(response,
-                                   response.reshape(t_cap, -1).amax(dim=1))
-        win = wh * cfg.kcf.padding                                 # [T, 2]
+                                   response.reshape(rows, -1).amax(dim=1))
+        win = wh * cfg.kcf.padding                                 # [S*T, 2]
         kcf_cxy = pred_boxes[:, :2] + torch.stack([dx, dy], dim=1) * win / s
         # Trust the correlation only for live slots with a solid peak and
         # an in-frame box (a fully clamped patch self-correlates at ~1).
         h_f, w_f = frame_hw
         in_frame = ((pred_boxes[:, 0] > 0) & (pred_boxes[:, 0] < w_f)
                     & (pred_boxes[:, 1] > 0) & (pred_boxes[:, 1] < h_f))
-        kcf_ok = alive & in_frame & (peak >= cfg.confidence_threshold)
+        kcf_ok = per_row(alive) & in_frame & (peak >= cfg.confidence_threshold)
         if cfg.train_site == "detect":
             # A slot born last frame (age 1) has no model yet under
             # detect-site training: it coasts on its Kalman prediction.
-            kcf_ok = kcf_ok & (bank.age != 1)
+            kcf_ok = kcf_ok & (per_row(bank.age) != 1)
         refined = torch.where(kcf_ok[:, None],
                               torch.cat([kcf_cxy, wh], 1), pred_boxes)
     else:
-        kcf_ok = torch.zeros((t_cap,), dtype=torch.bool, device=dev)
+        kcf_ok = torch.zeros((rows,), dtype=torch.bool, device=dev)
         refined = pred_boxes
 
-    # ---- 3. Cost matrix ----------------------------------------------
+    # ---- 3. Cost matrix [S, T, D] -------------------------------------
     appearance = None
     if cfg.use_kcf and cfg.appearance_weight > 0.0:
         appearance = _sample_response(
             response, pred_boxes[:, :2], pred_boxes[:, 2:4] * cfg.kcf.padding,
-            det_boxes[:, :2], s)
+            det_boxes[..., :2], s)
         if cfg.train_site == "detect":
             # Day-one slots have no model yet (the kcf_ok gate above): zero
             # their rows rather than let stale spectra attract matches.
-            appearance = appearance * (bank.age != 1)[:, None]
+            appearance = appearance * (bank.age != 1)[..., None]
     # A track only matches detections of its birth class; empty slots
     # (cls < 0, already masked by `alive`) pass.
-    class_gate = (((bank.cls[:, None] == det_cls[None, :])
-                   | (bank.cls[:, None] < 0)) if cfg.class_aware else None)
+    class_gate = (((bank.cls[..., :, None] == det_cls[..., None, :])
+                   | (bank.cls[..., :, None] < 0)) if cfg.class_aware
+                  else None)
     assoc_box = cfg.assoc_box_resolved
     cost = iou_ops.association_cost(
-        pred_boxes if assoc_box == "predicted" else refined, det_boxes,
-        alive, det_valid, cfg.iou_gate, cfg.cost_infeasible,
+        per_stream(pred_boxes if assoc_box == "predicted" else refined),
+        det_boxes, alive, det_valid, cfg.iou_gate, cfg.cost_infeasible,
         appearance=appearance, appearance_weight=cfg.appearance_weight,
         class_gate=class_gate,
         # "best": the Kalman prediction is a second hypothesis per pair.
-        track_boxes_alt=pred_boxes if assoc_box == "best" else None)
+        track_boxes_alt=(per_stream(pred_boxes) if assoc_box == "best"
+                         else None))
     feasible = cost < cfg.cost_infeasible * 0.5
 
-    # ---- 4. Assignment -----------------------------------------------
+    # ---- 4. Assignment: one batch of S problems ----------------------
     # The warm start carries last frame's prices and matching; the carry is
     # sized for cfg.max_detections, and a caller with another detection
     # padding gets the cold solve.
     n_sq = max(t_cap, n_det)
     if (cfg.auction_warm_start
-            and tuple(bank.auction_prices.shape) == (n_sq,)):
+            and tuple(bank.auction_prices.shape) == (n_str, n_sq)):
         (matched_det, assign_iters, assign_conv, new_prices,
          new_col_of) = assignment.auction_assign_warm(
             cost, feasible, bank.auction_prices, bank.auction_col_of)
     else:
         matched_det, assign_iters, assign_conv = (
             assignment.auction_assign_stats(cost, feasible,
-                                            impl=cfg.assign_impl))  # [T]
+                                            impl=cfg.assign_impl))  # [S, T]
         new_prices = bank.auction_prices
         new_col_of = bank.auction_col_of
-    is_matched = matched_det >= 0
+    is_matched = matched_det >= 0                                # [S, T]
     det_idx = matched_det.long().clamp(0, n_det - 1)
-    det_taken = torch.zeros((n_det + 1,), dtype=torch.bool, device=dev)
-    det_taken[torch.where(is_matched, matched_det.long(), n_det)] = True
-    det_taken = det_taken[:n_det]
+    # Scatters with JAX's mode="drop" write the dropped entries into one
+    # dump slot per stream of the flattened [S*(D+1)] (here) and [S*(T+1)]
+    # (births) buffers, sliced off after.
+    det_taken = torch.zeros((n_str * (n_det + 1),), dtype=torch.bool,
+                            device=dev)
+    det_taken[(torch.where(is_matched, matched_det.long(), n_det)
+               + off_d).reshape(-1)] = True
+    det_taken = det_taken.reshape(n_str, n_det + 1)[:, :n_det]
+
+    def det_rows(x, idx):
+        """Per-stream detection field x [S, D(, k)] at idx [S, T]."""
+        if x.ndim == 2:
+            return x.gather(1, idx)
+        return x.gather(1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
     # ---- 5. Kalman correct -------------------------------------------
-    use_kcf_meas = alive & ~is_matched & kcf_ok
-    meas = torch.where(is_matched[:, None], det_boxes[det_idx], refined)
+    use_kcf_meas = alive & ~is_matched & per_stream(kcf_ok)
+    meas = torch.where(per_row(is_matched)[:, None],
+                       per_row(det_rows(det_boxes, det_idx)), refined)
     kf_mean, kf_cov = kalman.correct(kf_mean, kf_cov, meas,
-                                     is_matched | use_kcf_meas, cfg.kalman)
+                                     per_row(is_matched | use_kcf_meas),
+                                     cfg.kalman)
 
-    # ---- 6/7. Lifecycle ----------------------------------------------
+    # ---- 6/7. Lifecycle, along each stream's slots ---------------------
     i32 = torch.int32
     hits = torch.where(is_matched, bank.hits + 1, bank.hits)
     tsu = torch.where(is_matched, 0, bank.time_since_update + 1).to(i32)
@@ -325,51 +385,54 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
     die = alive & (((state == CONFIRMED) & (tsu > cfg.max_age))
                    | ((state == TENTATIVE) & ~is_matched
                       & (tsu > cfg.max_age_tentative)))
-    n_deaths = die.sum().to(i32)
+    n_deaths = die.sum(dim=-1).to(i32)
     state = torch.where(die, EMPTY, state).to(i32)
 
     # Births: unmatched valid detections -> lowest-index empty slots.
-    slot_iota = torch.arange(t_cap, device=dev)
     empty_slots = state == EMPTY
-    free_rank = torch.cumsum(empty_slots.long(), 0) - 1              # [T]
-    slot_of_rank = torch.full((t_cap + 1,), t_cap, dtype=torch.long,
-                              device=dev)
-    slot_of_rank[torch.where(empty_slots, free_rank, t_cap)] = slot_iota
-    slot_of_rank = slot_of_rank[:t_cap]
+    free_rank = torch.cumsum(empty_slots.long(), -1) - 1             # [S, T]
+    slot_of_rank = torch.full((n_str * (t_cap + 1),), t_cap,
+                              dtype=torch.long, device=dev)
+    slot_of_rank[(torch.where(empty_slots, free_rank, t_cap)
+                  + off_t).reshape(-1)] = slot_iota
+    slot_of_rank = slot_of_rank.reshape(n_str, t_cap + 1)[:, :t_cap]
     new_det = det_valid & ~det_taken
-    birth_rank = torch.cumsum(new_det.long(), 0) - 1                 # [D]
-    n_free = empty_slots.long().sum()
+    birth_rank = torch.cumsum(new_det.long(), -1) - 1                # [S, D]
+    n_free = empty_slots.long().sum(dim=-1, keepdim=True)
     can_birth = new_det & (birth_rank < n_free)
-    birth_slot = torch.where(can_birth,
-                             slot_of_rank[birth_rank.clamp(0, t_cap - 1)],
-                             t_cap)                                  # [D]
-    slot_birth_det = torch.full((t_cap + 1,), -1, dtype=torch.long,
-                                device=dev)
-    slot_birth_det[birth_slot] = torch.arange(n_det, device=dev)
-    slot_birth_det = slot_birth_det[:t_cap]
-    is_birth = slot_birth_det >= 0                                   # [T]
-    n_births = is_birth.sum().to(i32)
+    birth_slot = torch.where(
+        can_birth, slot_of_rank.gather(1, birth_rank.clamp(0, t_cap - 1)),
+        t_cap)                                                       # [S, D]
+    slot_birth_det = torch.full((n_str * (t_cap + 1),), -1,
+                                dtype=torch.long, device=dev)
+    slot_birth_det[(birth_slot + off_t).reshape(-1)] = det_iota
+    slot_birth_det = slot_birth_det.reshape(n_str, t_cap + 1)[:, :t_cap]
+    is_birth = slot_birth_det >= 0                                   # [S, T]
+    n_births = is_birth.sum(dim=-1).to(i32)
     bdet = slot_birth_det.clamp(0, n_det - 1)
 
-    init_mean, init_cov = kalman.init(det_boxes[bdet], cfg.kalman)
-    kf_mean = torch.where(is_birth[:, None], init_mean, kf_mean)
-    kf_cov = torch.where(is_birth[:, None, None], init_cov, kf_cov)
+    init_mean, init_cov = kalman.init(per_row(det_rows(det_boxes, bdet)),
+                                      cfg.kalman)
+    birth_rows = per_row(is_birth)
+    kf_mean = torch.where(birth_rows[:, None], init_mean, kf_mean)
+    kf_cov = torch.where(birth_rows[:, None, None], init_cov, kf_cov)
     state = torch.where(is_birth, TENTATIVE, state).to(i32)
     hits = torch.where(is_birth, 1, hits).to(i32)
     tsu = torch.where(is_birth, 0, tsu).to(i32)
     age = torch.where(is_birth, 1, age).to(i32)
-    new_ids = bank.next_id + torch.where(
-        is_birth, torch.cumsum(is_birth.long(), 0) - 1, 0)
+    new_ids = bank.next_id[:, None] + torch.where(
+        is_birth, torch.cumsum(is_birth.long(), -1) - 1, 0)
     ids = torch.where(is_birth, new_ids, bank.ids)
     ids = torch.where(state == EMPTY, -1, ids).to(i32)
-    score = torch.where(is_birth, dets[bdet, 4], bank.score)
-    score = torch.where(is_matched, dets[det_idx, 4], score)
-    cls = torch.where(is_birth, det_cls[bdet], bank.cls)
+    det_score = dets[..., 4]
+    score = torch.where(is_birth, det_rows(det_score, bdet), bank.score)
+    score = torch.where(is_matched, det_rows(det_score, det_idx), score)
+    cls = torch.where(is_birth, det_rows(det_cls, bdet), bank.cls)
     cls = torch.where(state == EMPTY, -1, cls).to(i32)
     next_id = (bank.next_id + n_births).to(i32)
 
-    # ---- 8. KCF training -------------------------------------------
-    live = state > EMPTY
+    # ---- 8. KCF training, on the [S*T] rows ----------------------------
+    live = per_row(state > EMPTY)
     if cfg.use_kcf and cfg.train_site == "detect":
         yf = kcf_ops.make_yf(s, cfg.kcf.padding, cfg.kcf.output_sigma_factor,
                              device=dev)
@@ -378,7 +441,7 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
         win = torch.clamp_min(pred_boxes[:, 2:4] * cfg.kcf.padding, 1e-6)
         # Feature-pixel displacement of the corrected center from the
         # extraction (predicted) center.
-        delta = (kf_mean[:, :2] - pred_boxes[:, :2]) * s / win       # [T, 2]
+        delta = (kf_mean[:, :2] - pred_boxes[:, :2]) * s / win     # [S*T, 2]
         d_x, d_y = delta[:, 0], delta[:, 1]
         # Beyond ~S/4 the circular wrap stops being a border effect: skip
         # the EMA update (an init overwrite trains unshifted instead).
@@ -388,32 +451,36 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
         zf_a = kcf_ops.shift_spectrum(zf, d_y, d_x, s)
         # First post-birth frame -> full overwrite; births this frame have
         # no sample yet and keep lr = 0.
-        init_now = live & (age == 2) & ~is_birth
+        init_now = live & (per_row(age) == 2) & ~birth_rows
         lr = torch.where(
             init_now, 1.0,
-            torch.where(live & ~is_birth & guard & (is_matched | kcf_ok),
+            torch.where(live & ~birth_rows & guard
+                        & (per_row(is_matched) | kcf_ok),
                         cfg.kcf.interp_factor, 0.0))
         new_model = kcf_ops.train_from_spectrum(
             zf_a, yf, cfg.kcf.kernel_sigma, cfg.kcf.lambda_, s)
-        kcf_model = kcf_ops.blend(bank.kcf, new_model, lr)
+        kcf_model = kcf_ops.blend(kcf_rows, new_model, lr)
     elif cfg.use_kcf:
         # Refined-site training: re-extract at the corrected boxes (births
         # already carry their detection box in kf_mean), through the
         # frame's one pyramid on the kernel path.
-        lr = torch.where(is_birth, 1.0,
-                         torch.where(live & (is_matched | kcf_ok),
+        lr = torch.where(birth_rows, 1.0,
+                         torch.where(live & (per_row(is_matched) | kcf_ok),
                                      cfg.kcf.interp_factor, 0.0))
-        feats_new = _features_at(gray, kf_mean[:, :4], cfg, levels, frame_hw)
+        feats_new = _features_at(gray, kf_mean[:, :4], cfg, levels, frame_hw,
+                                 frame=row_stream)
         yf = kcf_ops.make_yf(s, cfg.kcf.padding, cfg.kcf.output_sigma_factor,
                              device=dev)
         kcf_model = kcf_ops.train_blend_auto(
-            bank.kcf, feats_new, yf, cfg.kcf.kernel_sigma, cfg.kcf.lambda_,
+            kcf_rows, feats_new, yf, cfg.kcf.kernel_sigma, cfg.kcf.lambda_,
             lr, cfg.kcf_impl)
     else:
-        kcf_model = bank.kcf
+        kcf_model = kcf_rows
 
+    kf_mean = per_stream(kf_mean)
     new_bank = TrackBank(
-        kf_mean=kf_mean, kf_cov=kf_cov, kcf=kcf_model, ids=ids,
+        kf_mean=kf_mean, kf_cov=per_stream(kf_cov),
+        kcf=kcf_ops.KCFModel(*[per_stream(x) for x in kcf_model]), ids=ids,
         state=state, hits=hits, time_since_update=tsu, age=age,
         score=score, cls=cls, auction_prices=new_prices,
         auction_col_of=new_col_of, next_id=next_id,
@@ -421,19 +488,38 @@ def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
 
     out = StepOutput(
         ids=ids,
-        boxes=kf_mean[:, :4],
+        boxes=kf_mean[..., :4],
         scores=score,
         valid=(state == CONFIRMED) & (tsu <= cfg.output_max_tsu),
         matched_det=matched_det,
         cls=cls,
-        n_alive=(state > EMPTY).sum().to(i32),
+        n_alive=(state > EMPTY).sum(dim=-1).to(i32),
         n_births=n_births,
         n_deaths=n_deaths,
-        n_matches=is_matched.sum().to(i32),
+        n_matches=is_matched.sum(dim=-1).to(i32),
         assign_iters=assign_iters,
         assign_converged=assign_conv,
     )
     return new_bank, out
+
+
+def step(bank: TrackBank, frame: torch.Tensor, dets: torch.Tensor,
+         det_valid: torch.Tensor, cfg: TrackerConfig
+         ) -> tuple[TrackBank, StepOutput]:
+    """One frame: returns (new bank, outputs).  All tensors on one device.
+
+    frame     : [H, W] / [H, W, 3] image (uint8 or float).
+    dets      : [D, 5] (cx, cy, w, h, score), or [D, 6] with a class id in
+                column 5, padded to a static D.
+    det_valid : [D] bool for real detections.
+
+    `step_streams` at S = 1: the same launches, the same results.
+    """
+    new_bank, out = step_streams(bank_mod.map_bank(lambda x: x[None], bank),
+                                 frame[None], dets[None], det_valid[None],
+                                 cfg)
+    return (bank_mod.map_bank(lambda x: x[0], new_bank),
+            StepOutput(*[x[0] for x in out]))
 
 
 def init(frame: torch.Tensor, dets: torch.Tensor, det_valid: torch.Tensor,
