@@ -109,6 +109,38 @@ nonzero exit, no "ok" line):
              samples with their spread; peak device memory; later, in the
              times and profile phases, each kernel at its serving shape and
              the launches and busy share of a multi-stream frame;
+  train      detector training at full width (see TRAIN_DUMP): yolov3-tiny,
+             80 classes at 416, float32, seeded weights, Adam 1e-3 on a batch
+             of 4 bench-generator scenes, on cuda:0: the port's resize of the
+             scenes against the dump's images, step 0's loss, every gradient
+             leaf's norm, the heads' full gradients and the running
+             statistics after it, then 3 steps' losses and the running
+             statistics after them, against the JAX dump; int8 refused; the
+             toy convergence of tests/test_train.py:122 (mAP@0.5 through
+             detect_batch and detection_map past the gate); the train state
+             saved after step 2 and loaded into a fresh state (steps 3-4
+             bit-equal, deterministic cuDNN); save_pipeline of the default
+             bank after frame 31 and a yolov3-tiny state dict (frames 32-63
+             bit-equal to the uninterrupted run); images/s and ms a step at
+             batches 16 and 32, float32 and bfloat16 (interleaved samples,
+             median and spread), peak device memory of a step; at the
+             end of the run (after the profile phase, since the profiler
+             loses records after long sessions) the launches and busy
+             share of profiled steps at batch 32;
+  cli        the application layer: `python -m tpu_mot_torch mot --synthetic
+             --objects 128 --frames 64 --max-dets 160 --score` as a
+             subprocess on the default device (exit 0, MOTA at least the JAX
+             CLI's less 0.01, tests/golden/cli_jax_v1.json); the same run in
+             process with exactly one K1 and one K2 launch a frame, and with
+             the HF flags on 32 frames K1-K5 once a frame each; the native
+             runtime (the g++ build, assign equal to scipy_assign on the
+             bench run's first 3 cost matrices, the StreamScheduler's 8 x
+             1080p u8 batches bit-equal to what was pushed and fed to
+             multi_stream_step equal to the serve phase's run); where OpenCV
+             imports, mot --seq and eval --root over a MOT16 directory of the
+             bench fixture (the MOTA gate), otb with --gt and video with
+             --det-stride 3 on a 720p mp4; without it one line says what did
+             not run;
   times      run_sequence frames/s (default: median of 5; H, HF, A, AW:
              median of 3); each kernel against its plain version: the
              median ms per call from a CUDA event pair around each call
@@ -138,19 +170,23 @@ them).  The last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from tpu_mot_torch import interop
+from tpu_mot_torch import cli, interop, native
 from tpu_mot_torch.config import KCFConfig, TrackerConfig
 from tpu_mot_torch.data import synthetic
 from tpu_mot_torch.kernels import _build
@@ -165,13 +201,13 @@ from tpu_mot_torch.ops import features as feat_ops
 from tpu_mot_torch.ops import kcf as kcf_ops
 from tpu_mot_torch.ops import nms as nms_ops
 from tpu_mot_torch.ops import patch as patch_ops
-from tpu_mot_torch.parallel import serve
+from tpu_mot_torch.parallel import serve, train
 from tpu_mot_torch.tracker import api
 from tpu_mot_torch.tracker import bank as bank_mod
 from tpu_mot_torch.tracker import kcf_bank
 from tpu_mot_torch.tracker import scan
 from tpu_mot_torch.tracker import step as step_mod
-from tpu_mot_torch.utils import metrics
+from tpu_mot_torch.utils import checkpoint, metrics, viz
 from tpu_mot_torch.utils.supervisor import StreamSupervisor
 
 # MOTA / HOTA of the JAX reference (tpu_mot, jax 0.9.0 on the CPU,
@@ -262,6 +298,24 @@ E2E_REPS = 5
 SERVE_STREAMS, SERVE_FRAMES, SERVE_DETS, SERVE_STRIDE = 8, 32, 64, 4
 SERVE_DUMP = HEAVY_DUMP.with_name("serve_jax_v1.npz")
 
+# Detector training at full width: yolov3-tiny (80 classes, 416 input,
+# float32, weights interop.numpy_yolo_params at seed 0), Adam at 1e-3, on
+# a batch of TRAIN_BATCH scenes of the bench generator (scene s: seed s, one
+# 1080p frame, 128 objects of 80 classes; gray repeated to 3 channels,
+# antialiased bilinear resize to 416, build_targets on the boxes scaled to
+# the input).  TRAIN_DUMP is the JAX reference on it (tpu_mot.parallel.train
+# on the CPU, optax.adam(1e-3)): step 0's loss, every gradient leaf's L2
+# norm, the two heads' full gradients and the BatchNorm running statistics
+# after it, the losses of TRAIN_STEPS steps and every BatchNorm running mean
+# and variance after them, and step 0 on the first 2 scenes alone (and the
+# images, so that both packages train on the same input; and the float64
+# gradient norms of the port's net in float64); regenerate with `python
+# tests/test_torch_train.py regen-train-dump`.
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 4, 3, 1e-3
+TRAIN_DUMP = Path(__file__).resolve().parent / "tests" / "golden" / \
+    "train_jax_v1.npz"
+TRAIN_SPEC = dict(name="yolov3-tiny", num_classes=80, input_size=416)
+
 # Published H100 SXM peaks (the least-time bound of each kernel).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -311,6 +365,39 @@ def bench_fixture():
         d[f], v[f] = api.pad_detections(dets_list[f], cfg.max_detections)
     frames_u8 = (frames * 255).astype(np.uint8)
     return frames_u8, d, v, boxes, vis, dets_list, cfg
+
+
+def train_scenes(n: int = TRAIN_BATCH, input_size: int = 416):
+    """The training batch's scenes: per scene s < n the first frame of the
+    bench generator at seed s with 80 object classes.  Returns (frames [n,
+    1080, 1920] float32 in [0, 1], boxes [n, 128, 4] cxcywh scaled to the
+    input_size x input_size input, classes [n, 128], visible [n, 128])."""
+    frames, boxes, classes, vis = [], [], [], []
+    for seed in range(n):
+        rng = np.random.default_rng(seed)
+        objs = synthetic.make_objects(N_OBJ, HEIGHT, WIDTH, rng, min_size=24,
+                                      max_size=64, max_speed=3.0,
+                                      n_classes=80)
+        f, b, v = synthetic.render_sequence(objs, 1, HEIGHT, WIDTH,
+                                            seed=seed, noise=0.01)
+        frames.append(f[0])
+        boxes.append(b[0] * np.float32([input_size / WIDTH,
+                                        input_size / HEIGHT] * 2))
+        classes.append([o.cls for o in objs])
+        vis.append(v[0])
+    return (np.stack(frames), np.stack(boxes).astype(np.float32),
+            np.asarray(classes, np.int64), np.stack(vis))
+
+
+def train_images(frames, input_size: int = 416, device=None) -> torch.Tensor:
+    """Gray frames [n, H, W] float -> the net's input [n, s, s, 3] NHWC
+    float32: antialiased bilinear resize (jax.image.resize "bilinear" in
+    the JAX package), the channel repeated."""
+    x = torch.as_tensor(frames, device=device)[:, None]
+    x = torch.nn.functional.interpolate(
+        x, size=(input_size, input_size), mode="bilinear",
+        align_corners=False, antialias=True)
+    return x.permute(0, 2, 3, 1).repeat(1, 1, 1, 3).contiguous()
 
 
 def serve_fixture(n_streams: int = SERVE_STREAMS,
@@ -2097,7 +2184,10 @@ def phase_serve(dev, card, default_out):
     log("serve", f"phase took {time.perf_counter() - t_phase:.1f} s")
     # the kernels' serving times and the profile come later in the script:
     # after a long profiler session the profiler loses device records
-    return dict(seen=seen, seen_hf=seen_hf, det_b=det_b, errs=errs,
+    w = slice(0, SERVE_WINDOW)
+    return dict(sched_check=(frames[:, w], d[:, w], v[:, w], cfg,
+                             out.ids[:, w], out.valid[:, w], out.boxes[:, w]),
+                seen=seen, seen_hf=seen_hf, det_b=det_b, errs=errs,
                 errs_hf=errs_hf, launches=launches,
                 windows={k: streams(k) for k in (1, n_str)})
 
@@ -2381,6 +2471,515 @@ def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_bs, hf_inputs,
     return times
 
 
+# --- detector training (train) and the application layer (cli) -----------
+
+# Tolerances of the train phase against TRAIN_DUMP (PERF.md §6): the
+# loss of step 0 1e-4 relative; every gradient leaf's L2 norm 1e-2 relative
+# to JAX's and to the exact (float64) norm: a float32 gradient norm of
+# yolov3-tiny's first blocks at 416 is only known to ~1e-3 on the CPU (JAX
+# 2.0e-3, the port 6.9e-4 from float64 on this batch) and to a few 1e-3
+# with cuDNN's algorithms; the two heads' full gradients 1e-4 of their largest
+# magnitude; the running statistics after step 0 1e-4 absolute.  After
+# TRAIN_STEPS Adam steps: the losses of steps 1-2 and each running-
+# statistics vector (L2) 1e-2 relative: Adam moves an element by ~lr
+# whatever its gradient's size, so gradients of undetermined sign leave
+# parameters apart by up to 2 lr, and the batch statistics and losses of
+# later steps with them (the CPU run: 1.2e-4 and 3.6e-3).
+TRAIN_LOSS_TOL, TRAIN_NORM_TOL, TRAIN_HEAD_TOL = 1e-4, 1e-2, 1e-4
+TRAIN_STATS0_TOL, TRAIN_STEP_TOL, TRAIN_STATS_TOL = 1e-4, 1e-2, 1e-2
+TRAIN_SPEED = ((16, "float32"), (32, "float32"), (16, "bfloat16"),
+               (32, "bfloat16"))
+TRAIN_SPEED_REPS, TRAIN_SPEED_STEPS = 5, 3
+# tests/test_train.py:122's toy run: 300 Adam steps at 2e-3 of yolov2-tiny
+# at 64 (1 class, BatchNorm momentum 0.9) on 8 images of one rectangle.
+TOY_STEPS = 300
+# The CLI's synthetic run and the JAX CLI's metrics on it
+# (`python tests/test_torch_cli.py regen-cli-golden`).
+CLI_GOLDEN = TRAIN_DUMP.with_name("cli_jax_v1.json")
+CLI_HF = ["--feature", "hog", "--cell-size", "4", "--scale-step", "1.05",
+          "--kcf-impl", "pallas", "--train-site", "refined"]
+
+
+def adam_at(lr: float):
+    return lambda params: torch.optim.Adam(params, lr=lr)
+
+
+def train_state(spec, dev, seed: int = 0):
+    """A train state from interop.numpy_yolo_params(spec, seed) with
+    Adam(TRAIN_LR) on dev."""
+    return train.train_state_from_params(
+        spec, adam_at(TRAIN_LR),
+        interop.yolo_params_from_jax(interop.numpy_yolo_params(spec, seed)),
+        device=dev)
+
+
+def train_batch(dev, spec, dump):
+    """The dump's images (NHWC) and build_targets on the card; holds the
+    port's own resize of the scenes to the dump's images (1e-4)."""
+    frames, boxes, classes, vis = train_scenes()
+    gray = torch.as_tensor(dump["images"], device=dev)
+    resize_err = float((train_images(frames, device=dev)[..., 0]
+                        - gray).abs().max())
+    if resize_err > 1e-4:
+        raise AssertionError(f"train: the port's resize is {resize_err:.3g} "
+                             "from the dump's images (limit 1e-4)")
+    tgt = [torch.as_tensor(t, device=dev)
+           for t in train.build_targets(spec, boxes, classes, vis)]
+    return gray[..., None].repeat(1, 1, 1, 3).contiguous(), tgt, resize_err
+
+
+def toy_batch(rng, b: int = 8, s: int = 64):
+    """tests/test_train.py's toy task: one bright rectangle an image."""
+    images = rng.random((b, s, s, 3)).astype(np.float32) * 0.2
+    gt_boxes = np.zeros((b, 1, 4), np.float32)
+    for i in range(b):
+        cx, cy = rng.uniform(16, 48, 2)
+        w, h = rng.uniform(12, 20, 2)
+        x0, x1 = int(cx - w / 2), int(cx + w / 2)
+        y0, y1 = int(cy - h / 2), int(cy + h / 2)
+        images[i, y0:y1, x0:x1] = 0.9
+        gt_boxes[i, 0] = (cx, cy, w, h)
+    return images, gt_boxes, np.zeros((b, 1), int), np.ones((b, 1), bool)
+
+
+def toy_map(model, images, gb, gc, gv) -> float:
+    dets, valid, classes = detector.detect_batch(model, images, (64, 64), 8,
+                                                 0.45, 0.1)
+    dets, valid, classes = (x.cpu().numpy() for x in (dets, valid, classes))
+    preds = [(dets[i][valid[i], :4], dets[i][valid[i], 4],
+              classes[i][valid[i]]) for i in range(len(images))]
+    gts = [(gb[i][gv[i]], gc[i][gv[i]]) for i in range(len(images))]
+    return metrics.detection_map(preds, gts, num_classes=1)["map"]
+
+
+def train_speed(dev, card, images, tgt):
+    """images/s and ms a step at TRAIN_SPEED's batches and dtypes (the
+    dump's scenes tiled), interleaved samples of TRAIN_SPEED_STEPS steps;
+    peak device memory of a step.  Returns the runs of the largest batch,
+    for train_profile."""
+    runs, peaks = {}, {}
+    for b, dt in TRAIN_SPEED:
+        spec = YoloSpec(**TRAIN_SPEC, dtype=dt)
+        state, step = train_state(spec, dev), train.make_train_step(spec)
+        reps = b // len(images)
+        x = images.repeat(reps, 1, 1, 1)
+        t = [y.repeat(reps, 1, 1, 1, 1) for y in tgt]
+        step(state, x, t)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(state, x, t)
+        torch.cuda.synchronize()
+        peaks[(b, dt)] = (torch.cuda.max_memory_allocated(), base)
+
+        def run(state=state, step=step, x=x, t=t):
+            for _ in range(TRAIN_SPEED_STEPS):
+                step(state, x, t)
+        runs[(b, dt)] = run
+    secs = interleaved(runs, TRAIN_SPEED_REPS)
+    for (b, dt), s in secs.items():
+        ms = [1000 * v / TRAIN_SPEED_STEPS for v in s]
+        med = statistics.median(ms)
+        peak, base = peaks[(b, dt)]
+        log("train", f"speed {dt} batch {b}: {b * 1000 / med:.1f} images/s, "
+                     f"{med:.2f} ms a step (median of {len(ms)} samples of "
+                     f"{TRAIN_SPEED_STEPS} steps; {min(ms):.2f}-"
+                     f"{max(ms):.2f} ms, spread {max(ms) / min(ms):.2f}x); "
+                     f"peak device memory of a step {peak / 2**20:.0f} MiB "
+                     f"({(peak - base) / 2**20:.0f} MiB over the "
+                     f"{base / 2**20:.0f} MiB held before it); {card}")
+    top = max(b for b, _ in runs)
+    return {k: fn for k, fn in runs.items() if k[0] == top}
+
+
+def train_profile(runs: dict) -> None:
+    """Launches and busy share of TRAIN_SPEED_STEPS profiled steps (after
+    the times and profile phases: the profiler loses device records after
+    long sessions)."""
+    for key in runs:
+        kernels, wall_us, _ = profiled(runs[key])
+        busy = sum(r[1] for r in kernels)
+        launches = sum(r[2] for r in kernels) / TRAIN_SPEED_STEPS
+        log("train", f"profile {key[1]} batch {key[0]}, {TRAIN_SPEED_STEPS} "
+                     f"steps: {launches:.0f} kernel launches a step; device "
+                     "kernels "
+                     f"{busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
+                     f"under the profiler ({100 * busy / wall_us:.1f}% busy)")
+        for name, us, count in kernels[:6]:
+            log("train", f"  {us / 1e3:9.3f} ms  x{count:<5d} {name[:90]}")
+
+
+def phase_train(dev, card):
+    """Detector training at full width (see TRAIN_DUMP): parity with the
+    JAX dump, int8 refused, the toy convergence, checkpoint/resume of the
+    train state, and the training speed.  Returns train_speed's runs."""
+    t_phase = time.perf_counter()
+    spec = YoloSpec(**TRAIN_SPEC)
+    with np.load(TRAIN_DUMP) as z:
+        dump = {k: z[k] for k in z.files}
+    images, tgt, resize_err = train_batch(dev, spec, dump)
+    state, step = train_state(spec, dev), train.make_train_step(spec)
+    losses = []
+    for i in range(TRAIN_STEPS):
+        state, loss = step(state, images, tgt)
+        losses.append(float(loss))
+        if i == 0:          # the step's gradients stay in .grad until the next
+            grads = {n: p.grad.detach().clone()
+                     for n, p in state.model.named_parameters()}
+            sd = state.model.state_dict()
+            stats0_err = max(float(np.abs(sd[k[7:]].cpu().numpy() - v).max())
+                             for k, v in dump.items()
+                             if k.startswith("stats0/"))
+    loss_err = abs(losses[0] - float(dump["loss0"])) / float(dump["loss0"])
+    norm_err = {n: abs(float(g.norm()) - float(dump[f"grad_norm/{n}"]))
+                / float(dump[f"grad_norm/{n}"]) for n, g in grads.items()}
+    exact_err = {n: abs(float(g.norm()) - float(dump[f"grad_norm64/{n}"]))
+                 / float(dump[f"grad_norm64/{n}"]) for n, g in grads.items()}
+    jax_exact = max(abs(float(dump[f"grad_norm/{n}"])
+                        - float(dump[f"grad_norm64/{n}"]))
+                    / float(dump[f"grad_norm64/{n}"]) for n in grads)
+    det_flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        det_state = train_state(spec, dev)
+        train.yolo_loss(det_state.model, images, tgt, spec,
+                        train=True).backward()
+        det_err = max(abs(float(p.grad.norm())
+                          - float(dump[f"grad_norm64/{n}"]))
+                      / float(dump[f"grad_norm64/{n}"])
+                      for n, p in det_state.model.named_parameters())
+    finally:
+        torch.backends.cudnn.deterministic = det_flag
+    del det_state
+    head_err = max(float((grads[k[5:]].cpu() - torch.as_tensor(dump[k])
+                          ).abs().max() / np.abs(dump[k]).max())
+                   for k in dump if k.startswith("grad/"))
+    step_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses[1:], dump["losses"][1:]))
+    sd = state.model.state_dict()
+    stats_err = max(float(np.linalg.norm(sd[k[6:]].cpu().numpy() - v)
+                          / np.linalg.norm(v))
+                    for k, v in dump.items() if k.startswith("stats/"))
+    stats_abs = max(float(np.abs(sd[k[6:]].cpu().numpy() - v).max())
+                    for k, v in dump.items() if k.startswith("stats/"))
+    worst = max(norm_err, key=norm_err.get)
+    worst64 = max(exact_err, key=exact_err.get)
+    log("train", f"yolov3-tiny 80 classes at 416, batch {len(images)}, Adam "
+                 f"{TRAIN_LR}, against the JAX dump ({TRAIN_DUMP.name}): "
+                 f"resize {resize_err:.3g}; step 0 loss {losses[0]:.6f} "
+                 f"(JAX {float(dump['loss0']):.6f}, rel {loss_err:.3g}); "
+                 f"gradient norms of {len(norm_err)} leaves rel <= "
+                 f"{norm_err[worst]:.3g} ({worst}), from the float64 norms "
+                 f"<= {exact_err[worst64]:.3g} ({worst64}; JAX's "
+                 f"{jax_exact:.3g}; with cudnn.deterministic "
+                 f"{det_err:.3g}); heads' gradients "
+                 f"{head_err:.3g} of their largest; running statistics after "
+                 f"step 0 max |diff| {stats0_err:.3g}; losses {losses} vs "
+                 f"{dump['losses'].tolist()} (steps 1-2 rel {step_err:.3g}); "
+                 f"running statistics after {TRAIN_STEPS} steps rel (L2) "
+                 f"{stats_err:.3g}, max |diff| {stats_abs:.3g}")
+    for what, err, lim in (("loss", loss_err, TRAIN_LOSS_TOL),
+                           ("gradient norm", norm_err[worst],
+                            TRAIN_NORM_TOL),
+                           ("gradient norm against float64",
+                            exact_err[worst64], TRAIN_NORM_TOL),
+                           ("head gradient", head_err, TRAIN_HEAD_TOL),
+                           ("step-0 statistics", stats0_err,
+                            TRAIN_STATS0_TOL),
+                           ("later loss", step_err, TRAIN_STEP_TOL),
+                           ("running statistics", stats_err,
+                            TRAIN_STATS_TOL)):
+        if not err <= lim:
+            raise AssertionError(f"train: {what} {err:.3g} > {lim}")
+
+    try:
+        train.init_train_state(YoloSpec(**TRAIN_SPEC, dtype="int8"),
+                               adam_at(TRAIN_LR), device=dev)
+        raise AssertionError("train: int8 was not refused")
+    except ValueError as exc:
+        log("train", f"int8 refused: {str(exc)[:60]}...")
+
+    # the toy convergence of tests/test_train.py:122
+    toy = YoloSpec("yolov2-tiny", num_classes=1, input_size=64,
+                   bn_momentum=0.9)
+    t0 = time.perf_counter()
+    tstate = train.init_train_state(toy, adam_at(2e-3), seed=0, device=dev)
+    tstep = train.make_train_step(toy)
+    ti, gb, gc, gv = toy_batch(np.random.default_rng(0))
+    timg = torch.as_tensor(ti, device=dev)
+    ttgt = [torch.as_tensor(t, device=dev)
+            for t in train.build_targets(toy, gb, gc, gv)]
+    map0 = toy_map(tstate.model, timg, gb, gc, gv)
+    for _ in range(TOY_STEPS):
+        tstep(tstate, timg, ttgt)
+    map1 = toy_map(tstate.model, timg, gb, gc, gv)
+    log("train", f"toy run (yolov2-tiny at 64, {TOY_STEPS} steps in "
+                 f"{time.perf_counter() - t0:.1f} s): mAP@0.5 {map0:.4f} -> "
+                 f"{map1:.4f} (gate > {max(map0 + 0.2, 0.3):.4f})")
+    if not map1 > max(map0 + 0.2, 0.3):
+        raise AssertionError(f"train: toy mAP {map0} -> {map1}")
+
+    # checkpoint: the train state after step 2, deterministic cuDNN
+    det_flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            a = train_state(spec, dev)
+            for _ in range(2):
+                step(a, images, tgt)
+            train.save_train_state(f"{tmp}/train", a)
+            b = train.load_train_state(f"{tmp}/train",
+                                       train_state(spec, dev, seed=1))
+            for _ in range(2):
+                la, lb = float(step(a, images, tgt)[1]), float(
+                    step(b, images, tgt)[1])
+                if la != lb:
+                    raise AssertionError(f"train: resumed loss {lb} != {la}")
+            sa, sb = a.model.state_dict(), b.model.state_dict()
+            if not all(torch.equal(sa[k], sb[k]) for k in sa):
+                raise AssertionError("train: resumed state differs")
+    finally:
+        torch.backends.cudnn.deterministic = det_flag
+    log("train", "checkpoint: saved after step 2, loaded into a fresh "
+                 "state, steps 3-4 bit-equal to the uninterrupted run "
+                 "(cudnn.deterministic)")
+    del a, b, state
+    runs = train_speed(dev, card, images, tgt)
+    log("train", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+def phase_pipeline_resume(dev, frames, d, v, cfg, default_out):
+    """save_pipeline of the default bank after frame 31 plus a yolov3-tiny
+    state dict; resuming gives frames 32-63 bit-equal to the uninterrupted
+    run (default_out, phase e2e's run_sequence)."""
+    bank, _ = scan.run_sequence(bank_mod.empty_bank(cfg, device=dev),
+                                frames[:32], d[:32], v[:32], cfg)
+    det_sd = detector.YoloDetector.random_init(
+        YoloSpec(**TRAIN_SPEC), device=dev).model.state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_pipeline(f"{tmp}/pipe", bank, det_sd, cfg)
+        bank2, det2, cfg2 = checkpoint.load_pipeline(
+            f"{tmp}/pipe", bank_mod.empty_bank(cfg, device=dev))
+    if cfg2 != cfg or not all(torch.equal(det2[k], det_sd[k])
+                              for k in det_sd):
+        raise AssertionError("pipeline: config or detector state differs")
+    _, out = scan.run_sequence(bank2, frames[32:], d[32:], v[32:], cfg)
+    same = all(torch.equal(getattr(out, f), getattr(default_out, f)[32:])
+               for f in ("ids", "valid", "boxes"))
+    log("train", f"pipeline checkpoint: bank after frame 31 + yolov3-tiny "
+                 f"state saved and loaded, frames 32-63 bit-equal to the "
+                 f"uninterrupted run: {same}")
+    if not same:
+        raise AssertionError("pipeline: resumed frames differ")
+
+
+def cli_lines(argv) -> list[str]:
+    """cli.main(argv) in this process -> its output lines; raises on a
+    nonzero exit."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit {rc}")
+    return buf.getvalue().splitlines()
+
+
+def cli_run(argv) -> tuple[dict, dict, float]:
+    """cli.main(argv) in this process, every launch count set to 0 just
+    before it: (its metrics line, the launches, seconds)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    lines = cli_lines(argv)
+    torch.cuda.synchronize()
+    return json.loads(lines[-1]), read_counts(), time.perf_counter() - t0
+
+
+def native_checks(dev, frames, d, v, cfg, sched_check):
+    """The native runtime on this machine: the g++ build, assign against
+    scipy_assign on the bench run's first 3 cost matrices, and the stream
+    scheduler feeding the serving step."""
+    lib, secs = native.build()
+    if not native.ensure_built():
+        raise AssertionError("native: the library did not load")
+    log("cli", f"native: {lib.name} built by g++ in {secs:.2f} s")
+    seen, solve = [], assignment.auction_assign_stats
+
+    def capture(cost, feasible, *a, **kw):
+        seen.append((cost.cpu().numpy().astype(np.float64),
+                     feasible.cpu().numpy()))
+        return solve(cost, feasible, *a, **kw)
+
+    assignment.auction_assign_stats = capture
+    try:
+        scan.run_sequence(bank_mod.empty_bank(cfg, device=dev), frames[:3],
+                          d[:3], v[:3], cfg)
+    finally:
+        assignment.auction_assign_stats = solve
+    matches = 0
+    for cost, feas in seen:
+        got = native.assign(cost[0], feas[0])
+        if not np.array_equal(got, assignment.scipy_assign(cost[0],
+                                                           feas[0])):
+            raise AssertionError("native: assign differs from scipy_assign")
+        matches += int((got >= 0).sum())
+    log("cli", f"native: assign equals scipy_assign on the bench run's "
+               f"first {len(seen)} cost matrices ({seen[0][0].shape[1:]}, "
+               f"{matches} matches)")
+    s_frames, s_d, s_v, s_cfg, s_ids, s_valid, s_boxes = sched_check
+    n_str, n = s_frames.shape[:2]
+    host = s_frames.cpu().numpy()
+    sched = native.StreamScheduler(n_str, host.shape[2:], capacity=n)
+    if not sched._native:
+        raise AssertionError("native: the scheduler took its fallback")
+    for f in range(n):
+        for s in range(n_str):
+            sched.push(s, host[s, f])
+    banks = serve.make_stream_banks(n_str, s_cfg, device=dev)
+    gather_ms, same = [], True
+    for f in range(n):
+        t0 = time.perf_counter()
+        batch, fresh = sched.gather()
+        gather_ms.append(1000 * (time.perf_counter() - t0))
+        if not fresh.all() or not np.array_equal(batch, host[:, f]):
+            raise AssertionError(f"native: gathered batch {f} differs")
+        banks, out = serve.multi_stream_step(
+            banks, torch.as_tensor(batch, device=dev), s_d[:, f], s_v[:, f],
+            s_cfg)
+        if not (torch.equal(out.ids, s_ids[:, f])
+                and torch.equal(out.valid, s_valid[:, f])):
+            raise AssertionError(f"native: scheduled frame {f} differs")
+        same &= torch.equal(out.boxes, s_boxes[:, f])
+    log("cli", f"native: StreamScheduler gathered {n} batches of {n_str} x "
+               f"{host.shape[2]}x{host.shape[3]} u8 bit-equal to what was "
+               f"pushed, {statistics.median(gather_ms):.2f} ms a batch "
+               f"(median; {min(gather_ms):.2f}-{max(gather_ms):.2f}); "
+               "multi_stream_step on them: ids and valid equal to the serve "
+               f"phase's run, boxes bit-equal: {same}")
+    if not same:
+        raise AssertionError("native: scheduled boxes differ")
+
+
+def phase_cli(dev, frames, d, v, cfg, sched_check, frames_np, dets_list,
+              gt_boxes, vis):
+    """The application layer on the card: `python -m tpu_mot_torch mot
+    --synthetic` as a subprocess against the JAX CLI's MOTA, the same run
+    and the HF flags in process with the launch counts, the native
+    runtime, and (with OpenCV) --seq, eval, otb and video."""
+    t_phase = time.perf_counter()
+    golden = json.loads(CLI_GOLDEN.read_text())
+    args = golden["args"]
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_mot_torch", *args],
+                          cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli: exit {proc.returncode}: {proc.stderr}")
+    lines = proc.stdout.splitlines()
+    m = json.loads(lines[-1])
+    want = golden["metrics"]["mota"]
+    log("cli", f"python -m tpu_mot_torch {' '.join(args)}: exit 0 in "
+               f"{time.perf_counter() - t0:.1f} s; {lines[0]}; MOTA "
+               f"{m['mota']} HOTA {m['hota']} (JAX CLI {want} / "
+               f"{golden['metrics']['hota']}, gate >= {want - 0.01:.4f})")
+    if not m["mota"] >= want - 0.01:
+        raise AssertionError(f"cli: MOTA {m['mota']} < {want} - 0.01")
+    n = args[args.index("--frames") + 1]
+    for name, argv, n_frames, kernels in (
+            ("default", args, int(n), ("roi_extract", "auction_solve")),
+            ("HF", [*args[:args.index("--frames")], "--frames", "32",
+                    *args[args.index("--frames") + 2:], *CLI_HF], 32,
+             KERNELS)):
+        m, counts, secs = cli_run(argv)
+        want_counts = {k: (n_frames if k in kernels else 0) for k in KERNELS}
+        log("cli", f"in process, {name} flags, {n_frames} frames in "
+                   f"{secs:.1f} s: MOTA {m['mota']}; launches {counts}")
+        if counts != want_counts:
+            raise AssertionError(f"cli {name}: launches {counts}, expected "
+                                 f"{want_counts}")
+        if name == "default" and not m["mota"] >= want - 0.01:
+            raise AssertionError(f"cli {name}: MOTA {m['mota']}")
+    native_checks(dev, frames, d, v, cfg, sched_check)
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        log("cli", "cli: no cv2 on this machine: --seq, eval, otb, video "
+                   "not run")
+    else:
+        cli_with_cv2(frames_np, dets_list, gt_boxes, vis)
+    log("cli", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def write_mot_dir(root: Path, frames_u8, dets_list, gt_boxes, vis) -> None:
+    """A MOT16-format sequence directory: img1/ PNGs (lossless, so the
+    frames are the fixture's), det/det.txt, gt/gt.txt."""
+    import cv2
+    for sub in ("img1", "det", "gt"):
+        (root / sub).mkdir(parents=True)
+    for i, fr in enumerate(frames_u8, start=1):
+        cv2.imwrite(str(root / "img1" / f"{i:06d}.png"), fr)
+    with open(root / "det" / "det.txt", "w") as f:
+        for fi, dd in enumerate(dets_list, start=1):
+            for cx, cy, w, h, s in dd:
+                f.write(f"{fi},-1,{cx - w / 2:.2f},{cy - h / 2:.2f},"
+                        f"{w:.2f},{h:.2f},{s:.3f},-1,-1,-1\n")
+    with open(root / "gt" / "gt.txt", "w") as f:
+        for fi in range(1, len(frames_u8) + 1):
+            for k in np.where(vis[fi - 1])[0]:
+                cx, cy, w, h = gt_boxes[fi - 1, k]
+                f.write(f"{fi},{k + 1},{cx - w / 2:.2f},{cy - h / 2:.2f},"
+                        f"{w:.2f},{h:.2f},1,1,1.0\n")
+
+
+def cli_with_cv2(frames_u8, dets_list, gt_boxes, vis, dev_args=()):
+    """mot --seq and eval --root over a MOT16-format directory of the bench
+    fixture (the MOTA gate), otb on a 480 x 640 clip with --gt, video on a
+    32-frame 720p mp4 with --det-stride 3."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "train"
+        write_mot_dir(root / "BENCH-01", frames_u8, dets_list, gt_boxes, vis)
+        common = ["--max-dets", "160", *dev_args]
+        m = json.loads(cli_lines(["mot", "--seq", str(root / "BENCH-01"),
+                                  "--score", *common])[-1])
+        over = json.loads(cli_lines(["eval", "--root", str(root),
+                                     *common])[-1])
+        log("cli", f"mot --seq (MOT16 directory of the bench fixture): MOTA "
+                   f"{m['mota']} HOTA {m['hota']}; eval --root: OVERALL MOTA "
+                   f"{over['mota']} over {over['frames']} frames (gate >= "
+                   f"{M_REF - 0.01:.4f})")
+        if not min(m["mota"], over["mota"]) >= M_REF - 0.01:
+            raise AssertionError(f"cli --seq/eval: MOTA {m['mota']}, "
+                                 f"{over['mota']}")
+        clip, boxes = single_object_clip()
+        import cv2
+        (Path(tmp) / "otb").mkdir()
+        for i, fr in enumerate(clip, start=1):
+            cv2.imwrite(str(Path(tmp) / "otb" / f"{i:04d}.png"),
+                        (fr * 255).astype(np.uint8))
+        tl = boxes.copy()
+        tl[:, :2] -= tl[:, 2:] / 2
+        np.savetxt(Path(tmp) / "gt.txt", tl, delimiter=",", fmt="%.2f")
+        x, y, w, h = tl[0]
+        p = json.loads(cli_lines(["otb", "--seq", str(Path(tmp) / "otb"),
+                                  "--box", f"{x},{y},{w},{h}", "--gt",
+                                  str(Path(tmp) / "gt.txt"),
+                                  *dev_args])[-1])
+        log("cli", f"otb on a {clip.shape[1]}x{clip.shape[2]} clip of "
+                   f"{len(clip)} frames: precision@20 "
+                   f"{p['precision@20px']}, mean IoU {p['mean_iou']:.4f}")
+        if p["precision@20px"] < 0.99:
+            raise AssertionError(f"cli otb: {p}")
+        e_frames = e2e_fixture()[0]
+        mp4 = str(Path(tmp) / "clip.mp4")
+        viz.write_video(mp4, [(f, []) for f in e_frames], fps=30)
+        lines = cli_lines(["video", "--input", mp4, "--det-stride", "3",
+                           "--max-dets", "64", *dev_args])
+        log("cli", f"video ({len(e_frames)} frames of 720p mp4, "
+                   f"--det-stride 3, yolov3-tiny seeded): {lines[-1]}")
+
+
 OUR_KERNELS = ("roi_kernel", "roi_scales_kernel", "auction_kernel",
                "kcf_detect_kernel", "kcf_detect_fft16_kernel",
                "kcf_train_kernel", "kcf_train_fft16_kernel")
@@ -2493,6 +3092,14 @@ def main() -> int:
     # multi-stream serving: configs[4] on one card
     served = phase_serve(dev, card, default_out)
 
+    # detector training at full width, checkpoints, the application layer
+    sched_check = served.pop("sched_check")
+    train_runs = phase_train(dev, card)
+    phase_pipeline_resume(dev, frames, d, v, cfg, default_out)
+    phase_cli(dev, frames, d, v, cfg, sched_check, frames_np, dets_list,
+              gt_boxes, vis)
+    del sched_check
+
     # times
     times = phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_b,
                         hf_inputs, (a_frames, a_d, a_v, a_cfg))
@@ -2507,6 +3114,7 @@ def main() -> int:
             c))
     phase_profile_detect(*detect_run)
     serve_profile(windows)
+    train_profile(train_runs)
 
 
     hf = heavy_launches["HF"]

@@ -787,3 +787,63 @@ def test_multi_stream_step_on_card_equals_single_steps(cuda, mode):
             for name in ("ids", "valid", "matched_det", "assign_iters"):
                 assert torch.equal(getattr(out, name)[s], getattr(o, name))
             assert (out.boxes[s] - o.boxes).abs().max().item() <= 1e-4
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of yolov2-tiny (64 px, 3 classes, momentum 0.9) on
+    the card against the same step on the CPU from the same weights: the
+    loss 1e-5 relative, every gradient leaf within 1e-3 of its largest
+    magnitude (cuDNN's and oneDNN's float32 backward; deep BatchNorm
+    gradients are only known to ~1e-3 in float32), the running
+    statistics 1e-5."""
+    from tpu_mot_torch import interop
+    from tpu_mot_torch.parallel import train as t_train
+
+    spec = t_yolo.YoloSpec("yolov2-tiny", num_classes=3, input_size=64,
+                           bn_momentum=0.9)
+    sd = interop.yolo_params_from_jax(interop.numpy_yolo_params(spec, 1))
+    rng = np.random.default_rng(0)
+    images = rng.random((4, 64, 64, 3)).astype(np.float32)
+    gb = np.concatenate([rng.uniform(4, 60, (4, 5, 2)),
+                         rng.uniform(6, 40, (4, 5, 2))], -1)
+    tgt = t_train.build_targets(spec, gb, rng.integers(0, 3, (4, 5)),
+                                np.ones((4, 5), bool))
+    out = {}
+    for dev in ("cpu", cuda):
+        state = t_train.train_state_from_params(
+            spec, lambda p: torch.optim.Adam(p, lr=1e-3), sd, device=dev)
+        state.optimizer.zero_grad()
+        loss = t_train.yolo_loss(state.model,
+                                 torch.as_tensor(images, device=dev), tgt,
+                                 spec, train=True)
+        loss.backward()
+        out[str(dev)] = (float(loss.detach()),
+                         {n: p.grad.cpu() for n, p in
+                          state.model.named_parameters()},
+                         {k: v.cpu() for k, v in
+                          state.model.state_dict().items() if "running" in k})
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for k in gc:
+        assert float((gg[k] - gc[k]).abs().max()) <= 1e-3 * float(
+            gc[k].abs().max()), k
+    for k in sc:
+        assert torch.allclose(sg[k], sc[k], rtol=0, atol=1e-5), k
+
+
+def test_cli_mot_on_card(cuda, capsys):
+    """`mot --synthetic` on the card (the default device): one K1 and one K2
+    launch a frame, and the metrics of the CPU run within 0.01 MOTA."""
+    import json
+
+    from tpu_mot_torch import cli
+
+    args = ["mot", "--synthetic", "--objects", "16", "--frames", "16",
+            "--chunk", "16", "--score"]
+    t_roi.launches = t_auction.launches = 0
+    assert cli.main(args) == 0
+    assert (t_roi.launches, t_auction.launches) == (16, 16)
+    card = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    cpu = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert card["mota"] >= cpu["mota"] - 0.01

@@ -384,8 +384,8 @@ def test_interop_cf_roundtrip():
 
 def test_port_imports_without_jax():
     """Every tpu_mot_torch module and chip_smoke.py load in a process where
-    importing jax, flax or anything of the JAX package (tpu_mot) fails; no
-    port module names jax or tpu_mot."""
+    importing jax, flax, optax, orbax or anything of the JAX package
+    (tpu_mot) fails; no port module names jax or tpu_mot."""
     pkg = os.path.join(_REPO, "tpu_mot_torch")
     mods = []
     for root, dirs, files in os.walk(pkg):
@@ -405,18 +405,25 @@ def test_port_imports_without_jax():
             "tpu_mot_torch.models.yolo", "tpu_mot_torch.models.detector",
             "tpu_mot_torch.ops.nms", "tpu_mot_torch.parallel.serve",
             "tpu_mot_torch.utils.supervisor",
-            "tpu_mot_torch.utils.profiling"} <= set(mods)
+            "tpu_mot_torch.utils.profiling", "tpu_mot_torch.parallel.train",
+            "tpu_mot_torch.utils.checkpoint", "tpu_mot_torch.native",
+            "tpu_mot_torch.data.mot", "tpu_mot_torch.data.video",
+            "tpu_mot_torch.utils.viz", "tpu_mot_torch.cli",
+            "tpu_mot_torch.__main__"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
         sys.modules["flax"] = None
+        sys.modules["optax"] = None
+        sys.modules["orbax"] = None
         sys.modules["tpu_mot"] = None
         for m in {sorted(mods)!r} + ["chip_smoke"]:
             importlib.import_module(m)
         scan = sys.modules["tpu_mot_torch.tracker.scan"]
         assert callable(scan.run_sequence_strided_detector)
         assert callable(scan.run_sequence_strided_batched)
-        assert not any(k.split(".")[0] in ("jax", "flax", "tpu_mot")
+        assert not any(k.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                           "tpu_mot")
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
     """)

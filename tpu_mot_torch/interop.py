@@ -7,10 +7,12 @@ mid-sequence bank; so does the single-object flow's KCFBank.  YOLO
 parameters convert between the flax tree ({"params", "batch_stats"} of
 nested dicts, HWIO kernels) and the port's state dict (OIHW), and
 `numpy_yolo_params` draws a flax-layout tree from a NumPy seed, so both
-packages can run the same weights without JAX on the card.  Nothing here
-imports jax: JAX values are read as NumPy arrays through attribute access,
-and the reverse direction returns NumPy fields to build the JAX values
-from.
+packages can run the same weights without JAX on the card; a JAX training
+state (params, batch_stats and optax.adam's moments) converts into a state
+dict and torch.optim.Adam's state, so a JAX run resumes in the port.
+Nothing here imports jax: JAX values are read as NumPy arrays through
+attribute access, and the reverse direction returns NumPy fields to build
+the JAX values from.
 """
 
 from __future__ import annotations
@@ -97,30 +99,72 @@ def kcf_bank_to_numpy(bank: KCFBank) -> dict:
             "alive": bank.alive.detach().cpu().numpy()}
 
 
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _param_leaves(params) -> dict:
+    """A flax params tree {name: {"conv": {"kernel" HWIO[, "bias"]}[, "bn":
+    {"scale", "bias"}]}} (or an optimizer moment of the same shape) ->
+    {state-dict name: float32 tensor}, kernels OIHW."""
+    sd = {}
+    for name, p in params.items():
+        conv = p["conv"]
+        sd[f"{name}.conv.weight"] = _t(np.transpose(np.asarray(conv["kernel"]),
+                                                    (3, 2, 0, 1)))
+        if "bias" in conv:
+            sd[f"{name}.conv.bias"] = _t(conv["bias"])
+        if "bn" in p:
+            sd[f"{name}.bn.weight"] = _t(p["bn"]["scale"])
+            sd[f"{name}.bn.bias"] = _t(p["bn"]["bias"])
+    return sd
+
+
 def yolo_params_from_jax(tree) -> dict:
     """A flax YOLO variable tree {"params": {name: {"conv": {"kernel"
     HWIO[, "bias"]}[, "bn": {"scale", "bias"}]}}, "batch_stats": {name:
     {"bn": {"mean", "var"}}}} (NumPy or JAX leaves) -> the port's state
     dict (float32 tensors on the CPU; kernels OIHW)."""
-    def t(x):
-        return torch.from_numpy(np.array(x, np.float32))
-
-    sd = {}
-    for name, p in tree["params"].items():
-        conv = p["conv"]
-        sd[f"{name}.conv.weight"] = t(np.transpose(np.asarray(conv["kernel"]),
-                                                   (3, 2, 0, 1)))
-        if "bias" in conv:
-            sd[f"{name}.conv.bias"] = t(conv["bias"])
-        if "bn" in p:
-            stats = tree["batch_stats"][name]["bn"]
-            sd[f"{name}.bn.weight"] = t(p["bn"]["scale"])
-            sd[f"{name}.bn.bias"] = t(p["bn"]["bias"])
-            sd[f"{name}.bn.running_mean"] = t(stats["mean"])
-            sd[f"{name}.bn.running_var"] = t(stats["var"])
-            sd[f"{name}.bn.num_batches_tracked"] = torch.zeros(
-                (), dtype=torch.int64)
+    sd = _param_leaves(tree["params"])
+    for name, stats in tree["batch_stats"].items():
+        sd[f"{name}.bn.running_mean"] = _t(stats["bn"]["mean"])
+        sd[f"{name}.bn.running_var"] = _t(stats["bn"]["var"])
+        sd[f"{name}.bn.num_batches_tracked"] = torch.zeros(
+            (), dtype=torch.int64)
     return sd
+
+
+def _adam_of(opt_state):
+    """The ScaleByAdamState in an optax state (itself, or nested in the
+    tuples a chain builds), else None."""
+    if hasattr(opt_state, "mu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for x in opt_state:
+            found = _adam_of(x)
+            if found is not None:
+                return found
+    return None
+
+
+def yolo_train_state_from_jax(params, batch_stats, opt_state):
+    """The JAX package's train state (params, batch_stats, opt_state of
+    optax.adam: a ScaleByAdamState (count, mu, nu), alone or first in the
+    chain's tuple) -> (state dict, Adam state): {parameter name: {"step",
+    "exp_avg", "exp_avg_sq"}}, torch.optim.Adam's per-parameter state, the
+    moments OIHW.  parallel.train.train_state_from_params(spec,
+    make_optimizer, *these) then resumes the JAX run."""
+    adam = _adam_of(opt_state)
+    if adam is None:
+        raise ValueError("opt_state holds no ScaleByAdamState (count, mu, "
+                         "nu): only optax.adam's state converts")
+    sd = yolo_params_from_jax({"params": params, "batch_stats": batch_stats})
+    mu, nu = _param_leaves(adam.mu), _param_leaves(adam.nu)
+    step = float(np.asarray(adam.count))
+    state = {name: {"step": torch.tensor(step, dtype=torch.float32),
+                    "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+             for name in mu}
+    return sd, state
 
 
 def yolo_params_to_jax(state_dict) -> dict:

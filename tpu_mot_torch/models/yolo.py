@@ -17,11 +17,13 @@ A gray frame feeds the first conv as one channel with the kernel summed
 over its input channels (exact for replicated channels, a third of the
 work).
 
-Inference only: BatchNorm uses its running statistics (training is a later
-slice; a net in training mode raises).  Compute dtypes follow `spec.dtype`:
-"float32", "bfloat16" (input and kernel cast to bfloat16, BatchNorm in
-float32 rounded to bfloat16, as flax does), or "int8" (dynamic
-post-training quantization with exact integer sums; see `_quant_conv`).
+In eval mode BatchNorm uses its running statistics; in train mode it
+normalises with the batch statistics and updates the running ones in
+flax's convention (see `ConvBlock`), which is what parallel/train.py runs.
+Compute dtypes follow `spec.dtype`: "float32", "bfloat16" (input and
+kernel cast to bfloat16, BatchNorm in float32 rounded to bfloat16, as flax
+does), or "int8" (dynamic post-training quantization with exact integer
+sums, inference only; see `_quant_conv`).
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ class YoloSpec:
     # Conv compute dtype: "float32", "bfloat16" or "int8".
     dtype: str = "float32"
     # BatchNorm running-statistics momentum in flax's convention (0.99 =
-    # torch momentum 0.01); only training reads it.
+    # torch momentum 0.01); only training reads it (ConvBlock).
     bn_momentum: float = 0.99
     # "auto", "direct" or "s2d4"; the port computes the direct composition
     # for every value (see the module docstring).
@@ -160,23 +162,44 @@ class ConvBlock(nn.Module):
     XLA's SAME pads (0, 1) at stride 2); it has a bias only where there is
     no BatchNorm.  A one-channel input into a conv that expects more
     channels is a gray frame: the kernel is summed over its input channels.
+
+    BatchNorm is flax's (nn.BatchNorm, epsilon 1e-5).  In train mode it
+    normalises with the batch mean and the BIASED batch variance E[y^2] -
+    E[y]^2 clipped at 0, reduced in float32 also under bfloat16 (flax's
+    force_float32_reductions), and updates running = m * running + (1 - m)
+    * batch with m = bn_momentum (flax's convention; torch's momentum is 1 -
+    m, and torch's own update would take the unbiased variance).
     """
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  use_bn: bool = True, act: bool = True,
-                 dtype: str = "float32"):
+                 dtype: str = "float32", bn_momentum: float = 0.99):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, padding=kernel // 2,
                               bias=not use_bn)
-        self.bn = (nn.BatchNorm2d(cout, eps=1e-5, momentum=0.01)
+        self.bn = (nn.BatchNorm2d(cout, eps=1e-5, momentum=1.0 - bn_momentum)
                    if use_bn else None)
+        self.bn_momentum = bn_momentum
         self.act = act
         self.dtype = dtype
 
+    def _batch_stats(self, y: torch.Tensor):
+        """Batch mean and biased variance of y [B, C, H, W] per channel, in
+        float32; updates the running statistics (no gradient)."""
+        if self.dtype == "int8":
+            raise ValueError("spec.dtype='int8' is inference-only; train "
+                             "in float32 or bfloat16")
+        y = y.float()
+        mean = y.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((y * y).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        bn, m = self.bn, self.bn_momentum
+        with torch.no_grad():
+            bn.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            bn.running_var.mul_(m).add_(var, alpha=1.0 - m)
+            bn.num_batches_tracked.add_(1)
+        return mean, var
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.bn is not None:
-            raise RuntimeError("the port's YOLO nets are inference-only "
-                               "(running statistics); call .eval()")
         conv = self.conv
         w = conv.weight
         fold = x.shape[1] == 1 and w.shape[1] != 1
@@ -189,16 +212,20 @@ class ConvBlock(nn.Module):
                 y = y + conv.bias[:, None, None]
             dt = torch.float32
         else:
-            dt = torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+            # float32 nets compute in their parameters' dtype (a .double()
+            # net is a float64 reference)
+            dt = torch.bfloat16 if self.dtype == "bfloat16" else w.dtype
             if fold:
                 w = w.sum(dim=1, keepdim=True)
             bias = conv.bias.to(dt) if conv.bias is not None else None
             y = F.conv2d(x.to(dt), w.to(dt), bias, conv.stride, conv.padding)
         if self.bn is not None:
             bn = self.bn
+            mean, var = ((bn.running_mean, bn.running_var)
+                         if not self.training else self._batch_stats(y))
             c = (slice(None), None, None)
-            mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-            y = ((y - bn.running_mean[c]) * mul[c] + bn.bias[c]).to(dt)
+            mul = torch.rsqrt(var + bn.eps) * bn.weight
+            y = ((y - mean[c]) * mul[c] + bn.bias[c]).to(dt)
         if self.act:
             y = F.leaky_relu(y, 0.1)
         return y
@@ -248,7 +275,8 @@ class _YoloNet(nn.Module):
             stride: int = 1) -> int:
         name = f"ConvBlock_{len(self._names)}"
         self.add_module(name, ConvBlock(cin, cout, kernel, stride,
-                                        dtype=self.spec.dtype))
+                                        dtype=self.spec.dtype,
+                                        bn_momentum=self.spec.bn_momentum))
         self._names.append(name)
         return cout
 

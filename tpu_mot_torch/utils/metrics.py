@@ -1,10 +1,12 @@
-"""CLEAR-MOT and HOTA tracking metrics, host side (the parts of
-tpu_mot/utils/metrics.py that the port uses, copied: NumPy and SciPy only).
+"""Tracking and detection metrics, host side (a copy of
+tpu_mot/utils/metrics.py: NumPy and SciPy only).
 
 Per-frame inputs are sequences of (ids [N], boxes [N, 4]) with boxes as
 (cx, cy, w, h).  `clear_mot` matches ground truth to hypotheses per frame at
 an IoU threshold, keeping earlier pairings (CLEAR rules), and adds IDF1;
-`hota` is Luiten et al.'s two-pass HOTA.
+`hota` is Luiten et al.'s two-pass HOTA; `otb_precision` is the
+single-object protocol (centre-error precision, mean IoU) and
+`detection_map` the detector's VOC mean average precision.
 """
 
 from __future__ import annotations
@@ -26,6 +28,90 @@ def _iou_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     union = (a[:, 2] * a[:, 3])[:, None] + b[:, 2] * b[:, 3] - inter
     return np.where(union > 0, inter / union, 0.0)
 
+
+def otb_precision(gt_boxes, pred_boxes, thresholds=(20.0,)) -> dict:
+    """OTB single-object metrics: center-error precision at pixel
+    thresholds and mean IoU (success proxy) — the published KCF numbers'
+    protocol (arXiv:1404.7584 Table 1, 'mean precision @20px').
+
+    gt_boxes / pred_boxes: [N, 4] (cx, cy, w, h) per frame.
+    """
+    gt = np.asarray(gt_boxes, float)
+    pr = np.asarray(pred_boxes, float)
+    err = np.hypot(gt[:, 0] - pr[:, 0], gt[:, 1] - pr[:, 1])
+    # Per-frame IoU elementwise: O(N), not the diagonal of an [N, N] matrix.
+    gl, gr = gt[:, :2] - gt[:, 2:] / 2, gt[:, :2] + gt[:, 2:] / 2
+    pl_, pr_ = pr[:, :2] - pr[:, 2:] / 2, pr[:, :2] + pr[:, 2:] / 2
+    inter = np.prod(np.clip(np.minimum(gr, pr_) - np.maximum(gl, pl_),
+                            0.0, None), axis=1)
+    union = (np.prod(gt[:, 2:], 1) + np.prod(pr[:, 2:], 1) - inter)
+    ious = inter / np.maximum(union, 1e-9)
+    out = {f"precision@{int(t)}px": float((err <= t).mean())
+           for t in thresholds}
+    out["mean_center_error"] = float(err.mean())
+    out["mean_iou"] = float(ious.mean())
+    out["success@0.5"] = float((ious >= 0.5).mean())
+    return out
+
+
+def detection_map(pred_frames, gt_frames, num_classes: int,
+                  iou_thr: float = 0.5) -> dict:
+    """VOC-style mean average precision, the detector-quality signal that
+    training needs beyond its loss.
+
+    pred_frames : per-image (boxes [N, 4] cxcywh, scores [N], classes [N])
+    gt_frames   : per-image (boxes [M, 4] cxcywh, classes [M])
+    Returns {"map": float, "ap_per_class": [C]}.  AP is the area under the
+    monotone precision envelope (continuous VOC-2010 protocol); each GT box
+    matches at most one detection, greedily by descending score.
+    """
+    aps = []
+    for c in range(num_classes):
+        # Flatten class-c detections across images with image indices.
+        recs = []
+        n_gt = 0
+        gt_c = []
+        for img, (gb, gc) in enumerate(gt_frames):
+            gb = np.asarray(gb, float).reshape(-1, 4)
+            gc = np.asarray(gc)
+            sel = np.where(gc == c)[0]
+            gt_c.append(gb[sel])
+            n_gt += len(sel)
+        for img, (pb, ps, pc) in enumerate(pred_frames):
+            pb = np.asarray(pb, float).reshape(-1, 4)
+            ps = np.asarray(ps, float).reshape(-1)
+            pc = np.asarray(pc).reshape(-1)
+            for i in np.where(pc == c)[0]:
+                recs.append((float(ps[i]), img, pb[i]))
+        if n_gt == 0:
+            continue                       # class absent from GT: skip
+        recs.sort(key=lambda r: -r[0])
+        taken = [np.zeros(len(g), bool) for g in gt_c]
+        tp = np.zeros(len(recs))
+        for k, (_, img, box) in enumerate(recs):
+            g = gt_c[img]
+            if len(g) == 0:
+                continue
+            ious = _iou_matrix(box[None], g)[0]
+            j = int(np.argmax(ious))
+            if ious[j] >= iou_thr and not taken[img][j]:
+                taken[img][j] = True
+                tp[k] = 1.0
+        cum_tp = np.cumsum(tp)
+        recall = cum_tp / n_gt
+        precision = cum_tp / np.arange(1, len(recs) + 1)
+        # Monotone precision envelope, integrated over recall.
+        ap = 0.0
+        if len(recs):
+            for k in range(len(precision) - 2, -1, -1):
+                precision[k] = max(precision[k], precision[k + 1])
+            prev_r = 0.0
+            for k in range(len(recs)):
+                ap += (recall[k] - prev_r) * precision[k]
+                prev_r = recall[k]
+        aps.append(ap)
+    return {"map": float(np.mean(aps)) if aps else 0.0,
+            "ap_per_class": [float(a) for a in aps]}
 
 
 def clear_mot(gt_frames, hyp_frames, iou_thr: float = 0.5) -> dict:
