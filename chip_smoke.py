@@ -109,6 +109,28 @@ nonzero exit, no "ok" line):
              samples with their spread; peak device memory; later, in the
              times and profile phases, each kernel at its serving shape and
              the launches and busy share of a multi-stream frame;
+  dist       the multi-device contract (parallel/mesh.py) at the serve
+             phase's size: the 8 streams sharded over ranks of one process
+             each (mesh.spawn), world min(cards, 4) over NCCL and worlds 2
+             and 4 over gloo on cuda:0, each rank rendering its own
+             streams: the tracker cell (multi_stream_sequence, every rank's
+             K1 and K2 counted and each call held to its plain version),
+             the shared detector batch (all-gather of the 8 frames, one
+             forward on every rank: bit-equal to the one-process forward;
+             the per-shard forwards matched to it as sets), the fused
+             shared-detector step and strided-4 serving over the mesh,
+             gathered in rank order against the serve phase's one-process
+             runs (bit for bit at world 1; ids and valid equal, boxes 1e-4
+             px at worlds 2 and 4) and the tracker cell against the JAX
+             dump; aggregate stream-frames/s of the sharded tracker and of
+             the fused step per world; the data-parallel train step
+             (yolov3-tiny at 416, SGD, a global batch of 32 distinct
+             scenes) at worlds 1 and 2 against the one-process step: step
+             0's loss (1e-5 relative), the running statistics (1e-5) and
+             parameters (5e-2 of the update) after it, step 1's loss (1e-3
+             relative), every rank bit-identical after 3 steps, images/s;
+             at world 2 the same step with per-rank statistics, with no
+             gradient sum and with averaged gradients must fail them;
   train      detector training at full width (see TRAIN_DUMP): yolov3-tiny,
              80 classes at 416, float32, seeded weights, Adam 1e-3 on a batch
              of 4 bench-generator scenes, on cuda:0: the port's resize of the
@@ -159,6 +181,8 @@ nonzero exit, no "ok" line):
 The line before the last is {"kernels": [...]}: per kernel its launches
 in the path that runs it (K1, K2: default; K3-K5: HF), then each kernel's
 serving row ("<name>_serve": its launches in the serving run, its shape),
+then K1's and K2's rows at a rank's shapes of the sharded serving run
+("<name>_dist": a rank's launches in the tracker cell of world 4),
 "max_abs_err" the
 largest difference from the plain version (K2: in col_of and iters; K4,
 K5: relative to the largest magnitude, see "err_kind"), "ms"/"plain_ms"
@@ -170,8 +194,10 @@ them).  The last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -181,6 +207,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -201,6 +228,7 @@ from tpu_mot_torch.ops import features as feat_ops
 from tpu_mot_torch.ops import kcf as kcf_ops
 from tpu_mot_torch.ops import nms as nms_ops
 from tpu_mot_torch.ops import patch as patch_ops
+from tpu_mot_torch.parallel import mesh as mesh_mod
 from tpu_mot_torch.parallel import serve, train
 from tpu_mot_torch.tracker import api
 from tpu_mot_torch.tracker import bank as bank_mod
@@ -367,24 +395,28 @@ def bench_fixture():
     return frames_u8, d, v, boxes, vis, dets_list, cfg
 
 
-def train_scenes(n: int = TRAIN_BATCH, input_size: int = 416):
-    """The training batch's scenes: per scene s < n the first frame of the
-    bench generator at seed s with 80 object classes.  Returns (frames [n,
-    1080, 1920] float32 in [0, 1], boxes [n, 128, 4] cxcywh scaled to the
-    input_size x input_size input, classes [n, 128], visible [n, 128])."""
-    frames, boxes, classes, vis = [], [], [], []
-    for seed in range(n):
+def train_scenes(n: int = TRAIN_BATCH, input_size: int = 416,
+                 first: int = 0):
+    """The training batch's scenes: per scene s in [first, first + n) the
+    first frame of the bench generator at seed s with 80 object classes.
+    Returns (frames [n, 1080, 1920] float32 in [0, 1], boxes [n, 128, 4]
+    cxcywh scaled to the input_size x input_size input, classes [n, 128],
+    visible [n, 128]); one thread a scene, as serve_fixture."""
+    def scene(seed):
         rng = np.random.default_rng(seed)
         objs = synthetic.make_objects(N_OBJ, HEIGHT, WIDTH, rng, min_size=24,
                                       max_size=64, max_speed=3.0,
                                       n_classes=80)
         f, b, v = synthetic.render_sequence(objs, 1, HEIGHT, WIDTH,
                                             seed=seed, noise=0.01)
-        frames.append(f[0])
-        boxes.append(b[0] * np.float32([input_size / WIDTH,
-                                        input_size / HEIGHT] * 2))
-        classes.append([o.cls for o in objs])
-        vis.append(v[0])
+        return (f[0], b[0] * np.float32([input_size / WIDTH,
+                                         input_size / HEIGHT] * 2),
+                [o.cls for o in objs], v[0])
+
+    with concurrent.futures.ThreadPoolExecutor(
+            min(n, os.cpu_count() or 1)) as pool:
+        frames, boxes, classes, vis = zip(*pool.map(
+            scene, range(first, first + n)))
     return (np.stack(frames), np.stack(boxes).astype(np.float32),
             np.asarray(classes, np.int64), np.stack(vis))
 
@@ -401,15 +433,15 @@ def train_images(frames, input_size: int = 416, device=None) -> torch.Tensor:
 
 
 def serve_fixture(n_streams: int = SERVE_STREAMS,
-                  n_frames: int = SERVE_FRAMES):
-    """S streams of the bench generator, stream s at seed s: frames u8
-    [S, N, 1080, 1920], detections from the ground truth [S, N, 160, 5] and
-    valid, ground-truth boxes [S, N, K, 4] and visibility [S, N, K], and
-    the tracker config."""
-    frames, d, v, gt, vis = [], [], [], [], []
+                  n_frames: int = SERVE_FRAMES, first: int = 0):
+    """S streams of the bench generator, stream s at seed s (streams first
+    to first + S - 1): frames u8 [S, N, 1080, 1920], detections from the
+    ground truth [S, N, 160, 5] and valid, ground-truth boxes [S, N, K, 4]
+    and visibility [S, N, K], and the tracker config."""
     cfg = TrackerConfig(max_tracks=128, max_detections=160,
                         frame_height=HEIGHT, frame_width=WIDTH)
-    for s in range(n_streams):
+
+    def stream(s):
         objs = synthetic.make_objects(N_OBJ, HEIGHT, WIDTH,
                                       np.random.default_rng(s), min_size=24,
                                       max_size=64, max_speed=3.0)
@@ -422,13 +454,14 @@ def serve_fixture(n_streams: int = SERVE_STREAMS,
         for f in range(n_frames):
             dd[f], vv[f] = api.pad_detections(dets_list[f],
                                               cfg.max_detections)
-        frames.append((fr * 255).astype(np.uint8))
-        d.append(dd)
-        v.append(vv)
-        gt.append(boxes)
-        vis.append(vi)
-    return (np.stack(frames), np.stack(d), np.stack(v), np.stack(gt),
-            np.stack(vis), cfg)
+        return (fr * 255).astype(np.uint8), dd, vv, boxes, vi
+
+    # one thread a stream (numpy releases the GIL in the renderer's array
+    # work); every stream draws from its own seeds
+    with concurrent.futures.ThreadPoolExecutor(
+            min(n_streams, os.cpu_count() or 1)) as pool:
+        parts = list(pool.map(stream, range(first, first + n_streams)))
+    return (*(np.stack(x) for x in zip(*parts)), cfg)
 
 
 def e2e_fixture():
@@ -1855,6 +1888,13 @@ def serve_dump_check(out, dump, gt, vis):
             bool(np.array_equal(boxes[both], dump["boxes"][both])), motas)
 
 
+def serve_detect(model, frames, impl: str = "greedy"):
+    """configs[4]'s detector call (tools/bench_configs4.py): NMS (greedy or
+    fast) into SERVE_DETS slots."""
+    return detector.detect_batch(model, frames, (HEIGHT, WIDTH), SERVE_DETS,
+                                 E2E_IOU, E2E_SCORE, nms_impl=impl)
+
+
 def serve_detector(dev, frames_tm, card):
     """Gate 4 and the fused detect -> track times: tools/bench_configs4.py's
     detector over the S streams' frames (time-major [N, S, H, W])."""
@@ -1870,12 +1910,10 @@ def serve_detector(dev, frames_tm, card):
     cfg = TrackerConfig(max_tracks=128, max_detections=SERVE_DETS,
                         frame_height=HEIGHT, frame_width=WIDTH)
 
-    def detect_fn(m, fr, impl="greedy"):
-        return detector.detect_batch(m, fr, (HEIGHT, WIDTH), SERVE_DETS,
-                                     E2E_IOU, E2E_SCORE, nms_impl=impl)
+    detect_fn = serve_detect
 
     def fast_fn(m, fr):
-        return detect_fn(m, fr, "fast")
+        return serve_detect(m, fr, "fast")
 
     banks0 = serve.make_stream_banks(n_str, cfg, device=dev)
     # the fused step: the shared and data-parallel forms are one forward
@@ -1896,6 +1934,7 @@ def serve_detector(dev, frames_tm, card):
     heads = {}
     for i in range(0, n, SERVE_STRIDE):
         heads[i] = detect_fn(model, frames_tm[i])
+    strided = {}
     for class_aware in (False, True):
         c = cfg.replace(class_aware=class_aware)
         width = 6 if class_aware else 5
@@ -1916,6 +1955,7 @@ def serve_detector(dev, frames_tm, card):
         _, st = serve.multi_stream_sequence_strided(
             model, serve.make_stream_banks(n_str, c, device=dev), frames_tm,
             c, detect_fn, SERVE_STRIDE)
+        strided[class_aware] = triple(st)
         equal = all(torch.equal(getattr(st, k), getattr(ref, k))
                     for k in ("ids", "valid", "boxes", "cls"))
         alive = st.ids >= 0
@@ -1976,7 +2016,8 @@ def serve_detector(dev, frames_tm, card):
     for name, secs in times.items():
         log("serve", f"times {name}, S={n_str}: " + rate_line(
             secs, w, n_str) + f" ({card})")
-    return seen_b[-1]
+    return seen_b[-1], dict(detect=tuple(x.cpu() for x in heads[0]),
+                            fused=triple(shared[1]), strided=strided[False])
 
 
 def bank_leaves(bank) -> list:
@@ -2138,7 +2179,7 @@ def phase_serve(dev, card, default_out):
 
     # gate 4: detector serving
     frames_tm = frames.transpose(0, 1)
-    det_b = serve_detector(dev, frames_tm, card)
+    det_b, det_refs = serve_detector(dev, frames_tm, card)
 
     # gate 5: the supervisor on stream 0
     sup = StreamSupervisor(cfg)
@@ -2187,6 +2228,8 @@ def phase_serve(dev, card, default_out):
     w = slice(0, SERVE_WINDOW)
     return dict(sched_check=(frames[:, w], d[:, w], v[:, w], cfg,
                              out.ids[:, w], out.valid[:, w], out.boxes[:, w]),
+                dist_refs=dict(tracker=triple(out), gt=gt, vis=vis,
+                               dump=dump, **det_refs),
                 seen=seen, seen_hf=seen_hf, det_b=det_b, errs=errs,
                 errs_hf=errs_hf, launches=launches,
                 windows={k: streams(k) for k in (1, n_str)})
@@ -2217,27 +2260,21 @@ def serve_kernel_times(seen, seen_hf, det_b, errs, errs_hf, launches):
     b = seen["auction_solve"]
     d_model, d_feat, sigma = seen_hf["kcf_detect"]
     t_model, t_feat, yf, t_sigma, lam, lr = seen_hf["kcf_train"]
-    rows1, s1 = c1[3].shape
+    rows1 = c1[3].shape[0]
     k3, rows3, s3 = c3[3].shape
-    frame1 = roi_k._row_frames(levels, rows1, c1[3].device)
     frame3 = roi_k._row_frames(lv3, rows3, c3[3].device)
-    n_prob, n = b.shape[:2]
     rounds = auction_k.auction_solve(b, EPS, 2000)[1]
     ni, c, s, _ = d_feat.shape
     sf = s // 2 + 1
     nt = t_model.xf.shape[0]
     bounds = {
-        "roi_extract": bound(
-            rows1 * s1 * s1 * 4 + rows1 * (3 + 2 * s1) * 4
-            + touched_pixels(c1[0], c1[3], c1[4], frame1),
-            10 * rows1 * s1 * s1),
+        "roi_extract": roi_bound(levels, c1),
         "roi_extract_scales": bound(
             k3 * rows3 * s3 * s3 * 4 + rows3 * 3 * 4 + k3 * rows3 * 2 * s3 * 4
             + touched_pixels(c3[0].repeat(k3), c3[3].reshape(-1, s3),
                              c3[4].reshape(-1, s3), frame3.repeat(k3)),
             10 * k3 * rows3 * s3 * s3),
-        "auction_solve": bound(b.numel() * 4 + n_prob * (n + 1) * 4,
-                               int(rounds.sum()) * 4 * n * n),
+        "auction_solve": auction_bound(b, rounds),
         "kcf_detect": bound(
             ni * c * s * s * 4 + nt * (c + 1) * s * sf * 8 + ni * s * s * 4,
             ni * (c * fft_flops(s) + 8 * c * s * sf + 3 * fft_flops(s)
@@ -2303,6 +2340,474 @@ def serve_kernel_times(seen, seen_hf, det_b, errs, errs_hf, launches):
     log("times", f"serving K2 batch [{nb}, {nn}, {nn}] of the detector cell "
                  f"(rounds {det_rounds.tolist()}): device time per call "
                  f"(profiler) {det_ms:.4f} ms")
+    return rows
+
+
+# The multi-device contract (parallel/mesh.py) at configs[4]'s size: the 8
+# serving streams sharded over ranks, one process each, in the NCCL world
+# (one rank a card: min(cards, 4)) and in DIST_GLOO_WORLDS gloo ranks that
+# share cuda:0.  Each rank renders its own streams (stream s at seed s);
+# the gathered outputs must equal the serve phase's one-process outputs:
+# bit for bit at world 1, ids and valid equal and boxes within
+# DIST_BOX_TOL px at more ranks.  The data-parallel train step (yolov3-tiny
+# at 416 from TRAIN_SPEC's seed-0 weights; a global batch of
+# DIST_TRAIN_BATCH distinct bench scenes, scene s at seed s, each rank
+# rendering its block; plain SGD at DIST_LR, so that a step's update is the
+# summed gradient itself) runs at DIST_TRAIN_WORLDS against the
+# one-process step on the whole batch, within DIST_LIMITS (dp_errors):
+# step 0's and step 1's losses (relative), the running statistics after
+# step 0 (absolute), the parameters after step 0 (each tensor's distance to
+# the one-process parameters over the one-process update, the worst
+# tensor); and every rank bit-identical after TRAIN_STEPS steps.  At world
+# 2 the step runs again with each fault of DIST_FAULTS put in for the run,
+# and each must fail those checks.  The parameter and step-1 limits leave
+# room for float32: flax's variance E[y^2] - E[y]^2 over a different
+# summation order moves the first blocks' updates by ~1e-3 of themselves,
+# and one step carries that into step 1's loss; the faults move the
+# updates by 0.5 and more and step 1's loss by percents.
+DIST_GLOO_WORLDS = (2, 4)
+DIST_TRAIN_WORLDS = (1, 2)
+DIST_TRAIN_BATCH = 32
+DIST_REPS = 5
+DIST_LR = 1e-3
+DIST_BOX_TOL = 1e-4
+DIST_LIMITS = dict(loss0=1e-5, stats=1e-5, params=5e-2, loss1=1e-3)
+
+
+def state_digest(model) -> str:
+    """SHA-256 of the state dict's bytes: equal digests, bit-equal states."""
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_batch(dev, spec, first: int = 0, n: int = DIST_TRAIN_BATCH):
+    """Bench scenes first..first + n - 1 (train_scenes) as the net's input
+    on dev, and their targets: the data-parallel step's global batch, or
+    with first and n a rank's block of it."""
+    frames, boxes, classes, vis = train_scenes(n, spec.input_size, first)
+    return (train_images(frames, spec.input_size, dev),
+            [torch.as_tensor(t, device=dev)
+             for t in train.build_targets(spec, boxes, classes, vis)])
+
+
+# the library's gradient sum, kept while a fault stands in for it
+SUM_GRADIENTS = train._sum_gradients
+
+
+def averaged_gradients(model, mesh) -> None:
+    """DDP's average in place of the sum."""
+    SUM_GRADIENTS(model, mesh)
+    for p in model.parameters():
+        p.grad.div_(mesh.size())
+
+
+# Faults the data-parallel checks must catch: the train module's function
+# that each replaces for a run, and the stand-in.
+DIST_FAULTS = {
+    "per-rank statistics": ("batch_stats_over",
+                            lambda model, mesh, n: contextlib.nullcontext()),
+    "no gradient sum": ("_sum_gradients", lambda model, mesh: None),
+    "averaged gradients": ("_sum_gradients", averaged_gradients),
+}
+
+
+@contextlib.contextmanager
+def dp_fault(name: str):
+    """The fault `name` of DIST_FAULTS put into the train module for the
+    block."""
+    attr, fake = DIST_FAULTS[name]
+    real = getattr(train, attr)
+    setattr(train, attr, fake)
+    try:
+        yield
+    finally:
+        setattr(train, attr, real)
+
+
+def dp_run(spec, dev, x, t, mesh=None) -> tuple[dict, object, object]:
+    """TRAIN_STEPS steps of SGD(DIST_LR) from the seed-0 weights on the
+    batch (x, t), over a "batch" mesh a rank's block of it: the losses, the
+    state dict after step 0 and the digest after the last step; with the
+    state and the step."""
+    state = train_state(spec, dev, mesh=mesh,
+                        make_optimizer=lambda p: torch.optim.SGD(p, DIST_LR))
+    step = train.make_train_step(spec, mesh)
+    losses = []
+    for i in range(TRAIN_STEPS):
+        state, loss = step(state, x, t)
+        losses.append(float(loss))
+        if i == 0:
+            after0 = {k: v.to("cpu", copy=True)
+                      for k, v in state.model.state_dict().items()
+                      if "num_batches" not in k}
+    return (dict(losses=losses, after0=after0,
+                 digest=state_digest(state.model)), state, step)
+
+
+def dp_errors(run: dict, ref: dict, p0: dict) -> dict:
+    """A data-parallel run's distances to the one-process run `ref` (the
+    keys of DIST_LIMITS); p0 the weights both started from."""
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    a, b = run["after0"], ref["after0"]
+    return dict(
+        loss0=rel(run["losses"][0], ref["losses"][0]),
+        stats=max(float((a[k] - b[k]).abs().max()) for k in b
+                  if "running" in k),
+        params=max(float((a[k] - b[k]).norm() / (b[k] - p0[k]).norm())
+                   for k in p0 if "running" not in k
+                   and "num_batches" not in k),
+        loss1=rel(run["losses"][1], ref["losses"][1]))
+
+
+def dp_failures(errs: dict) -> list[str]:
+    """The DIST_LIMITS that errs exceeds."""
+    return [k for k, lim in DIST_LIMITS.items() if not errs[k] <= lim]
+
+
+def to_device(x, dev):
+    """Tensors in x (a tensor, or a tuple or list of them and other values)
+    on dev."""
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_device(y, dev) for y in x)
+    return x
+
+
+def synced_samples(runs: dict, mesh) -> dict:
+    """Seconds of each run on every rank at once: a barrier, the run, a
+    synchronise, a barrier; DIST_REPS rounds of the runs in turns after
+    one warm call each."""
+    group = mesh.get_group()
+
+    def once(fn):
+        torch.distributed.barrier(group=group)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        torch.distributed.barrier(group=group)
+        return time.perf_counter() - t0
+
+    for fn in runs.values():
+        once(fn)
+    out = {k: [] for k in runs}
+    for _ in range(DIST_REPS):
+        for k, fn in runs.items():
+            out[k].append(once(fn))
+    return out
+
+
+def dist_rank(rank: int, world: int, backend: str, with_train: bool) -> dict:
+    """One rank of the dist phase, on the card spawn set: its block of the
+    serving streams through the sharded tracker (counted; every K1/K2 call
+    against its plain version), the shared detector, the fused step and
+    strided-4 serving, the serving rates, and with_train the
+    data-parallel train step."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    m = mesh_mod.stream_mesh(world, device=dev, backend=backend)
+    k = SERVE_STREAMS // world
+    t0 = time.perf_counter()
+    frames_np, d_np, v_np, _, _, cfg = serve_fixture(k, first=rank * k)
+    frames = torch.as_tensor(frames_np, device=dev)
+    del frames_np
+    d = torch.as_tensor(d_np, device=dev)
+    v = torch.as_tensor(v_np, device=dev)
+    res = dict(rank=rank, device=str(dev), render_s=time.perf_counter() - t0)
+
+    def banks(c):
+        return serve.make_stream_banks(SERVE_STREAMS, c, m, device=dev)
+
+    # the tracker cell, counted; then every K1/K2 call against its plain
+    # version
+    torch.cuda.synchronize()
+    reset_counts()
+    _, out = serve.multi_stream_sequence(banks(cfg), frames, d, v, cfg)
+    torch.cuda.synchronize()
+    res["tracker_launches"] = read_counts()
+    res["tracker"] = triple(out)
+    _, errs, _, seen = checked_run(serve.multi_stream_sequence, banks(cfg),
+                                   frames, d, v, cfg)
+    res["errs"] = {key: (len(e), max(e)) for key, e in errs.items()}
+    if rank == 0:
+        res["seen"] = {key: to_device(seen[key], "cpu")
+                       for key in ("roi_extract", "auction_solve")}
+
+    # the detector cells: the shared batch and the per-shard forward of
+    # frame 0, then the fused step and strided-4 serving, counted
+    spec = YoloSpec("yolov3-tiny", num_classes=80)
+    model = detector.YoloDetector.random_init(
+        spec, seed=0, device=dev, max_out=SERVE_DETS, iou_thr=E2E_IOU,
+        score_thr=E2E_SCORE).model
+    dcfg = TrackerConfig(max_tracks=128, max_detections=SERVE_DETS,
+                         frame_height=HEIGHT, frame_width=WIDTH)
+    frames_tm = frames.transpose(0, 1)
+    res["detect"] = to_device(serve.shared_detector_detect(
+        model, frames_tm[0], serve_detect, m, with_classes=True), "cpu")
+    res["detect_dp"] = to_device(serve_detect(model, frames_tm[0]), "cpu")
+    torch.cuda.synchronize()
+    reset_counts()
+    _, fused = serve.detect_then_track_step_shared(
+        model, banks(dcfg), frames_tm[0], dcfg, serve_detect, m)
+    _, st = serve.multi_stream_sequence_strided(
+        model, banks(dcfg), frames_tm, dcfg, serve_detect, SERVE_STRIDE,
+        mesh=m)
+    torch.cuda.synchronize()
+    res["detector_launches"] = read_counts()
+    res["fused"], res["strided"] = triple(fused), triple(st)
+
+    # aggregate rates over SERVE_WINDOW frames: the tracker from the banks
+    # after frame 16, the fused shared-detector step from fresh banks
+    w = SERVE_WINDOW
+    b16, _ = serve.multi_stream_sequence(banks(cfg), frames[:, :16],
+                                         d[:, :16], v[:, :16], cfg)
+    win = slice(16, 16 + w)
+
+    def fused_run():
+        b = banks(dcfg)
+        for i in range(w):
+            b, _ = serve.detect_then_track_step_shared(
+                model, b, frames_tm[i], dcfg, serve_detect, m)
+
+    res["serve_s"] = synced_samples({
+        "tracker": lambda: serve.multi_stream_sequence(
+            b16, frames[:, win], d[:, win], v[:, win], cfg),
+        "fused": fused_run}, m)
+    del frames, frames_tm, b16
+
+    if with_train:
+        bm = mesh_mod.batch_mesh(world, device=dev, backend=backend)
+        tspec = YoloSpec(**TRAIN_SPEC)
+        k = DIST_TRAIN_BATCH // world
+        x, t = dist_batch(dev, tspec, first=rank * k, n=k)
+        res["train"], state, step = dp_run(tspec, dev, x, t, bm)
+        res["train_s"] = synced_samples(
+            {"train": lambda: [step(state, x, t) for _ in range(2)]},
+            bm)["train"]
+        del state
+        if world == 2:
+            res["faults"] = {}
+            for name in DIST_FAULTS:
+                with dp_fault(name):
+                    res["faults"][name] = dp_run(tspec, dev, x, t, bm)[0]
+    return res
+
+
+def dist_equal(got, ref, world: int, what: str) -> str:
+    """Gathered (ids, valid, boxes) against the one-process run: bit-equal
+    at world 1, else ids and valid equal and every slot's box within
+    DIST_BOX_TOL."""
+    same = all(np.array_equal(a, b) for a, b in zip(got[:2], ref[:2]))
+    diff = float(np.abs(got[2] - ref[2]).max(initial=0.0))
+    bit = bool(np.array_equal(got[2], ref[2]))
+    if not (same and (bit if world == 1 else diff <= DIST_BOX_TOL)):
+        raise AssertionError(f"dist world {world}: {what} against the "
+                             f"one-process run: ids and valid equal {same}, "
+                             f"boxes {diff:.3g} px (bit-equal {bit})")
+    return (f"ids and valid equal, boxes bit-equal {bit} (largest "
+            f"difference {diff:.3g} px)")
+
+
+def phase_dist(dev, card, refs) -> dict:
+    """The sharded serving and training paths at worlds 1 (NCCL), 2 and 4
+    (gloo on cuda:0) against the one-process runs (see DIST_GLOO_WORLDS);
+    returns what dist_kernel_times takes."""
+    t_phase = time.perf_counter()
+    tspec = YoloSpec(**TRAIN_SPEC)
+    x, t = dist_batch(dev, tspec)
+    ref_train = dp_run(tspec, dev, x, t)[0]
+    p0 = seed_params(tspec)
+    del x, t
+    ref_d, ref_v, ref_c = refs["detect"]
+    ref_d6 = detector.dets_with_classes(ref_d, ref_c)
+    worlds = ([(min(torch.cuda.device_count(), 4), "nccl", "cuda")]
+              + [(n, "gloo", "cuda:0") for n in DIST_GLOO_WORLDS])
+    want_t = {k: 0 for k in KERNELS}
+    want_t.update(roi_extract=SERVE_FRAMES, auction_solve=SERVE_FRAMES)
+    want_d = dict(want_t, roi_extract=SERVE_FRAMES + 1,
+                  auction_solve=SERVE_FRAMES + 1)
+    limits = {"roi_extract": SERVE_ROI_TOL, "auction_solve": 0}
+    kept = dict(errs={k: 0.0 for k in limits})
+    for world, backend, where in worlds:
+        t0 = time.perf_counter()
+        ranks = mesh_mod.spawn(dist_rank, world, backend,
+                               world in DIST_TRAIN_WORLDS, device=where,
+                               backend=backend)
+        tag = f"world {world}, {backend}"
+        log("dist", f"{tag}: {world} rank(s) on "
+                    f"{[r['device'] for r in ranks]} in "
+                    f"{time.perf_counter() - t0:.1f} s (each rendered its "
+                    f"{SERVE_STREAMS // world} streams x {SERVE_FRAMES} "
+                    f"frames of {HEIGHT}x{WIDTH} in <= "
+                    f"{max(r['render_s'] for r in ranks):.1f} s)")
+        for r in ranks:
+            if (r["tracker_launches"] != want_t
+                    or r["detector_launches"] != want_d):
+                raise AssertionError(
+                    f"dist {tag}, rank {r['rank']}: launches "
+                    f"{r['tracker_launches']} (tracker), "
+                    f"{r['detector_launches']} (detector); expected "
+                    f"{want_t}, {want_d}")
+            for key, (n, e) in r["errs"].items():
+                if not e <= limits[key]:
+                    raise AssertionError(f"dist {tag}, rank {r['rank']}: "
+                                         f"{key} against its plain version "
+                                         f"{e}")
+                kept["errs"][key] = max(kept["errs"][key], e)
+        log("dist", f"{tag}: every rank launched K1 and K2 {SERVE_FRAMES} "
+                    f"times in the tracker cell and {SERVE_FRAMES + 1} in "
+                    "the detector cells (fused step + strided-4), K3-K5 "
+                    "never; every K1/K2 call of the tracker cell against "
+                    "its plain version, per rank (calls, largest error): "
+                    f"{[r['errs'] for r in ranks]} (K1 limit "
+                    f"{SERVE_ROI_TOL:g} and bit-equal to the 4-tap mirror, "
+                    "K2 exact)")
+
+        def cat(key):
+            return tuple(np.concatenate([r[key][i] for r in ranks])
+                         for i in range(3))
+
+        got = cat("tracker")
+        log("dist", f"{tag}: tracker cell gathered over the ranks against "
+                    "the one-process run: "
+                    + dist_equal(got, refs["tracker"], world, "tracker"))
+        box_diff, _, motas = serve_dump_check(
+            types.SimpleNamespace(**{k: torch.as_tensor(x) for k, x in zip(
+                ("ids", "valid", "boxes"), got)}),
+            refs["dump"], refs["gt"], refs["vis"])
+        log("dist", f"{tag}: against the JAX dump ({SERVE_DUMP.name}): ids "
+                    f"and valid equal, boxes within {box_diff:.3g} px, "
+                    f"MOTA per stream {motas}")
+        sd = torch.cat([r["detect"][0] for r in ranks])
+        sv = torch.cat([r["detect"][1] for r in ranks])
+        shared_bit = torch.equal(sd, ref_d6) and torch.equal(sv, ref_v)
+        dd, dv, dc = (torch.cat([r["detect_dp"][i] for r in ranks]).numpy()
+                      for i in range(3))
+        matches = set_matches(dd, dv, dc, sd[..., :5].numpy(), sv.numpy(),
+                              sd[..., 5].numpy().astype(np.int64))
+        log("dist", f"{tag}: the shared detector batch (all-gather of "
+                    f"{SERVE_STREAMS} frames, one forward on every rank) "
+                    "bit-equal to the one-process forward: "
+                    f"{shared_bit}; the per-shard forwards "
+                    f"({SERVE_STREAMS // world} frames a rank) against it, "
+                    "detections "
+                    f"matching per stream {matches} of {SERVE_DETS} (floor "
+                    f"{E2E_MATCH_FLOOR})")
+        if not (shared_bit and min(matches) >= E2E_MATCH_FLOOR):
+            raise AssertionError(f"dist {tag}: shared detector bit-equal "
+                                 f"{shared_bit}, per-shard matches "
+                                 f"{matches}")
+        for key, what in (("fused", "the fused shared-detector step"),
+                          ("strided", f"strided-{SERVE_STRIDE} serving")):
+            log("dist", f"{tag}: {what} gathered against the one-process "
+                        "run: " + dist_equal(cat(key), refs[key], world,
+                                             what))
+        w = SERVE_WINDOW
+        for key in ("tracker", "fused"):
+            log("dist", f"{tag}: times {key} (sharded), S={SERVE_STREAMS} "
+                        f"over {world} rank(s): " + rate_line(
+                            ranks[0]["serve_s"][key], w, SERVE_STREAMS)
+                        + f" ({card})")
+        if world in DIST_TRAIN_WORLDS:
+            def judged(runs):
+                errs = dp_errors(runs[0], ref_train, p0)
+                same = (len({x["digest"] for x in runs}) == 1
+                        and all(x["losses"] == runs[0]["losses"]
+                                for x in runs))
+                return errs, dp_failures(errs) + ([] if same else
+                                                  ["ranks bit-identical"])
+
+            errs, failed = judged([r["train"] for r in ranks])
+            ms = [1000 * s / 2 for s in ranks[0]["train_s"]]
+            med = statistics.median(ms)
+            log("dist", f"{tag}: data-parallel train step, yolov3-tiny at "
+                        f"416, SGD {DIST_LR:g}, global batch "
+                        f"{DIST_TRAIN_BATCH} distinct scenes "
+                        f"({DIST_TRAIN_BATCH // world} a rank): losses "
+                        f"{ranks[0]['train']['losses']} (one process "
+                        f"{ref_train['losses']}); against the one-process "
+                        f"step {errs} (limits {DIST_LIMITS}); every rank's "
+                        f"state bit-identical after {TRAIN_STEPS} steps: "
+                        f"{'ranks bit-identical' not in failed}; "
+                        f"{DIST_TRAIN_BATCH * 1000 / med:.1f} images/s, "
+                        f"{med:.2f} ms a step (median of {len(ms)} samples "
+                        f"of 2 steps; {min(ms):.2f}-{max(ms):.2f} ms) "
+                        f"({card})")
+            if failed:
+                raise AssertionError(f"dist {tag}: the data-parallel step "
+                                     f"fails {failed}: {errs}")
+            for name in ranks[0].get("faults", ()):
+                errs, failed = judged([r["faults"][name] for r in ranks])
+                log("dist", f"{tag}: the same step with the fault "
+                            f"'{name}' put in: {errs}; fails {failed}")
+                if not failed:
+                    raise AssertionError(f"dist {tag}: the fault '{name}' "
+                                         "passes the data-parallel checks")
+        if world == max(DIST_GLOO_WORLDS):
+            kept.update(seen=ranks[0]["seen"],
+                        launches=ranks[0]["tracker_launches"],
+                        world=world)
+    log("dist", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    return kept
+
+
+def roi_bound(levels, c1) -> tuple[float, str]:
+    """K1's least time on its inputs (levels, lvl, r0, c0, ys, xs)."""
+    rows, s = c1[3].shape
+    frame = roi_k._row_frames(levels, rows, c1[3].device)
+    return bound(rows * s * s * 4 + rows * (3 + 2 * s) * 4
+                 + touched_pixels(c1[0], c1[3], c1[4], frame),
+                 10 * rows * s * s)
+
+
+def auction_bound(b, rounds) -> tuple[float, str]:
+    """K2's least time on a batch of benefit matrices b [P, n, n] solved in
+    `rounds` rounds each."""
+    n_prob, n = b.shape[:2]
+    return bound(b.numel() * 4 + n_prob * (n + 1) * 4,
+                 int(rounds.sum()) * 4 * n * n)
+
+
+def dist_kernel_times(seen, errs, launches, world) -> list:
+    """K1 and K2 at a rank's shapes of the sharded serving run (rank 0 of
+    the largest gloo world), timed here on cuda:0 against their plain
+    versions; the rows of the kernels line."""
+    dev = torch.device("cuda", 0)
+    levels, hw, *c1 = to_device(seen["roi_extract"], dev)
+    b = seen["auction_solve"].to(dev)
+    rounds = auction_k.auction_solve(b, EPS, 2000)[1]
+    rows = []
+    for key, what, plain, kernel, reps, (b_ms, b_by), src in (
+            ("roi_extract",
+             f"K1 {c1[3].shape[0]} rows of {roi_k.n_frames(levels)} u8 "
+             "1080p frames",
+             lambda: roi_k._resample_ref(levels, hw, *c1),
+             lambda: roi_k._resample_cuda(levels, hw, *c1), 50,
+             roi_bound(levels, c1), ("roi.cu", "roi.py:465")),
+            ("auction_solve",
+             f"K2 batch {list(b.shape)} (rounds {rounds.tolist()})",
+             lambda: auction_k.auction_solve_ref(b, EPS, 2000),
+             lambda: auction_k.auction_solve(b, EPS, 2000), 10,
+             auction_bound(b, rounds), ("auction.cu", "auction.py:107"))):
+        ms, plain_ms = in_turns(plain, kernel, reps)
+        dev_ms, plain_dev_ms = device_ms(kernel, reps), device_ms(plain, reps)
+        log("times", f"sharded serving (a rank of world {world}) {what}: per "
+                     f"call (CUDA event pairs) kernel {ms:.4f} ms, plain "
+                     f"{plain_ms:.4f} ms; device time per call (profiler) "
+                     f"kernel {dev_ms:.4f} ms, plain {plain_dev_ms:.4f} ms; "
+                     f"bound {b_ms:.5f} ms ({b_by})")
+        rows.append({
+            "name": f"{key}_dist", "route": "cuda",
+            "source": f"tpu_mot_torch/csrc/{src[0]}",
+            "replaces": f"tpu_mot/kernels/{src[1]}",
+            "launches": launches[key], "max_abs_err": errs[key],
+            "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+            "plain_device_ms": plain_dev_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "shape": what,
+            "launches_of": f"dist world {world}, tracker cell, each rank"})
     return rows
 
 
@@ -2504,13 +3009,17 @@ def adam_at(lr: float):
     return lambda params: torch.optim.Adam(params, lr=lr)
 
 
-def train_state(spec, dev, seed: int = 0):
-    """A train state from interop.numpy_yolo_params(spec, seed) with
-    Adam(TRAIN_LR) on dev."""
+def seed_params(spec, seed: int = 0) -> dict:
+    """interop.numpy_yolo_params(spec, seed) as the net's state dict."""
+    return interop.yolo_params_from_jax(interop.numpy_yolo_params(spec, seed))
+
+
+def train_state(spec, dev, seed: int = 0, mesh=None, make_optimizer=None):
+    """A train state from seed_params(spec, seed) with make_optimizer
+    (default Adam(TRAIN_LR)) on dev (replicated over a "batch" mesh)."""
     return train.train_state_from_params(
-        spec, adam_at(TRAIN_LR),
-        interop.yolo_params_from_jax(interop.numpy_yolo_params(spec, seed)),
-        device=dev)
+        spec, make_optimizer or adam_at(TRAIN_LR), seed_params(spec, seed),
+        device=dev, mesh=mesh)
 
 
 def train_batch(dev, spec, dump):
@@ -3092,6 +3601,9 @@ def main() -> int:
     # multi-stream serving: configs[4] on one card
     served = phase_serve(dev, card, default_out)
 
+    # the multi-device contract: sharded serving and DP training
+    dist = phase_dist(dev, card, served.pop("dist_refs"))
+
     # detector training at full width, checkpoints, the application layer
     sched_check = served.pop("sched_check")
     train_runs = phase_train(dev, card)
@@ -3105,6 +3617,7 @@ def main() -> int:
                         hf_inputs, (a_frames, a_d, a_v, a_cfg))
     windows = served.pop("windows")
     serve_rows = serve_kernel_times(**served)
+    serve_rows += dist_kernel_times(**dist)
     for name, (fr, dd, vv, c) in (
             ("default", (frames, d, v, cfg)),
             ("HF", (frames, d, v, cfg_hf)),

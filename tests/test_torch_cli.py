@@ -145,8 +145,10 @@ def test_video_strided_runs(tmp_path, capsys):
 
 def test_python_m_and_no_card(tmp_path):
     """`python -m tpu_mot_torch` runs the CLI; without a card and without
-    --device it fails instead of falling back to the CPU."""
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    --device it fails instead of falling back to the CPU.  One intra-op
+    thread: the suite's workers share the host's cores, and oversubscribed
+    OpenMP threads slowed this run past its timeout under load."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     ok = subprocess.run([sys.executable, "-m", "tpu_mot_torch", "mot",
                          "--synthetic", "--objects", "3", "--frames", "4",
                          "--device", "cpu", "--score"], cwd=tmp_path,

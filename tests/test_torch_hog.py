@@ -63,3 +63,13 @@ def test_hog_gradient_at_pi_and_other_cells():
         want = np.asarray(j_hog.hog_features(jnp.asarray(p), cell))
         np.testing.assert_allclose(got, want, **TOL)
     assert t_hog.N_CHANNELS == j_hog.n_channels() == 31
+
+
+@pytest.mark.parametrize("cell", [2, 4, 8])
+def test_n_channels_matches_jax(cell):
+    """n_channels() is the channel count of the features at every cell
+    size, equal to the JAX function's."""
+    p = np.random.default_rng(3).random((2, 32, 32)).astype(np.float32)
+    got = t_hog.hog_features(torch.as_tensor(p), cell)
+    assert t_hog.n_channels() == j_hog.n_channels() == 31
+    assert got.shape[1] == t_hog.n_channels()

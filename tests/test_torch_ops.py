@@ -409,6 +409,7 @@ def test_port_imports_without_jax():
             "tpu_mot_torch.utils.checkpoint", "tpu_mot_torch.native",
             "tpu_mot_torch.data.mot", "tpu_mot_torch.data.video",
             "tpu_mot_torch.utils.viz", "tpu_mot_torch.cli",
+            "tpu_mot_torch.parallel.mesh", "tpu_mot_torch.parallel.dryrun",
             "tpu_mot_torch.__main__"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys

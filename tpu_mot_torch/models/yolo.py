@@ -169,6 +169,13 @@ class ConvBlock(nn.Module):
     force_float32_reductions), and updates running = m * running + (1 - m)
     * batch with m = bn_momentum (flax's convention; torch's momentum is 1 -
     m, and torch's own update would take the unbiased variance).
+
+    The batch statistics come from per-channel sums of y and y^2 over a
+    count of elements.  `stats_over`, None or (sum_fn, images of the global
+    batch), is set by the data-parallel train step (parallel/train.py) for
+    its duration: sum_fn, a differentiable sum over the ranks, then turns
+    the sums into the global batch's, so that the backward pass and the
+    running statistics see the global values on every rank.
     """
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
@@ -182,6 +189,7 @@ class ConvBlock(nn.Module):
         self.bn_momentum = bn_momentum
         self.act = act
         self.dtype = dtype
+        self.stats_over = None
 
     def _batch_stats(self, y: torch.Tensor):
         """Batch mean and biased variance of y [B, C, H, W] per channel, in
@@ -190,8 +198,14 @@ class ConvBlock(nn.Module):
             raise ValueError("spec.dtype='int8' is inference-only; train "
                              "in float32 or bfloat16")
         y = y.float()
-        mean = y.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((y * y).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        sums = torch.stack([y.sum(dim=(0, 2, 3)), (y * y).sum(dim=(0, 2, 3))])
+        n_images = y.shape[0]
+        if self.stats_over is not None:
+            sum_fn, n_images = self.stats_over
+            sums = sum_fn(sums)
+        count = n_images * y.shape[2] * y.shape[3]
+        mean = sums[0] / count
+        var = torch.clamp_min(sums[1] / count - mean * mean, 0.0)
         bn, m = self.bn, self.bn_momentum
         with torch.no_grad():
             bn.running_mean.mul_(m).add_(mean, alpha=1.0 - m)

@@ -25,6 +25,12 @@ EPS = 1e-7
 TRUNC = 0.2
 
 
+def n_channels() -> int:
+    """The number of fHOG channels, 31 (the JAX package's function; the
+    port's constant is N_CHANNELS)."""
+    return N_CHANNELS
+
+
 def _pad_edge(x: torch.Tensor) -> torch.Tensor:
     """[T, H, W] -> [T, H + 2, W + 2], replicating the border (jnp.pad
     mode="edge")."""

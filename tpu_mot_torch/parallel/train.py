@@ -8,9 +8,28 @@ squared error x5) and their class cross-entropy (softmax for the v2
 lineage, per-class BCE for v3), summed over the heads.  BatchNorm trains on
 batch statistics and keeps its running statistics in flax's convention
 (models/yolo.ConvBlock), so a step here and a step of the JAX package from
-the same state give the same loss, gradients and statistics.  The JAX step
-is one jit over a batch-sharded mesh; here it is one eager step on one
-device (no data parallelism).
+the same state give the same loss, gradients and statistics.
+
+Data parallelism: the JAX step is one jit over a "batch"-sharded mesh, so
+GSPMD computes the step of the global batch: global BatchNorm statistics,
+global loss normalisers, a gradient sum.  Here `make_train_step(spec,
+mesh)` does the same over a "batch" mesh of ranks (parallel/mesh.py), each
+rank holding B/n images of the global batch of B:
+  * BatchNorm statistics come from per-channel sums all-reduced by a
+    differentiable collective (batch_stats_over sets it on every
+    models/yolo.ConvBlock), so the backward pass and the running statistics
+    see the global values;
+  * the loss is per-head sums over counts (anchor cells, responsible
+    cells); under a mesh the counts are all-reduced, so each rank's loss is
+    its share of the global loss and the shares sum to it;
+  * the gradients are then summed over the ranks (all-reduce SUM, not
+    DDP's average, which would need the shares scaled by n), and every
+    rank takes the same optimizer step;
+  * the state is replicated: init_train_state and train_state_from_params
+    broadcast rank 0's parameters, buffers and optimizer state, and the
+    ranks stay bit-identical.
+No nn.SyncBatchNorm (torch's unbiased running variance and momentum) and
+no DDP: flax's BatchNorm is computed by hand (models/yolo.ConvBlock).
 
 Images come in NHWC float32, as in the JAX package; the net's NCHW
 transpose happens inside `yolo_loss`.
@@ -18,6 +37,7 @@ transpose happens inside `yolo_loss`.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -25,7 +45,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu_mot_torch.models.yolo import YoloSpec, build_model, layer_shapes
+from tpu_mot_torch.models.yolo import (ConvBlock, YoloSpec, build_model,
+                                       layer_shapes)
+from tpu_mot_torch.parallel import mesh as mesh_mod
 from tpu_mot_torch.tracker.bank import resolve_device
 from tpu_mot_torch.utils import checkpoint
 
@@ -83,54 +105,120 @@ def build_targets(spec: YoloSpec, gt_boxes, gt_classes, gt_valid):
     return out
 
 
+def _class_ce(cls_logits: torch.Tensor, cls_tgt: torch.Tensor,
+              spec: YoloSpec) -> torch.Tensor:
+    """Per-cell class cross-entropy through decode's class link function
+    (spec.cls_activation): per-class BCE averaged (v3), softmax CE (v2)."""
+    if spec.cls_activation == "sigmoid":
+        return F.binary_cross_entropy_with_logits(
+            cls_logits, cls_tgt, reduction="none").mean(-1)
+    return -(cls_tgt * F.log_softmax(cls_logits, dim=-1)).sum(-1)
+
+
+@contextlib.contextmanager
+def batch_stats_over(model: nn.Module, mesh, n_images: int):
+    """For the duration of the block, every ConvBlock of `model` in train
+    mode normalises with the statistics of the global batch of n_images
+    images spread over `mesh`'s ranks: its per-channel sums go through a
+    differentiable all-reduce (ConvBlock.stats_over)."""
+    blocks = [m for m in model.modules() if isinstance(m, ConvBlock)]
+    for b in blocks:
+        b.stats_over = (
+            lambda t: mesh_mod.all_reduce_sum(t, mesh, grad=True), n_images)
+    try:
+        yield
+    finally:
+        for b in blocks:
+            b.stats_over = None
+
+
 def yolo_loss(model: nn.Module, images: torch.Tensor, targets,
-              spec: YoloSpec, train: bool = False) -> torch.Tensor:
+              spec: YoloSpec, train: bool = False,
+              mesh=None) -> torch.Tensor:
     """Multi-head YOLO loss of `model` on images [B, s, s, 3] (NHWC float32)
-    against build_targets' arrays (NumPy or tensors).
+    against build_targets' arrays (NumPy or tensors): per head, the
+    objectness BCE summed over the anchor cells over their count, and the
+    box and class terms summed over the responsible cells over theirs.
 
     train=True runs the net in train mode: BatchNorm normalises with the
     batch statistics and updates the running statistics in place (the JAX
-    function's aux output); the net's mode is restored afterwards."""
+    function's aux output); the net's mode is restored afterwards.
+
+    Over a "batch" mesh, images and targets are this rank's block of the
+    global batch, and the result is this rank's share of the global loss:
+    BatchNorm (train mode) normalises with the global batch's statistics
+    and the counts are all-reduced, so the shares of all ranks sum to the
+    one-process loss of the global batch."""
     was_training = model.training
     model.train(train)
     try:
-        heads = model(images.permute(0, 3, 1, 2))
+        if mesh is not None and train:
+            n_images = int(mesh_mod.all_reduce_sum(
+                torch.tensor([images.shape[0]]), mesh))
+            stats = batch_stats_over(model, mesh, n_images)
+        else:
+            stats = contextlib.nullcontext()
+        with stats:
+            heads = model(images.permute(0, 3, 1, 2))
     finally:
         model.train(was_training)
-    total = 0.0
+    sums, counts = [], []
     for raw, tgt in zip(heads, targets):
         tgt = torch.as_tensor(tgt, device=raw.device)
         b, hg, wg, _ = raw.shape
         raw = raw.reshape(b, hg, wg, tgt.shape[3], -1)
         obj_tgt = tgt[..., 4]
-        obj_loss = F.binary_cross_entropy_with_logits(raw[..., 4], obj_tgt)
         mask = obj_tgt[..., None]
-        n_obj = mask.sum().clamp_min(1.0)
-        xy_loss = ((torch.sigmoid(raw[..., 0:2]) - tgt[..., 0:2]).square()
-                   * mask).sum() / n_obj
-        wh_loss = ((raw[..., 2:4] - tgt[..., 2:4]).square()
-                   * mask).sum() / n_obj
-        cls_logits, cls_tgt = raw[..., 5:], tgt[..., 5:]
-        # The class link function of decode (spec.cls_activation).
-        if spec.cls_activation == "sigmoid":
-            cls_ce = F.binary_cross_entropy_with_logits(
-                cls_logits, cls_tgt, reduction="none").mean(-1)
-        else:
-            cls_ce = -(cls_tgt * F.log_softmax(cls_logits, dim=-1)).sum(-1)
-        cls_loss = (cls_ce * obj_tgt).sum() / n_obj
-        total = total + obj_loss + 5.0 * (xy_loss + wh_loss) + cls_loss
+        sums.append((
+            F.binary_cross_entropy_with_logits(raw[..., 4], obj_tgt,
+                                               reduction="sum"),
+            ((torch.sigmoid(raw[..., 0:2]) - tgt[..., 0:2]).square()
+             * mask).sum(),
+            ((raw[..., 2:4] - tgt[..., 2:4]).square() * mask).sum(),
+            (_class_ce(raw[..., 5:], tgt[..., 5:], spec) * obj_tgt).sum()))
+        counts += [obj_tgt.new_tensor(float(obj_tgt.numel())),
+                   obj_tgt.sum()]
+    counts = torch.stack(counts)
+    if mesh is not None:
+        counts = mesh_mod.all_reduce_sum(counts, mesh)
+    total = 0.0
+    for h, (obj, xy, wh, cls) in enumerate(sums):
+        n_cells, n_obj = counts[2 * h], counts[2 * h + 1].clamp_min(1.0)
+        total = (total + obj / n_cells + 5.0 * (xy / n_obj + wh / n_obj)
+                 + cls / n_obj)
     return total
 
 
-def make_train_step(spec: YoloSpec):
+def _sum_gradients(model: nn.Module, mesh) -> None:
+    """Every parameter's gradient summed over the mesh's ranks, in one
+    all-reduce of the flattened gradients."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = mesh_mod.all_reduce_sum(
+        torch.cat([g.reshape(-1) for g in grads]), mesh)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def make_train_step(spec: YoloSpec, mesh=None):
     """Returns train_step(state, images, targets) -> (state, loss): one
     gradient step of the state's optimizer on yolo_loss in train mode.  The
     state is updated in place and returned; loss is a detached 0-d tensor
-    on the card (reading it waits for the step)."""
+    on the card (reading it waits for the step).
+
+    Over a "batch" mesh each rank passes its block of the global batch
+    (images and targets) and its state built with the same mesh
+    (replicated); the step is the one-process step of the global batch:
+    global BatchNorm statistics, this rank's share of the loss, the
+    gradients summed over the ranks.  The loss returned is the global
+    one."""
     def train_step(state: TrainState, images: torch.Tensor, targets):
         state.optimizer.zero_grad(set_to_none=True)
-        loss = yolo_loss(state.model, images, targets, spec, train=True)
+        loss = yolo_loss(state.model, images, targets, spec, train=True,
+                         mesh=mesh)
         loss.backward()
+        if mesh is not None:
+            _sum_gradients(state.model, mesh)
+            loss = mesh_mod.all_reduce_sum(loss, mesh)
         state.optimizer.step()
         return state, loss.detach()
 
@@ -175,12 +263,14 @@ def _refuse_int8(spec: YoloSpec) -> None:
 
 def train_state_from_params(spec: YoloSpec, make_optimizer: Callable,
                             params: dict, adam_state: dict | None = None,
-                            device=None) -> TrainState:
+                            device=None, mesh=None) -> TrainState:
     """A TrainState from a state dict: the net on `device` (the CUDA card
     unless it says otherwise), make_optimizer(model.parameters()) its
     optimizer.  adam_state, {parameter name: {"step", "exp_avg",
     "exp_avg_sq"}} (interop.yolo_train_state_from_jax), resumes an Adam
-    run."""
+    run.  With a "batch" mesh every rank gets rank 0's parameters, buffers
+    and optimizer state (broadcast): the replicated state of
+    make_train_step(spec, mesh)."""
     _refuse_int8(spec)
     device = resolve_device(device)
     with torch.device("meta"):
@@ -192,17 +282,26 @@ def train_state_from_params(spec: YoloSpec, make_optimizer: Callable,
         for name, p in model.named_parameters():
             optimizer.state[p] = {k: v.to(p.device) if k != "step" else v
                                   for k, v in adam_state[name].items()}
+    if mesh is not None:
+        for t in model.state_dict().values():
+            mesh_mod.broadcast_(t, mesh)
+        for st in optimizer.state.values():
+            for v in st.values():
+                if torch.is_tensor(v):
+                    mesh_mod.broadcast_(v, mesh)
     return TrainState(model, optimizer)
 
 
 def init_train_state(spec: YoloSpec, make_optimizer: Callable,
-                     seed: int = 0, device=None) -> TrainState:
+                     seed: int = 0, device=None, mesh=None) -> TrainState:
     """A fresh TrainState: init_params(spec, seed) on `device` (the CUDA
     card unless it says otherwise) and make_optimizer(parameters), e.g.
-    `lambda p: torch.optim.Adam(p, lr=1e-3)` (optax.adam(1e-3)).  int8 is
-    refused, as in the JAX package."""
+    `lambda p: torch.optim.Adam(p, lr=1e-3)` (optax.adam(1e-3)); with a
+    "batch" mesh, rank 0's on every rank.  int8 is refused, as in the JAX
+    package."""
     return train_state_from_params(spec, make_optimizer,
-                                   init_params(spec, seed), device=device)
+                                   init_params(spec, seed), device=device,
+                                   mesh=mesh)
 
 
 def save_train_state(path: str, state: TrainState) -> None:
