@@ -71,8 +71,8 @@ nonzero exit, no "ok" line):
              same bank, but for slot-frames that the two steps match to
              other detections), bf16 + fast NMS and int8 against float32
              (int8: one quantised layer bit-equal on the card and the CPU,
-             scores moved by more than float32 noise), then the times of
-             bench_e2e.py's stages;
+             scores moved by more than float32 noise; the stages' times
+             are the bench phase's bench_e2e twin's);
   kcf-bank   the single-object flow: KCFTracker (T = 1) on a 480 x 640 clip
              of 100 frames (centre error under 2 px, exactly 1 + 2 x 99 K1
              launches), then a bank of the bench fixture's 128 first-frame
@@ -163,12 +163,21 @@ nonzero exit, no "ok" line):
              bench fixture (the MOTA gate), otb with --gt and video with
              --det-stride 3 on a 720p mp4; without it one line says what did
              not run;
-  times      run_sequence frames/s (default: median of 5; H, HF, A, AW:
-             median of 3); each kernel against its plain version: the
-             median ms per call from a CUDA event pair around each call
-             (plain/kernel/kernel/plain; it includes the wrapper's host
-             time, which bounds a short kernel) and the device ms per call
-             from the profiler; the least time the card could take (bound);
+  bench      the twins of the repo's measuring scripts, each through its
+             main at full size with 3 samples, printing its JSON lines
+             (tpu_mot_torch/tools/): bench (MOTA at the gate, value > 0,
+             device the card's nvidia-smi line), bench_variants (the
+             default row and fhog31 + 3-scale at the MOTA gate, every other
+             row at least 0.5, bench.py's rule), bench_e2e (its detector
+             stage's detections on frame 0 equal to e2e-detect's, the same
+             seeded weights) and bench_latency (46 timed update calls);
+  times      run_sequence frames/s (default and H: the bench phase's
+             twins; HF, A, AW: median of 3); each kernel against its plain
+             version: the median ms per call from a CUDA event pair around
+             each call (plain/kernel/kernel/plain; it includes the
+             wrapper's host time, which bounds a short kernel) and the
+             device ms per call from the profiler; the least time the card
+             could take (bound);
              K2 also on the init frame's matrix and capped at 0 rounds
              (launch and staging alone); K1 also at one track (one CTA) and
              at 384 rows; build_pyramid at 1080p, float32 and u8; for every
@@ -230,6 +239,8 @@ from tpu_mot_torch.ops import nms as nms_ops
 from tpu_mot_torch.ops import patch as patch_ops
 from tpu_mot_torch.parallel import mesh as mesh_mod
 from tpu_mot_torch.parallel import serve, train
+from tpu_mot_torch.tools import bench as bench_tool
+from tpu_mot_torch.tools import bench_e2e, bench_latency, bench_variants
 from tpu_mot_torch.tracker import api
 from tpu_mot_torch.tracker import bank as bank_mod
 from tpu_mot_torch.tracker import kcf_bank
@@ -304,13 +315,12 @@ E2E_DUMP = HEAVY_DUMP.with_name("detect_e2e_jax_v1.npz")
 # lost its object turns a last-bit difference into pixels; see PERF.md §6.)
 E2E_BANK_FRAME = 28
 # Bounds of the card against the dump and of int8 against float32 (see
-# PERF.md §6), and runs per timed stage.  int8's scores before NMS must
-# differ from float32's by more than float32's own noise (E2E_INT8_SCORE_MIN;
-# the card against the JAX dump: 2.7e-7) and less than E2E_INT8_SCORE_TOL.
+# PERF.md §6).  int8's scores before NMS must differ from float32's by
+# more than float32's own noise (E2E_INT8_SCORE_MIN; the card against the
+# JAX dump: 2.7e-7) and less than E2E_INT8_SCORE_TOL.
 E2E_PRE_SCORE_TOL, E2E_PRE_BOX_TOL = 1e-5, 2e-3
 E2E_MATCH_FLOOR = 60
 E2E_INT8_SCORE_MIN, E2E_INT8_SCORE_TOL = 1e-4, 0.02
-E2E_REPS = 5
 
 # Multi-stream serving, BASELINE.json configs[4] ("8 concurrent 1080p
 # streams ..., shared detector batch") on one card: stream s is the bench
@@ -356,14 +366,6 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def reset_counts() -> None:
     roi_k.launches = roi_k.launches_scales = 0
     auction_k.launches = 0
@@ -377,22 +379,11 @@ def read_counts() -> dict:
 
 
 def bench_fixture():
-    """bench.py:76-104: the same objects, frames, detections and config."""
-    rng = np.random.default_rng(0)
-    objs = synthetic.make_objects(N_OBJ, HEIGHT, WIDTH, rng, min_size=24,
-                                  max_size=64, max_speed=3.0)
-    frames, boxes, vis = synthetic.render_sequence(
-        objs, N_FRAMES, HEIGHT, WIDTH, seed=0, noise=0.01)
-    dets_list = synthetic.detections_from_gt(boxes, vis, seed=0,
-                                             frame_hw=(HEIGHT, WIDTH))
-    cfg = TrackerConfig(max_tracks=128, max_detections=160,
-                        frame_height=HEIGHT, frame_width=WIDTH)
-    d = np.zeros((N_FRAMES, cfg.max_detections, 5), np.float32)
-    v = np.zeros((N_FRAMES, cfg.max_detections), bool)
-    for f in range(N_FRAMES):
-        d[f], v[f] = api.pad_detections(dets_list[f], cfg.max_detections)
-    frames_u8 = (frames * 255).astype(np.uint8)
-    return frames_u8, d, v, boxes, vis, dets_list, cfg
+    """bench.py:76-104 (the bench twin's fixture): the same objects,
+    frames, detections and config."""
+    fx = bench_tool.fixture()
+    return (fx.frames, fx.dets, fx.valid, fx.gt_boxes, fx.visible,
+            fx.dets_list, fx.config())
 
 
 def train_scenes(n: int = TRAIN_BATCH, input_size: int = 416,
@@ -465,23 +456,11 @@ def serve_fixture(n_streams: int = SERVE_STREAMS,
 
 
 def e2e_fixture():
-    """bench_e2e.py:58-86: (frames u8 [32, 720, 1280], detections from the
-    ground truth [32, 64, 5] and valid (the tracker-only stage's input), the
-    tracker config, the detector spec)."""
-    rng = np.random.default_rng(0)
-    objs = synthetic.make_objects(N_OBJ, E2E_H, E2E_W, rng, min_size=24,
-                                  max_size=64, max_speed=3.0)
-    frames, boxes, vis = synthetic.render_sequence(
-        objs, E2E_FRAMES, E2E_H, E2E_W, seed=0, noise=0.01)
-    dets_list = synthetic.detections_from_gt(boxes, vis, seed=0,
-                                             frame_hw=(E2E_H, E2E_W))
-    d = np.zeros((E2E_FRAMES, E2E_DETS, 5), np.float32)
-    v = np.zeros((E2E_FRAMES, E2E_DETS), bool)
-    for f in range(E2E_FRAMES):
-        d[f], v[f] = api.pad_detections(dets_list[f], E2E_DETS)
-    cfg = TrackerConfig(max_tracks=128, max_detections=E2E_DETS,
-                        frame_height=E2E_H, frame_width=E2E_W)
-    return ((frames * 255).astype(np.uint8), d, v, cfg,
+    """bench_e2e.py:58-86 (the bench_e2e twin's fixture): (frames u8 [32,
+    720, 1280], detections from the ground truth [32, 64, 5] and valid (the
+    tracker-only stage's input), the tracker config, the detector spec)."""
+    fx = bench_e2e.fixture()
+    return (fx.frames, fx.dets, fx.valid, fx.config(),
             YoloSpec("yolov3-tiny", num_classes=80))
 
 
@@ -1318,20 +1297,6 @@ def checked_run(run, *args):
     return out, {k: e for k, e in errs.items() if e}, rounds, seen
 
 
-def timed(fn, reps: int) -> list[float]:
-    """Seconds of each of reps synchronised calls of fn, after one warm
-    call."""
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        out.append(time.perf_counter() - t0)
-    return out
-
-
 def phase_e2e_detect(dev, card: str):
     """The detector path of bench_e2e.py on the card: yolov3-tiny on 32 u8
     frames of 720p, then the tracker at 128 slots (see E2E_DUMP)."""
@@ -1389,6 +1354,7 @@ def phase_e2e_detect(dev, card: str):
     nms_same = (torch.equal(idx.cpu(), idx_c)
                 and torch.equal(val.cpu(), val_c))
     dets, valid, cls = detect(model, frames)
+    first = tuple(x[0].cpu() for x in (dets, valid, cls))  # the bench phase's
     safe = idx.long().clamp_min(0)
     gathered = torch.equal(dets[..., :4], boxes.gather(
         1, safe[..., None].expand(-1, -1, 4))) and torch.equal(valid, val)
@@ -1604,31 +1570,9 @@ def phase_e2e_detect(dev, card: str):
                              f"{n_diff}, int8 scores {s8_diff}, int8 layer "
                              f"card == CPU {q_same}")
 
-    # 6. times of bench_e2e.py's stages (frames on the card, synchronised)
-    runs = {
-        "detector": lambda: detect(model, frames),
-        "tracker": lambda: scan.run_sequence(bank0, frames, d, v, cfg),
-        "fused": lambda: scan.run_sequence(bank0, frames,
-                                           *detect(model, frames)[:2], cfg),
-        "fused bf16 + fast NMS": lambda: scan.run_sequence(
-            bank0, frames, *detect(m16, frames, "fast")[:2], cfg),
-        "fused int8 + fast NMS": lambda: scan.run_sequence(
-            bank0, frames, *detect(m8, frames, "fast")[:2], cfg),
-        "strided-3 scanned": lambda: scan.run_sequence_strided_detector(
-            bank0, frames, model, cfg, E2E_STRIDE, E2E_IOU, E2E_SCORE),
-        "strided-3 batched": lambda: scan.run_sequence_strided_batched(
-            bank0, frames, model, cfg, E2E_STRIDE, E2E_IOU, E2E_SCORE),
-    }
-    for name, fn in runs.items():
-        secs = timed(fn, E2E_REPS)
-        med = statistics.median(secs)
-        log("e2e-detect", f"times {name}: {1000 * med / E2E_FRAMES:.3f} "
-                          f"ms/frame, {E2E_FRAMES / med:.1f} frames/s (median"
-                          f" of {[round(s, 4) for s in secs]} s per "
-                          f"{E2E_FRAMES} frames; {card})")
-
+    # the stages' times are the bench_e2e twin's (the bench phase)
     log("e2e-detect", f"phase took {time.perf_counter() - t_phase:.1f} s")
-    return model, frames, cfg
+    return (model, frames, cfg), first
 
 
 def phase_profile_detect(model, frames, cfg, n_frames: int = 16):
@@ -2818,23 +2762,94 @@ def kernel_line(name: str, info: dict) -> str:
             f"{info['ctas_per_sm']} CTAs fit on an SM")
 
 
+BENCH_SAMPLES = 3
+BENCH_LATENCY_CALLS = 46
+BENCH_FLOOR = 0.5       # bench.py:163-164: a MOTA under it reports 0
+BENCH_GATED = ("default (gray, psr@5, appearance off)", "fhog31 + 3-scale")
+
+
+def phase_bench(card: str, e2e_first) -> dict:
+    """The port's twins of the repo's measuring scripts, each through its
+    main at full size on the card (tpu_mot_torch/tools/): bench (the MOTA
+    gate, value > 0), bench_variants (default and H at the MOTA gate, every
+    row over bench.py's 0.5), bench_e2e (its detector stage's detections
+    on frame 0 equal to e2e-detect's on the same weights) and bench_latency
+    (46 timed calls).  Each prints its JSON line; returns {"bench": its
+    line, "H": the "fhog31 + 3-scale" row, "e2e": bench_e2e's line}."""
+    t_phase = time.perf_counter()
+    samples = ["--samples", str(BENCH_SAMPLES)]
+    failures = []
+
+    line, _ = bench_tool.main(samples)
+    mota = line["extra"]["mota_sanity"]
+    log("bench", f"tools.bench: {line['value']} frames/s, MOTA {mota} "
+                 f"(gate {M_REF - 0.01}), device {line['extra']['device']}")
+    if not (mota >= M_REF - 0.01 and line["value"] > 0
+            and line["extra"]["device"] == card):
+        failures.append(f"bench: value {line['value']}, MOTA {mota}, "
+                        f"device {line['extra']['device']!r}")
+
+    rows, _ = bench_variants.main(samples)
+    for row in rows:
+        floor = M_REF - 0.01 if row["variant"] in BENCH_GATED else BENCH_FLOOR
+        log("bench", f"tools.bench_variants {row['variant']!r}: "
+                     f"{row['fps']} frames/s, MOTA {row['mota_sanity']} "
+                     f"(floor {floor})")
+        if not row["mota_sanity"] >= floor:
+            failures.append(f"bench_variants {row['variant']!r}: MOTA "
+                            f"{row['mota_sanity']} under {floor}")
+    if [r["variant"] for r in rows] != list(bench_variants.VARIANTS):
+        failures.append("bench_variants: rows missing")
+
+    e2e, outs = bench_e2e.main(samples)
+    same = [torch.equal(x[0].cpu(), y)
+            for x, y in zip(outs["detector"], e2e_first)]
+    diff = float((outs["detector"][0][0].cpu() - e2e_first[0]).abs().max())
+    log("bench", f"tools.bench_e2e: fused {e2e['value']} frames/s; its "
+                 f"detector stage's frame 0 equals e2e-detect's (dets, "
+                 f"valid, classes): {same}, max |dets diff| {diff:.3g}")
+    if not all(same):
+        failures.append(f"bench_e2e: frame 0's detections {same}")
+
+    lat, _ = bench_latency.main([])
+    log("bench", f"tools.bench_latency: p50 {lat['value']} ms, p90 "
+                 f"{lat['extra']['p90_ms']} ms, {lat['extra']['n_calls']} "
+                 f"calls")
+    if lat["extra"]["n_calls"] != BENCH_LATENCY_CALLS:
+        failures.append(f"bench_latency: {lat['extra']['n_calls']} calls")
+
+    log("bench", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("bench: " + "; ".join(failures))
+    return {"bench": line, "e2e": e2e,
+            "H": rows[list(bench_variants.VARIANTS).index(BENCH_GATED[1])]}
+
+
 def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_bs, hf_inputs,
-                assoc):
+                assoc, twins):
     bench_b = bench_bs[-1]          # steady state; bench_bs[0]: init frame
     a_frames, a_d, a_v, a_cfg = assoc
-    for name, c, reps, (fr, dd, vv) in (
-            ("default", cfg, 5, (frames, d, v)),
-            ("H", heavy_config(cfg, "H"), 3, (frames, d, v)),
-            ("HF", heavy_config(cfg, "HF"), 3, (frames, d, v)),
-            ("A", a_cfg, 3, (a_frames, a_d, a_v)),
-            ("AW", a_cfg.replace(**ASSOC["AW"]), 3, (a_frames, a_d, a_v))):
-        runs = timed(lambda: scan.run_sequence(
-            bank_mod.empty_bank(c, device=fr.device), fr, dd, vv, c), reps)
-        med = statistics.median(runs)
-        log("times", f"run_sequence {name}: {N_FRAMES / med:.1f} frames/s, "
-                     f"{1000 * med / N_FRAMES:.3f} ms/frame (median of "
-                     f"{[round(r, 4) for r in runs]} s per {N_FRAMES} "
-                     "frames)")
+    # Every run_sequence rate comes from the bench twins' protocol (a
+    # warm-up run, then dependent runs that carry the bank, each closed by
+    # one fetch): default and H are the twins' own runs (the bench phase),
+    # HF, A and AW are timed here through bench_tool.run_tensors.
+    rates = [("default", twins["bench"]["value"],
+              twins["bench"]["extra"]["spread_fps"], "tools.bench"),
+             ("H", twins["H"]["fps"], twins["H"]["spread_fps"],
+              "tools.bench_variants 'fhog31 + 3-scale'")]
+    for name, c, (fr, dd, vv) in (
+            ("HF", heavy_config(cfg, "HF"), (frames, d, v)),
+            ("A", a_cfg, (a_frames, a_d, a_v)),
+            ("AW", a_cfg.replace(**ASSOC["AW"]), (a_frames, a_d, a_v))):
+        _, secs = bench_tool.run_tensors(fr, dd, vv, c, BENCH_SAMPLES)
+        n = fr.shape[0]
+        rates.append((name, round(n / statistics.median(secs), 1),
+                      bench_tool.spread(n, secs), "bench.run_tensors"))
+    for name, fps, lo_hi, by in rates:
+        log("times", f"run_sequence {name}: {fps} frames/s, "
+                     f"{1000 / fps:.3f} ms/frame (median of {BENCH_SAMPLES} "
+                     f"dependent runs of {N_FRAMES} frames, {lo_hi[0]}-"
+                     f"{lo_hi[1]} frames/s; {by})")
     hw = (HEIGHT, WIDTH)
     t = boxes0.shape[0]
     s1 = cfg.kcf.template_size
@@ -3543,7 +3558,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda:0")
-    card = card_line()
+    card = bench_tool.card_line()
     log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
                   f"torch {torch.__version__} CUDA {torch.version.cuda}")
 
@@ -3592,7 +3607,7 @@ def main() -> int:
     phase_e2e_assoc(a_frames, a_d, a_v, a_cfg, a_gt, a_vis)
 
     # the detector path: bench_e2e.py's fixture, detect -> track
-    detect_run = phase_e2e_detect(dev, card)
+    detect_run, e2e_first = phase_e2e_detect(dev, card)
 
     # the single-object flow
     phase_kcf_tracker()
@@ -3612,9 +3627,10 @@ def main() -> int:
               gt_boxes, vis)
     del sched_check
 
-    # times
+    # the measuring entry points' twins, then times
+    twins = phase_bench(card, e2e_first)
     times = phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_b,
-                        hf_inputs, (a_frames, a_d, a_v, a_cfg))
+                        hf_inputs, (a_frames, a_d, a_v, a_cfg), twins)
     windows = served.pop("windows")
     serve_rows = serve_kernel_times(**served)
     serve_rows += dist_kernel_times(**dist)

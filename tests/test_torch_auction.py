@@ -314,3 +314,33 @@ def test_auction_assign_and_assignment_cost_match_jax():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         assert (t_assign.assignment_cost(cost, got.numpy())
                 == j_assign.assignment_cost(cost, np.asarray(want)))
+
+
+def _contested(seed, n=12):
+    """Every row wants column 0 most, then the rest in seeded order: each
+    round settles one conflict, so small caps stop mid-solve."""
+    rng = np.random.default_rng(seed)
+    cost = rng.uniform(0.5, 1.0, (n, n)).astype(np.float32)
+    cost[:, 0] = rng.uniform(0.0, 0.05, n).astype(np.float32)
+    return cost, np.ones((n, n), bool)
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 3, 5, 2000])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_xla_assign_stats_matches_jax_at_reachable_caps(seed, max_iters):
+    """impl="xla" is JAX's: the warm-started auction from an empty carry,
+    its loops tested every three rounds, so a cap can be overrun by up to
+    two active rounds; row_to_col, iters and converged equal JAX's at caps
+    that stop the solve and at the default one."""
+    cost, feas = _contested(seed)
+    got = t_assign.auction_assign_stats(torch.as_tensor(cost),
+                                        torch.as_tensor(feas),
+                                        max_iters=max_iters, impl="xla")
+    want = j_assign.auction_assign_stats(jnp.asarray(cost),
+                                         jnp.asarray(feas),
+                                         max_iters=max_iters, impl="xla")
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert int(got[1]) == int(want[1])
+    assert bool(got[2]) == bool(want[2])
+    if max_iters < 5:
+        assert not bool(want[2])          # the cap did stop the solve

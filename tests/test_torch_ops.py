@@ -410,7 +410,10 @@ def test_port_imports_without_jax():
             "tpu_mot_torch.data.mot", "tpu_mot_torch.data.video",
             "tpu_mot_torch.utils.viz", "tpu_mot_torch.cli",
             "tpu_mot_torch.parallel.mesh", "tpu_mot_torch.parallel.dryrun",
-            "tpu_mot_torch.__main__"} <= set(mods)
+            "tpu_mot_torch.__main__", "tpu_mot_torch.tools.bench",
+            "tpu_mot_torch.tools.bench_e2e",
+            "tpu_mot_torch.tools.bench_variants",
+            "tpu_mot_torch.tools.bench_latency"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None

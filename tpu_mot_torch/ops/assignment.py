@@ -80,7 +80,9 @@ def auction_assign_stats(cost: torch.Tensor, feasible: torch.Tensor,
 
     impl: "pallas" or "auto" go through the kernel wrapper
     (kernels/auction.auction_solve: the CUDA kernel for a CUDA tensor, the
-    plain version on the CPU); "xla" calls the plain version directly.
+    plain version on the CPU); "xla" is JAX's "xla" solve,
+    auction_assign_warm from an empty carry (plain torch; its loop is
+    tested every three rounds, so a cap can be overrun by two rounds).
     """
     n_rows, m_cols = cost.shape[-2:]
     lead = tuple(cost.shape[:-2])
@@ -90,10 +92,15 @@ def auction_assign_stats(cost: torch.Tensor, feasible: torch.Tensor,
                            device=dev),
                 torch.zeros(lead, dtype=torch.int32, device=dev),
                 torch.ones(lead, dtype=torch.bool, device=dev))
+    if impl == "xla":
+        n = max(n_rows, m_cols)
+        out = auction_assign_warm(
+            cost, feasible, torch.zeros(lead + (n,), device=dev),
+            torch.full(lead + (n,), -1, dtype=torch.int32, device=dev), eps,
+            max_iters)
+        return out[0], out[1], out[2]
     b = build_benefits(cost, feasible, eps)
-    solve = (auction_k.auction_solve_ref if impl == "xla"
-             else auction_k.auction_solve)
-    col_of, iters = solve(b, eps, max_iters)
+    col_of, iters = auction_k.auction_solve(b, eps, max_iters)
     converged = torch.all(col_of >= 0, dim=-1)
     return strip_to_rows(col_of, feasible, n_rows, m_cols), iters, converged
 

@@ -1,5 +1,9 @@
-"""The multi-device dry run of the port (counterpart of the JAX package's
-`__graft_entry__.dryrun_multichip` and its body, `_dryrun_body`).
+"""The port's counterparts of `__graft_entry__.py`: `entry`, the flagship
+forward step (`__graft_entry__.entry`), and the multi-device dry run
+(`__graft_entry__.dryrun_multichip` and its body, `_dryrun_body`).
+
+    fn, args = entry(device="cpu")         # one step on a 128-slot bank
+    new_bank, out = fn(*args)
 
     dryrun_multichip(4, device="cpu")      # 4 gloo ranks on the CPU
     dryrun_multichip(1)                    # one NCCL rank on the card
@@ -28,6 +32,32 @@ from tpu_mot_torch.parallel import mesh as mesh_mod
 from tpu_mot_torch.parallel import serve, train
 from tpu_mot_torch.tracker import bank as bank_mod
 from tpu_mot_torch.tracker import step as step_mod
+
+
+def entry(device=None):
+    """The fused per-frame step (KCF detect, Kalman, auction association,
+    lifecycle, retrain) on an empty 128-slot bank at the JAX entry's inputs:
+    a seed-0 480 x 640 float frame and 8 detections in 64 slots.  Returns
+    (fn, args): fn(bank, frame, dets, det_valid) -> (new bank, StepOutput),
+    args on `device` (default: the CUDA card; see bank.resolve_device)."""
+    dev = bank_mod.resolve_device(device)
+    cfg = TrackerConfig(max_tracks=128, max_detections=64,
+                        frame_height=480, frame_width=640)
+    rng = np.random.default_rng(0)
+    frame = rng.random((480, 640)).astype(np.float32)
+    dets = np.zeros((64, 5), np.float32)
+    dets[:8, :2] = rng.uniform(100, 400, (8, 2))
+    dets[:8, 2:4] = rng.uniform(16, 48, (8, 2))
+    dets[:8, 4] = 1.0
+    valid = np.zeros((64,), bool)
+    valid[:8] = True
+
+    def fn(bank, frame, dets, det_valid):
+        return step_mod.step(bank, frame, dets, det_valid, cfg)
+
+    return fn, (bank_mod.empty_bank(cfg, device=dev),
+                *(torch.as_tensor(x, device=dev)
+                  for x in (frame, dets, valid)))
 
 
 def _check(ok: bool, what: str) -> None:

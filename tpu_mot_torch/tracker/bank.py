@@ -41,6 +41,18 @@ class TrackBank(NamedTuple):
     next_id: torch.Tensor           # [] int32
     frame_idx: torch.Tensor         # [] int32
 
+    @property
+    def alive(self) -> torch.Tensor:
+        return self.state > EMPTY
+
+    @property
+    def confirmed(self) -> torch.Tensor:
+        return self.state == CONFIRMED
+
+    @property
+    def boxes(self) -> torch.Tensor:
+        return self.kf_mean[..., :4]
+
 
 def resolve_device(device=None) -> torch.device:
     """`device`, or the CUDA card when it is None.  Raises when the device

@@ -43,8 +43,9 @@ How the port reads the TrackerConfig impl knobs:
                         runs the Pallas kernels in interpret mode
               "xla"     the gather path
   assign_impl "auto"/"pallas" the auction kernel wrapper (CUDA kernel on the
-                        card, plain version on the CPU); "xla" the plain
-                        version
+                        card, plain version on the CPU); "xla" JAX's "xla"
+                        solve, the warm-started auction from an empty carry
+                        in plain torch
   auction_warm_start    the warm-started auction in plain torch, whatever
                         assign_impl says (it bypasses the kernel in JAX
                         too); a bank whose carry is not [max(T, D)] falls
