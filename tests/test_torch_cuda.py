@@ -118,25 +118,50 @@ def _quantised_benefits(rng, n, dev):
     return torch.round(b * 4) / 4
 
 
+def _contested_benefits(rng, n, dev):
+    """Every row prefers the same few columns (a column's cost plus a
+    little noise): a price war of hundreds of rounds."""
+    pref = rng.uniform(0, 1, n)
+    cost = pref[None, :] + 0.05 * rng.uniform(0, 1, (n, n))
+    return t_assign.build_benefits(
+        torch.as_tensor(cost.astype(np.float32), device=dev),
+        torch.as_tensor(rng.random((n, n)) < 0.9, device=dev),
+        t_assign.DEFAULT_EPS)
+
+
+def _random_benefits(rng, n, dev):
+    cost = torch.as_tensor(rng.uniform(0, 1, (n, n)).astype(np.float32),
+                           device=dev)
+    feas = torch.as_tensor(rng.random((n, n)) < 0.8, device=dev)
+    return t_assign.build_benefits(cost, feas, t_assign.DEFAULT_EPS)
+
+
 # n7, n33, n159: rows that are no multiple of 16 bytes (scalar staging,
-# padded rows); nmax: the largest matrix; ties*: equal bids; n159 needs
-# over 50 rounds (131 on the CPU).
+# padded rows); nshared: the largest matrix staged into shared memory
+# (237); n238 up: rows read from global memory (float4 where n % 4 == 0,
+# scalar loads at 238 and 257), nmax: the largest n (1024); ties*: equal
+# bids; contested*: a price war; n159 needs over 50 rounds (131 on the
+# CPU).
 @pytest.mark.parametrize("case", ["mot", "n1", "n8", "n40", "n160",
-                                  "capped", "n7", "n33", "n159", "nmax",
-                                  "ties40", "ties160", "ties159"])
+                                  "capped", "n7", "n33", "n159", "nshared",
+                                  "nmax", "ties40", "ties160", "ties159",
+                                  "n238", "n240", "n256", "n257", "n512",
+                                  "ties256", "ties257", "contested238",
+                                  "contested256", "contested257",
+                                  "contested512", "capped256"])
 def test_auction_kernel_matches_plain_version(cuda, case):
     rng = np.random.default_rng(7)
-    max_iters = 3 if case == "capped" else 2000
+    max_iters = 3 if case.startswith("capped") else 2000
     if case in ("mot", "capped"):
         b = _mot_benefits(rng, cuda)
     elif case.startswith("ties"):
         b = _quantised_benefits(rng, int(case[4:]), cuda)
+    elif case.startswith("contested"):
+        b = _contested_benefits(rng, int(case[9:]), cuda)
     else:
-        n = t_auction.max_n() if case == "nmax" else int(case[1:])
-        cost = torch.as_tensor(rng.uniform(0, 1, (n, n)).astype(np.float32),
-                               device=cuda)
-        feas = torch.as_tensor(rng.random((n, n)) < 0.8, device=cuda)
-        b = t_assign.build_benefits(cost, feas, t_assign.DEFAULT_EPS)
+        n = {"nmax": t_auction.max_n(), "nshared": t_auction.shared_max_n(),
+             "capped256": 256}.get(case) or int(case[1:])
+        b = _random_benefits(rng, n, cuda)
     before = t_auction.launches
     col, it = t_auction.auction_solve(b, t_assign.DEFAULT_EPS, max_iters)
     want_col, want_it = t_auction.auction_solve_ref(b, t_assign.DEFAULT_EPS,
@@ -144,9 +169,22 @@ def test_auction_kernel_matches_plain_version(cuda, case):
     torch.cuda.synchronize()
     assert t_auction.launches == before + 1
     assert torch.equal(col, want_col) and int(it) == int(want_it)
-    assert (case == "capped") == bool((col < 0).any())
-    if case == "n159":
+    assert case.startswith("capped") == bool((col < 0).any())
+    if case in ("n159", "contested256"):
         assert int(it) >= 50
+
+
+@pytest.mark.parametrize("n,path", [(160, 1), (159, 0), (237, 0), (238, 2),
+                                    (240, 3), (256, 3), (257, 2), (1024, 3)])
+def test_auction_path_by_size(cuda, n, path):
+    """Up to shared_max_n() columns the matrix is staged into shared memory;
+    above it the rows are read from global memory (float4 for n % 4 == 0),
+    with under 21 KB of shared memory for the state."""
+    assert t_auction.shared_max_n() == 237
+    info = t_auction.launch_info(n)
+    assert info["path"] == t_auction.PATHS[path]
+    if path >= 2:
+        assert info["smem_bytes"] < 21 * 1024
 
 
 def test_auction_kernel_takes_an_unaligned_matrix(cuda):
@@ -163,10 +201,28 @@ def test_auction_kernel_takes_an_unaligned_matrix(cuda):
     assert torch.equal(col, want_col) and int(it) == int(want_it)
 
 
+def test_auction_kernel_reads_an_unaligned_matrix_from_global_memory(cuda):
+    """n = 256 at a base 4 bytes off a 16-byte boundary: the global path
+    reads its rows by scalar loads instead of float4."""
+    rng = np.random.default_rng(10)
+    flat = torch.zeros(256 * 256 + 1, device=cuda)
+    b = flat[1:].view(256, 256)
+    b.copy_(_contested_benefits(rng, 256, cuda))
+    assert b.is_contiguous() and b.data_ptr() % 16 == 4
+    col, it = t_auction.auction_solve(b, t_assign.DEFAULT_EPS, 2000)
+    want_col, want_it = t_auction.auction_solve_ref(b, t_assign.DEFAULT_EPS,
+                                                    2000)
+    assert torch.equal(col, want_col) and int(it) == int(want_it)
+
+
 def test_auction_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     n_max = t_auction.max_n()
-    assert 160 <= n_max < 240
+    assert n_max == 1024
+    with pytest.raises(ValueError, match="1..1024"):
+        t_auction.auction_solve(torch.zeros((1025, 1025), device=cuda),
+                                0.02, 10)
     for bad in (torch.zeros((n_max + 1, n_max + 1), device=cuda),
+                torch.zeros((2, n_max + 1, n_max + 1), device=cuda),
                 torch.zeros((8, 8), dtype=torch.float64, device=cuda),
                 torch.zeros((8, 9), device=cuda),
                 torch.zeros((8, 16), device=cuda)[:, ::2]):
@@ -716,11 +772,12 @@ def test_roi_kernels_with_frame_index(cuda, pyramid, k):
 
 
 @pytest.mark.parametrize("n,batch", [(128, 8), (160, 3), (5, 3), (161, 3),
-                                     (7, 1)])
+                                     (7, 1), (256, 8), (257, 3)])
 def test_auction_kernel_over_a_batch(cuda, n, batch):
     """[S, n, n] in one launch, one CTA a problem: each problem's col_of
     and iters equal the plain version's and a single launch's (odd n: the
-    per-problem scalar staging; n = 128 the bulk copy)."""
+    per-problem scalar staging; n = 128 the bulk copy; n = 256 and 257 the
+    rows from global memory)."""
     rng = np.random.default_rng(n + batch)
     cost = torch.as_tensor(rng.uniform(0, 1, (batch, n, n)).astype(
         np.float32), device=cuda)

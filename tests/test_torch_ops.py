@@ -413,7 +413,12 @@ def test_port_imports_without_jax():
             "tpu_mot_torch.__main__", "tpu_mot_torch.tools.bench",
             "tpu_mot_torch.tools.bench_e2e",
             "tpu_mot_torch.tools.bench_variants",
-            "tpu_mot_torch.tools.bench_latency"} <= set(mods)
+            "tpu_mot_torch.tools.bench_latency",
+            "tpu_mot_torch.tools.bench_otb",
+            "tpu_mot_torch.tools.bench_configs4",
+            "tpu_mot_torch.tools.bench_ingest",
+            "tpu_mot_torch.tools.bench_hard_fixture",
+            "tpu_mot_torch.tools.train_e2e_mota"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None

@@ -53,6 +53,19 @@
 // intrinsics so nothing is contracted or reordered: col_of and iters are
 // bit-identical to the plain version (auction_solve_ref) and to the TPU
 // kernel, not merely of equal cost.
+//
+// Two places for the matrix.  Up to shared_max_n() (237) columns it is
+// staged into shared memory as above.  From 238 up to 1024 columns (the
+// thread-per-column limit, kThreads) the matrix does not fit in the 227 KB
+// a CTA may hold (a [256, 256] float32 matrix is 256 KB), so the bidding
+// rows are read from global memory instead, where they stay resident in
+// the 50 MB L2 ([1024, 1024] is 4 MB): eight lanes a row read it as
+// float4 where rows are multiples of 16 bytes at an aligned base, by
+// scalar loads otherwise.  Prices, keys, col_of, row_of stay in shared
+// memory (under 21 KB at n = 1024).  The round, the arithmetic and the
+// tie-breaks are the same code, so both places give the same col_of and
+// iters.  The TPU kernel has no such split: VMEM holds b at any n the
+// tracker builds (a 1024 x 1024 matrix is 4 MB there).
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -62,18 +75,21 @@
 namespace {
 
 constexpr float kNeg = -1.0e30f;
-constexpr int kThreads = 1024;  // >= the largest n: a thread per column
+constexpr int kThreads = 1024;  // the largest n: a thread per column
 constexpr int kGroup = 8;       // lanes per bidding row
 constexpr size_t kMaxSmem = 232448;  // 227 KB opt-in limit of sm_90
 
 // Row stride in shared memory: a multiple of four floats (float4 reads).
 __host__ __device__ inline int row_stride(int n) { return (n + 3) & ~3; }
 
-__host__ __device__ inline size_t smem_bytes(int n) {
-  // b [n * ld] + prices [ld] floats, keys [n] + the mbarrier (8 bytes
-  // each), col_of, row_of [n] ints.
+// Dynamic shared memory of a solve of n columns, with the matrix in shared
+// memory (shared) or read from global memory.
+__host__ __device__ inline size_t smem_bytes(int n, bool shared) {
+  // b [n * ld] (shared only) + prices [ld] floats, keys [n] + the
+  // mbarrier (8 bytes each), col_of, row_of [n] ints.
   const size_t ld = row_stride(n);
-  return (n * ld + ld) * 4 + (size_t)(n + 1) * 8 + (size_t)2 * n * 4;
+  return ((shared ? n * ld : 0) + ld) * 4 + (size_t)(n + 1) * 8 +
+         (size_t)2 * n * 4;
 }
 
 // Float bits -> unsigned with the same order (any non-NaN values), > 0.
@@ -102,10 +118,15 @@ __device__ inline void scan_step(float v, int j, float& m1, int& c,
   }
 }
 
+// kShared: the matrix in shared memory (n <= shared_max_n()), else read
+// from global memory.  aligned: the rows are multiples of 16 bytes at a
+// 16-byte aligned base (n % 4 == 0), so the shared path stages the matrix
+// by one bulk asynchronous copy and the global path reads it as float4.
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads, 1)
 auction_kernel(const float* __restrict__ b_batch, int* __restrict__ col_batch,
                int* __restrict__ iters_batch, int n, float eps,
-               int max_iters, int bulk) {
+               int max_iters, int aligned) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // This CTA's problem.
   const float* __restrict__ b_g = b_batch + (size_t)blockIdx.x * n * n;
@@ -113,7 +134,7 @@ auction_kernel(const float* __restrict__ b_batch, int* __restrict__ col_batch,
   int* __restrict__ iters_out = iters_batch + blockIdx.x;
   const int ld = row_stride(n);
   float* b = reinterpret_cast<float*>(smem_raw);
-  float* prices = b + (size_t)n * ld;
+  float* prices = b + (kShared ? (size_t)n * ld : 0);
   unsigned long long* keys =
       reinterpret_cast<unsigned long long*>(prices + ld);
   unsigned long long* mbar = keys + n;
@@ -125,8 +146,10 @@ auction_kernel(const float* __restrict__ b_batch, int* __restrict__ col_batch,
   const int group = tid / kGroup;
   constexpr int kGroups = kThreads / kGroup;
 
-  // Staging.  bulk: ld == n and b_g is 16-byte aligned, so the matrix is
-  // one contiguous copy of n * n * 4 bytes (a multiple of 16).
+  // Staging (the global path has none).  aligned: ld == n and b_g is
+  // 16-byte aligned, so the matrix is one contiguous copy of n * n * 4
+  // bytes (a multiple of 16).
+  const bool bulk = kShared && aligned;
   if (bulk) {
     if (tid == 0) {
       const uint32_t bar = smem_addr(mbar);
@@ -143,7 +166,7 @@ auction_kernel(const float* __restrict__ b_batch, int* __restrict__ col_batch,
           "l"(b_g), "r"(bytes), "r"(bar)
           : "memory");
     }
-  } else {
+  } else if (kShared) {
     for (int i = tid; i < n * ld; i += kThreads) {
       const int r = i / ld;
       const int j = i - r * ld;
@@ -187,16 +210,34 @@ auction_kernel(const float* __restrict__ b_batch, int* __restrict__ col_batch,
       float m1 = -INFINITY;
       float m2 = kNeg;
       int c = n;
-      if (bidding) {
-        const float4* br = b4 + (size_t)r * ld4;
+      if (bidding && (kShared || aligned)) {
+        const float4* br =
+            kShared ? b4 + (size_t)r * ld4
+                    : reinterpret_cast<const float4*>(b_g + (size_t)r * n);
         for (int q = sub; q < ld4; q += kGroup) {  // ascending columns
-          const float4 bv = br[q];
+          const float4 bv = kShared ? br[q] : __ldg(br + q);
           const float4 pv = p4[q];
           const int j = q << 2;
           scan_step(__fsub_rn(bv.x, pv.x), j, m1, c, m2);
           scan_step(__fsub_rn(bv.y, pv.y), j + 1, m1, c, m2);
           scan_step(__fsub_rn(bv.z, pv.z), j + 2, m1, c, m2);
           scan_step(__fsub_rn(bv.w, pv.w), j + 3, m1, c, m2);
+        }
+      } else if (bidding) {
+        // global memory, rows not 16-byte multiples: the same quads by
+        // scalar loads, the columns past n read as -inf (never a maximum),
+        // as the shared path's padding does.
+        const float* br = b_g + (size_t)r * n;
+        for (int q = sub; q < ld4; q += kGroup) {  // ascending columns
+          const float4 pv = p4[q];
+          const int j = q << 2;  // < n
+          const float b1 = j + 1 < n ? __ldg(br + j + 1) : -INFINITY;
+          const float b2 = j + 2 < n ? __ldg(br + j + 2) : -INFINITY;
+          const float b3 = j + 3 < n ? __ldg(br + j + 3) : -INFINITY;
+          scan_step(__fsub_rn(__ldg(br + j), pv.x), j, m1, c, m2);
+          scan_step(__fsub_rn(b1, pv.y), j + 1, m1, c, m2);
+          scan_step(__fsub_rn(b2, pv.z), j + 2, m1, c, m2);
+          scan_step(__fsub_rn(b3, pv.w), j + 3, m1, c, m2);
         }
       }
       for (int off = kGroup / 2; off > 0; off >>= 1) {
@@ -243,13 +284,19 @@ auction_kernel(const float* __restrict__ b_batch, int* __restrict__ col_batch,
   if (tid == 0) *iters_out = it;
 }
 
-// Whether a matrix of n columns at a 16-byte aligned address is staged by
-// the bulk asynchronous copy (else by scalar loads into padded rows).
-bool bulk_path(int n) { return n % 4 == 0; }
+// Whether the matrix of n columns and the solve's state fit in one CTA's
+// shared memory (else the rows are read from global memory).
+bool shared_path(int n) { return smem_bytes(n, true) <= kMaxSmem; }
 
-// Opt the kernel in to the shared memory of n columns.  The attribute is
-// a ceiling: it is raised when a larger n arrives, per device, and
-// otherwise left alone, so a steady caller pays for it once.
+// Whether rows of n columns at a 16-byte aligned address are staged by the
+// bulk asynchronous copy (shared) or read as float4 (global); else by
+// scalar loads.
+bool aligned_rows(int n) { return n % 4 == 0; }
+
+// Opt a kernel in to the shared memory of n columns.  The attribute is a
+// ceiling: it is raised when a larger n arrives, per kernel and device,
+// and otherwise left alone, so a steady caller pays for it once.
+template <bool kShared>
 int prepare(size_t smem) {
   static size_t prepared[64] = {};
   int dev = 0;
@@ -258,41 +305,72 @@ int prepare(size_t smem) {
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (smem <= prepared[dev]) return 0;
   const int rc = (int)cudaFuncSetAttribute(
-      auction_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      auction_kernel<kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (rc == 0) prepared[dev] = smem;
   return rc;
 }
 
-}  // namespace
-
-extern "C" int tpu_mot_auction_max_n() {
-  int n = 1;
-  while (smem_bytes(n + 1) <= kMaxSmem) ++n;
-  return n;
-}
-
-// What a solve of n columns launches: info[0] the staging path (1 = bulk
-// asynchronous copy, 0 = scalar loads), info[1] threads per CTA, info[2]
-// registers per thread, info[3] dynamic shared memory, info[4] CTAs that
-// fit on one SM at once (the solve launches one).  Returns a CUDA error
-// code.
-extern "C" int tpu_mot_auction_info(int n, int* info) {
+template <bool kShared>
+int info_of(int n, int* info) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, auction_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, auction_kernel<kShared>);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes(n);
-  const int rc = prepare(smem);
+  const size_t smem = smem_bytes(n, kShared);
+  const int rc = prepare<kShared>(smem);
   if (rc != 0) return rc;
   int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, auction_kernel,
-                                                      kThreads, smem);
-  info[0] = bulk_path(n);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, auction_kernel<kShared>, kThreads, smem);
+  info[0] = (kShared ? 0 : 2) + aligned_rows(n);  // path
   info[1] = kThreads;
   info[2] = attr.numRegs;
   info[3] = (int)smem;
   info[4] = ctas;
   return (int)err;
+}
+
+template <bool kShared>
+int launch(const void* b, void* col_out, void* iters_out, int n, int batch,
+           float eps, int max_iters, void* stream) {
+  const size_t smem = smem_bytes(n, kShared);
+  const int rc = prepare<kShared>(smem);
+  if (rc != 0) return rc;
+  // Both 16-byte paths need every problem's matrix aligned.  They take
+  // n % 4 == 0, so a matrix is n * n * 4 bytes, a multiple of 64, and
+  // every problem's base is aligned exactly when the first one's is; any
+  // other n reads by scalar loads.
+  const int aligned =
+      aligned_rows(n) && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  auction_kernel<kShared><<<batch, kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(b), static_cast<int*>(col_out),
+      static_cast<int*>(iters_out), n, eps, max_iters, aligned);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The largest n a solve takes: a thread per column.
+extern "C" int tpu_mot_auction_max_n() { return kThreads; }
+
+// The largest n whose matrix is staged into shared memory.
+extern "C" int tpu_mot_auction_shared_max_n() {
+  int n = 1;
+  while (shared_path(n + 1)) ++n;
+  return n;
+}
+
+// What a solve of n columns launches: info[0] the path (0 = shared memory
+// staged by scalar loads, 1 = shared memory staged by the bulk
+// asynchronous copy, 2 = global memory read by scalar loads, 3 = global
+// memory read as float4; the aligned forms need a 16-byte aligned matrix),
+// info[1] threads per CTA, info[2] registers per thread, info[3] dynamic
+// shared memory, info[4] CTAs that fit on one SM at once (a solve
+// launches one a problem).  Returns a CUDA error code.
+extern "C" int tpu_mot_auction_info(int n, int* info) {
+  if (n < 1 || n > kThreads) return (int)cudaErrorInvalidValue;
+  return shared_path(n) ? info_of<true>(n, info) : info_of<false>(n, info);
 }
 
 // b: [batch, n, n] float32 benefits (device); col_out: [batch, n] int32;
@@ -302,18 +380,10 @@ extern "C" int tpu_mot_auction_solve(const void* b, void* col_out,
                                      void* iters_out, int n, int batch,
                                      float eps, int max_iters,
                                      void* stream) {
-  if (batch < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(n);
-  const int rc = prepare(smem);
-  if (rc != 0) return rc;
-  // The bulk copy needs every problem's matrix 16-byte aligned.  It takes
-  // n % 4 == 0, so a matrix is n * n * 4 bytes, a multiple of 64, and every
-  // problem's base is aligned exactly when the first one's is; any other n
-  // stages by scalar loads.
-  const int bulk = bulk_path(n) && reinterpret_cast<uintptr_t>(b) % 16 == 0;
-  auction_kernel<<<batch, kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(b), static_cast<int*>(col_out),
-      static_cast<int*>(iters_out), n, eps, max_iters, bulk);
-  return (int)cudaGetLastError();
+  if (batch < 1 || n < 1 || n > kThreads) return (int)cudaErrorInvalidValue;
+  return shared_path(n)
+             ? launch<true>(b, col_out, iters_out, n, batch, eps, max_iters,
+                            stream)
+             : launch<false>(b, col_out, iters_out, n, batch, eps,
+                             max_iters, stream);
 }

@@ -36,6 +36,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "tpu_mot_auction_solve": (_P, _P, _P, _I, _I, _F, _I, _P),
     "tpu_mot_auction_max_n": (),
+    "tpu_mot_auction_shared_max_n": (),
     "tpu_mot_auction_info": (_I, _P),
     "tpu_mot_roi_extract": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

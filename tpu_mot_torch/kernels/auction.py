@@ -148,17 +148,28 @@ def auction_solve_scatter_ref(b: torch.Tensor, eps: float, max_iters: int
 
 @functools.lru_cache(maxsize=None)
 def max_n() -> int:
-    """Largest n whose matrix and state fit in one CTA's shared memory."""
+    """Largest n the kernel solves: one thread per column (1024)."""
     return _build.load().tpu_mot_auction_max_n()
 
 
-PATHS = ("scalar loads into padded rows", "bulk asynchronous copy")
+@functools.lru_cache(maxsize=None)
+def shared_max_n() -> int:
+    """Largest n whose matrix and state fit in one CTA's shared memory
+    (237); larger problems read their rows from global memory."""
+    return _build.load().tpu_mot_auction_shared_max_n()
+
+
+PATHS = ("scalar loads into padded rows", "bulk asynchronous copy",
+         "rows from global memory by scalar loads",
+         "rows from global memory as float4")
 
 
 def launch_info(n: int) -> dict:
     """What the kernel launches for a (16-byte aligned) matrix of n
-    columns: staging path (a name from PATHS), threads, registers, shared
-    memory, CTAs per SM (per problem: a batch launches one CTA each)."""
+    columns: path (a name from PATHS: the matrix staged into shared memory
+    up to shared_max_n() columns, read from global memory above it),
+    threads, registers, shared memory, CTAs per SM (per problem: a batch
+    launches one CTA each)."""
     info = _build.launch_info(_build.load().tpu_mot_auction_info, n)
     info["path"] = PATHS[info["path"]]
     return info
@@ -186,8 +197,8 @@ def auction_solve(b: torch.Tensor, eps: float, max_iters: int
     limit = max_n()
     if not 1 <= n <= limit:
         raise ValueError(
-            f"auction_solve: n={n} outside 1..{limit} (the matrix must "
-            "fit in one CTA's shared memory)")
+            f"auction_solve: n={n} outside 1..{limit} (the kernel runs a "
+            f"thread per column, at most {limit})")
     if max_iters < 0:
         raise ValueError("auction_solve: max_iters must be >= 0")
     col_of = torch.empty(batch + (n,), dtype=torch.int32, device=b.device)

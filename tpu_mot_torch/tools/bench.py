@@ -201,16 +201,17 @@ def sample(fn, dev: torch.device) -> tuple[float, object]:
     return time.perf_counter() - t0, out
 
 
-def chained(track, bank):
+class chained:
     """A sample function over track(bank) -> (bank, StepOutput): each call
     starts from the bank the previous one left (a dependent run) and
-    returns its StepOutput."""
-    carry = [bank]
+    returns its StepOutput; `bank` is the bank the last call left."""
 
-    def one():
-        carry[0], out = track(carry[0])
+    def __init__(self, track, bank):
+        self.track, self.bank = track, bank
+
+    def __call__(self):
+        self.bank, out = self.track(self.bank)
         return out
-    return one
 
 
 def spread(n: int, secs: list[float]) -> list[float]:
