@@ -7,8 +7,10 @@ nonzero exit, no "ok" line):
   device     a CUDA card, its name and power limit (nvidia-smi);
   build      nvcc builds tpu_mot_torch/csrc, one process per source;
   roi        K1 (ROI kernel) against its plain version on a 1080p u8 bench
-             frame: the fixture's 128 first-frame boxes, the edge cases, 37
-             seeded boxes (a ragged T) at S = 64, 48 and 30, and the
+             frame: the fixture's 128 first-frame boxes at S = 64, 48 and
+             32 (the template sizes of bench_template_size), the edge
+             cases, 37 seeded boxes (a ragged T) at S = 64, 48 and 30, and
+             the
              single-object bank's 3-scale call (the 128 boxes x 3 per-track
              scales, 384 rows), u8 and f32 pyramids: max |diff| 1e-5 and
              bit-equal to the kernel's torch mirror (four_tap_mirror); the
@@ -197,6 +199,27 @@ nonzero exit, no "ok" line):
              frame); then K2 on a hard-fixture
              matrix against its plain version, timed (the kernels line's
              auction_solve_global row);
+  sweeps     the twins of the JAX package's last four measuring tools on
+             bench.py's fixture, each through its main at full size with 3
+             samples, printing its JSON lines, the launch counts read
+             around each row, and in each row the calls SWEEP_CHECK_AT of
+             every kernel at every input shape it runs at (K1 at 128 rows
+             of S = 64, 48, 32 and at S x 128 rows, K3, K2 [S, 160, 160])
+             held against its plain version on the path's own inputs
+             (K1/K3 1e-5 and bit-equal to the mirror, K2 exact):
+             bench_multistream (S = 1, 2, 4, 8 copies of the first 32
+             frames: every stream bit-equal to stream 0 of S = 1, which
+             equals run_sequence; K1 and K2 once a multi-stream frame, K2
+             [S, 160, 160]), bench_class_cost (the class-blind and
+             class-aware rows against tests/golden/sweeps_jax_v1.npz: ids
+             and valid every frame, boxes 0.05 px, the auction's rounds
+             every frame, the last bank's alphaf of SWEEP_BANK_SLOTS slots
+             1e-3 of the largest magnitude), bench_train_site (the refined
+             rows against the dump so, and MOTA within 0.005; the detect
+             rows at the MOTA gate; K1, K3 and K2 launches a frame exactly
+             TRAIN_SITE_LAUNCHES) and bench_template_size (48 and 32
+             against the dump so, MOTA and HOTA within 0.005; 64 at the
+             MOTA gate); every line names the card and has a rate above 0;
   times      run_sequence frames/s (default and H: the bench phase's
              twins; HF, A, AW: median of 3); each kernel against its plain
              version: the median ms per call from a CUDA event pair around
@@ -231,6 +254,7 @@ them).  The last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -268,10 +292,11 @@ from tpu_mot_torch.ops import patch as patch_ops
 from tpu_mot_torch.parallel import mesh as mesh_mod
 from tpu_mot_torch.parallel import serve, train
 from tpu_mot_torch.tools import bench as bench_tool
-from tpu_mot_torch.tools import (bench_configs4, bench_e2e,
-                                 bench_hard_fixture, bench_ingest,
-                                 bench_latency, bench_otb, bench_variants,
-                                 train_e2e_mota)
+from tpu_mot_torch.tools import (bench_class_cost, bench_configs4,
+                                 bench_e2e, bench_hard_fixture, bench_ingest,
+                                 bench_latency, bench_multistream, bench_otb,
+                                 bench_template_size, bench_train_site,
+                                 bench_variants, train_e2e_mota)
 from tpu_mot_torch.tracker import api
 from tpu_mot_torch.tracker import bank as bank_mod
 from tpu_mot_torch.tracker import kcf_bank
@@ -296,7 +321,7 @@ KCF_TOL = {"response": 1e-4, "xf": 1e-4, "alphaf": 1e-3}
 # The heavy configuration (tools/bench_variants.py "fhog31 + 3-scale"; the
 # heavy golden's KCFConfig) and its two modes: H (defaults otherwise) and
 # HF (the fused KCF kernels with refined-site training).
-HEAVY_KCF = dict(feature_type="hog", cell_size=4, scale_step=1.05)
+HEAVY_KCF = bench_variants.HEAVY_KCF
 HEAVY = {"H": {}, "HF": dict(kcf_impl="pallas", train_site="refined")}
 # ids, valid and boxes of the JAX reference (tpu_mot on the CPU,
 # roi_impl="pallas") tracking the bench fixture in H and HF; regenerate
@@ -394,6 +419,43 @@ TRAIN_SPEC = dict(name="yolov3-tiny", num_classes=80, input_size=416)
 # regenerate with `python tests/test_torch_tools.py regen-hard-dump`.
 HARD_DUMP = TRAIN_DUMP.with_name("hard_fixture_jax_v1.npz")
 
+# The sweeps phase (the twins of tools/bench_{multistream,class_cost,
+# train_site,template_size}.py) on bench.py's fixture.  SWEEPS_DUMP is the
+# JAX reference on it (tpu_mot on the CPU, roi_impl="pallas") in every
+# configuration of those twins that no other dump holds, and in the default
+# one (the class-blind side of bench_class_cost): ids, valid and boxes, the
+# auction's rounds a frame, the last bank's alphaf (where the template size,
+# the features and the train site show on this fixture, which drops no
+# detection and so moves no decision), MOTA and HOTA per row; regenerate
+# with `python tests/test_torch_sweeps.py regen-sweeps-dump`.  SWEEP_ROWS: TrackerConfig arguments of each row
+# ("kcf" a dict of KCFConfig arguments).
+SWEEPS_DUMP = TRAIN_DUMP.with_name("sweeps_jax_v1.npz")
+SWEEP_ROWS = {"default": {},
+              "gray_refined": dict(train_site="refined"),
+              "fhog_refined": dict(train_site="refined", kcf=HEAVY_KCF),
+              "t48": dict(kcf=dict(template_size=48)),
+              "t32": dict(kcf=dict(template_size=32)),
+              "class_aware": dict(class_aware=True)}
+# Launches a frame of each bench_train_site row, counted on the CPU through
+# the kernels' wrappers (tests/test_torch_sweeps.py): refined-site training
+# extracts a second time at the corrected boxes (K1), the 3-scale search
+# is K3.
+TRAIN_SITE_LAUNCHES = {
+    ("default-gray", "refined"): dict(roi_extract=2, auction_solve=1),
+    ("default-gray", "detect"): dict(roi_extract=1, auction_solve=1),
+    ("fhog-3scale", "refined"): dict(roi_extract=1, roi_extract_scales=1,
+                                     auction_solve=1),
+    ("fhog-3scale", "detect"): dict(roi_extract_scales=1, auction_solve=1)}
+SWEEP_BOX_TOL, SWEEP_SCORE_TOL = 0.05, 0.005
+# Track slots of each row's last bank whose KCF dual coefficients (alphaf)
+# the dump holds.
+SWEEP_BANK_SLOTS = 16
+# In every sweeps row, the calls of each kernel at each input shape whose
+# index is here are held against the plain version on the path's own
+# inputs; all fall in the row's warm-up run (at least 32 calls a shape).
+SWEEP_CHECK_AT = frozenset((0, 1, 2, 3, 20, 21, 22, 23))
+
+
 # Published H100 SXM peaks (the least-time bound of each kernel).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -407,9 +469,13 @@ def log(phase: str, msg: str) -> None:
 
 
 def reset_counts() -> None:
-    roi_k.launches = roi_k.launches_scales = 0
-    auction_k.launches = 0
-    kcf_k.launches_detect = kcf_k.launches_train = 0
+    set_counts(dict.fromkeys(KERNELS, 0))
+
+
+def set_counts(counts: dict) -> None:
+    (roi_k.launches, roi_k.launches_scales, auction_k.launches,
+     kcf_k.launches_detect, kcf_k.launches_train) = (counts[k]
+                                                     for k in KERNELS)
 
 
 def read_counts() -> dict:
@@ -688,7 +754,8 @@ def phase_roi(dev, frame_u8, boxes0):
     cases = (("bench", boxes0, 64, None),
              ("edges", torch.as_tensor(edge_boxes(), device=dev), 64, None),
              ("ragged", ragged, 64, None), ("ragged", ragged, 48, None),
-             ("ragged", ragged, 30, None),
+             ("ragged", ragged, 30, None), ("bench", boxes0, 48, None),
+             ("bench", boxes0, 32, None),
              ("bench x 3 scales", boxes0.repeat(3, 1), 64, scales3))
     max_err = 0.0
     for pyr_name, levels in (("u8", levels_u8), ("f32", levels_f32)):
@@ -1309,85 +1376,156 @@ def lockstep(bank, frames, dets, valid, other_dets, other_valid, cfg):
                  for o in (outs, others))
 
 
-def checked_run(run, *args):
-    """run(*args) with each kernel call held against its plain version on
-    the inputs the path gives it (launches made here compare and are not
-    counted).  Returns the outputs; per kernel that ran, its calls' errors:
-    K1 and K3 |kernel - plain| (inf where not bit-equal to the 4-tap
-    mirror), K2 0 where col_of and iters equal the plain version's and a
-    launch per problem's (else inf), K4 the response's and K5 the larger
-    of xf's and alphaf's error relative to the largest magnitude (inf over
-    KCF_TOL); K2's rounds per problem; each kernel's last inputs."""
-    errs = {k: [] for k in KERNELS}
-    rounds, seen = [], {}
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside the block (a kernel held against its plain
+    version) leave the launch counts as they were."""
+    saved = read_counts()
+    try:
+        yield
+    finally:
+        set_counts(saved)
+
+
+class KernelChecks:
+    """What `kernels_checked` saw.  calls[(kernel, shape)]: the path's
+    calls of each kernel at each input shape; errs[(kernel, shape)]: the
+    errors of the calls held against the plain version there (K1 and K3
+    |kernel - plain|, inf where not bit-equal to the 4-tap mirror; K2 0
+    where col_of and iters equal the plain version's and a launch per
+    problem's, else inf; K4 the response's and K5 the larger of xf's and
+    alphaf's error relative to the largest magnitude, inf over KCF_TOL);
+    rounds: K2's per problem of the checked calls; seen: each kernel's last
+    checked inputs.  A shape is (rows, S, "u8" or "f32") for K1, (scales,
+    rows, S, ...) for K3, the benefit matrix's for K2, the features' for
+    K4 and K5."""
+
+    def __init__(self):
+        self.calls = collections.Counter()
+        self.errs, self.rounds, self.seen = {}, [], {}
+
+    def by_kernel(self) -> dict:
+        """{kernel: the errors of its checked calls, at every shape}."""
+        out = {}
+        for (k, _), e in self.errs.items():
+            out.setdefault(k, []).extend(e)
+        return out
+
+
+@contextlib.contextmanager
+def kernels_checked(at=None):
+    """Within the block, the kernels' calls are held against their plain
+    versions on the inputs the path gives them: every call, or with `at`
+    the calls whose index among the calls of their kernel at their input
+    shape is in `at`.  The launches made to compare are not counted.
+    Yields a KernelChecks."""
+    st = KernelChecks()
     k1, k3 = roi_k._resample_cuda, roi_k._resample_scales_cuda
     k2 = auction_k.auction_solve
     k4, k5 = kcf_k.detect_fused, kcf_k.train_fused
 
+    def checking(kernel, shape) -> tuple | None:
+        """The key to file the call's error under, or None: not checked."""
+        key = (kernel, shape)
+        st.calls[key] += 1
+        return key if at is None or st.calls[key] - 1 in at else None
+
+    def roi_shape(levels, ys) -> tuple:
+        return (*ys.shape, "u8" if levels[0].dtype == torch.uint8 else "f32")
+
     def roi(levels, frame_hw, lvl, r0, c0, ys, xs):
         got = k1(levels, frame_hw, lvl, r0, c0, ys, xs)
+        key = checking("roi_extract", roi_shape(levels, ys))
+        if key is None:
+            return got
         want = roi_k._resample_ref(levels, frame_hw, lvl, r0, c0, ys, xs)
         mirror = roi_k.four_tap_mirror(levels, frame_hw, lvl, r0, c0,
                                        ys[None], xs[None])[0]
         err = float((got - want).abs().max())
-        errs["roi_extract"].append(err if torch.equal(got, mirror)
-                                   else math.inf)
-        seen["roi_extract"] = (levels, frame_hw, lvl, r0, c0, ys, xs)
+        st.errs.setdefault(key, []).append(
+            err if torch.equal(got, mirror) else math.inf)
+        st.seen["roi_extract"] = (levels, frame_hw, lvl, r0, c0, ys, xs)
         return got
 
     def roi3(levels, frame_hw, lvl, r0, c0, ys, xs):
         got = k3(levels, frame_hw, lvl, r0, c0, ys, xs)
+        key = checking("roi_extract_scales", roi_shape(levels, ys))
+        if key is None:
+            return got
         want = roi_k._resample_scales_ref(levels, frame_hw, lvl, r0, c0, ys,
                                           xs)
         mirror = roi_k.four_tap_mirror(levels, frame_hw, lvl, r0, c0, ys, xs)
         err = float((got - want).abs().max())
-        errs["roi_extract_scales"].append(err if torch.equal(got, mirror)
-                                          else math.inf)
-        seen["roi_extract_scales"] = (levels, frame_hw, lvl, r0, c0, ys, xs)
+        st.errs.setdefault(key, []).append(
+            err if torch.equal(got, mirror) else math.inf)
+        st.seen["roi_extract_scales"] = (levels, frame_hw, lvl, r0, c0, ys,
+                                         xs)
         return got
 
     def auction(b, eps, max_iters):
         col, it = k2(b, eps, max_iters)
+        key = checking("auction_solve", tuple(b.shape))
+        if key is None:
+            return col, it
         want_col, want_it = auction_k.auction_solve_ref(b, eps, max_iters)
-        one = [k2(b[p].contiguous(), eps, max_iters)
-               for p in range(b.shape[0])]
+        with uncounted():
+            one = [k2(b[p].contiguous(), eps, max_iters)
+                   for p in range(b.shape[0])]
         same = (torch.equal(col, want_col) and torch.equal(it, want_it)
                 and all(torch.equal(col[p], c) and torch.equal(it[p], i)
                         for p, (c, i) in enumerate(one)))
-        errs["auction_solve"].append(0 if same else math.inf)
-        rounds.extend(it.tolist())
-        seen["auction_solve"] = b.clone()
+        st.errs.setdefault(key, []).append(0 if same else math.inf)
+        st.rounds.extend(it.tolist())
+        st.seen["auction_solve"] = b.clone()
         return col, it
 
     def detect(model, feat, sigma):
         got = k4(model, feat, sigma)
+        key = checking("kcf_detect", tuple(feat.shape))
+        if key is None:
+            return got
         e = rel_err(got, kcf_k.detect_fused_ref(model, feat, sigma))
-        errs["kcf_detect"].append(e if e <= KCF_TOL["response"]
-                                  else math.inf)
-        seen["kcf_detect"] = (kcf_ops.KCFModel(*[x.clone() for x in model]),
-                              feat.clone(), sigma)
+        st.errs.setdefault(key, []).append(
+            e if e <= KCF_TOL["response"] else math.inf)
+        st.seen["kcf_detect"] = (
+            kcf_ops.KCFModel(*[x.clone() for x in model]), feat.clone(),
+            sigma)
         return got
 
     def train(model, feat, yf, sigma, lambda_, lr):
         got = k5(model, feat, yf, sigma, lambda_, lr)
+        key = checking("kcf_train", tuple(feat.shape))
+        if key is None:
+            return got
         want = kcf_k.train_fused_ref(model, feat, yf, sigma, lambda_, lr)
         e_x, e_a = rel_err(got.xf, want.xf), rel_err(got.alphaf, want.alphaf)
-        errs["kcf_train"].append(max(e_x, e_a) if e_x <= KCF_TOL["xf"]
-                                 and e_a <= KCF_TOL["alphaf"] else math.inf)
-        seen["kcf_train"] = (kcf_ops.KCFModel(*[x.clone() for x in model]),
-                             feat.clone(), yf, sigma, lambda_, lr.clone())
+        st.errs.setdefault(key, []).append(
+            max(e_x, e_a) if e_x <= KCF_TOL["xf"]
+            and e_a <= KCF_TOL["alphaf"] else math.inf)
+        st.seen["kcf_train"] = (
+            kcf_ops.KCFModel(*[x.clone() for x in model]), feat.clone(), yf,
+            sigma, lambda_, lr.clone())
         return got
 
     roi_k._resample_cuda, roi_k._resample_scales_cuda = roi, roi3
     auction_k.auction_solve = auction
     kcf_k.detect_fused, kcf_k.train_fused = detect, train
     try:
-        _, out = run(*args)
+        yield st
     finally:
         roi_k._resample_cuda, roi_k._resample_scales_cuda = k1, k3
         auction_k.auction_solve = k2
         kcf_k.detect_fused, kcf_k.train_fused = k4, k5
-    return out, {k: e for k, e in errs.items() if e}, rounds, seen
+
+
+def checked_run(run, *args):
+    """run(*args) with every kernel call held against its plain version on
+    the inputs the path gives it (`kernels_checked`).  Returns the outputs;
+    per kernel that ran, its calls' errors; K2's rounds per problem; each
+    kernel's last inputs."""
+    with kernels_checked() as st:
+        _, out = run(*args)
+    return out, st.by_kernel(), st.rounds, st.seen
 
 
 def phase_e2e_detect(dev, card: str):
@@ -3087,6 +3225,212 @@ def phase_tools(card: str, hard_b) -> dict:
     return global_k2_row(hard_b, hard_launches)
 
 
+def rows_counted(fn, at=None):
+    """fn() with `tools.bench.warm_and_sample` (one call a row of the twins
+    that run bench.py's protocol) wrapped to read each call's launch
+    counts, hold its kernel calls against their plain versions
+    (`kernels_checked(at)`) and keep the bank its warm-up run left: (fn's
+    result, [(each row's counts, its warm-up bank, its KernelChecks)])."""
+    warm_and_sample, seen = bench_tool.warm_and_sample, []
+
+    def counted(*args, **kw):
+        reset_counts()
+        with kernels_checked(at) as st:
+            result = warm_and_sample(*args, **kw)
+        seen.append((read_counts(), result[0], st))
+        return result
+
+    bench_tool.warm_and_sample = counted
+    try:
+        return fn(), seen
+    finally:
+        bench_tool.warm_and_sample = warm_and_sample
+
+
+def per_frame(counts: dict, n_frames: int) -> dict:
+    """Launches a frame of every kernel from a run's counts: the counts
+    over n_frames, or the counts themselves where they do not divide."""
+    return {k: c // n_frames if c % n_frames == 0 else c
+            for k, c in counts.items()}
+
+
+def phase_sweeps(card: str, frames, d, v, cfg) -> None:
+    """The port's twins of the JAX package's last four measuring tools, each
+    through its main at full size on the card, with the gates of each:
+    bench_multistream (every stream of every S bit-equal to stream 0 of
+    S = 1, which equals run_sequence on the same frames; K1 and K2 once a
+    multi-stream frame, K2 [S, 160, 160]), bench_class_cost (each row
+    against SWEEPS_DUMP), bench_train_site (the refined rows against
+    SWEEPS_DUMP, the detect rows at the MOTA gate, TRAIN_SITE_LAUNCHES
+    exactly) and bench_template_size (48 and 32 against SWEEPS_DUMP, 64 at
+    the MOTA gate); in every row the calls SWEEP_CHECK_AT of each kernel at
+    each shape it runs at held against its plain version; every line names
+    the card and has a rate above 0.  frames, d, v, cfg: the bench fixture
+    on the card."""
+    t_phase = time.perf_counter()
+    samples = ["--samples", str(BENCH_SAMPLES)]
+    runs = 1 + BENCH_SAMPLES            # the warm-up and the samples
+    n = N_FRAMES
+    dump = np.load(SWEEPS_DUMP)
+    failures = []
+    once = dict(roi_extract=1, auction_solve=1)      # K1, K2 once a frame
+    limits = {"roi_extract": ROI_TOL, "roi_extract_scales": ROI_TOL,
+              "auction_solve": 0, "kcf_detect": KCF_TOL["response"],
+              "kcf_train": KCF_TOL["alphaf"]}
+
+    def against_dump(what, out, row, scores=None, bank=None):
+        """ids and valid exact, boxes within SWEEP_BOX_TOL, the auction's
+        rounds exact on every frame, the warm-up bank's alphaf of the first
+        SWEEP_BANK_SLOTS slots within KCF_TOL (relative to the largest
+        magnitude) and the scores within SWEEP_SCORE_TOL."""
+        ok, txt = compare_tracks(
+            triple(out), tuple(dump[f"{row}_{k}"]
+                               for k in ("ids", "valid", "boxes")),
+            SWEEP_BOX_TOL)
+        iters = out.assign_iters.cpu().numpy()
+        same_iters = int((iters == dump[f"{row}_iters"]).sum())
+        ok &= same_iters == n
+        txt += f"; auction rounds equal on {same_iters}/{n} frames"
+        a = bank.kcf.alphaf[:SWEEP_BANK_SLOTS]
+        want = torch.as_tensor(dump[f"{row}_alphaf"], device=a.device)
+        e = (rel_err(a, want) if a.shape == want.shape else math.inf)
+        ok &= e <= KCF_TOL["alphaf"]
+        txt += (f"; the last bank's alphaf {tuple(a.shape)} (JAX "
+                f"{tuple(want.shape)}) off by {e:.3g} of the largest "
+                f"magnitude (limit {KCF_TOL['alphaf']:g})")
+        for key, got in (scores or {}).items():
+            ref = float(dump[f"{row}_{key}"])
+            ok &= abs(got - ref) <= SWEEP_SCORE_TOL
+            txt += f"; {key} {got} (JAX {ref})"
+        log("sweeps", f"{what} against the JAX dump's {row!r}: {txt}")
+        if not ok:
+            failures.append(f"{what}: {txt}")
+
+    def line_ok(what, line, rate):
+        if not (line["device"] == card and line[rate] > 0):
+            failures.append(f"{what}: {line}")
+
+    def launches_ok(what, got, want):
+        want = {k: want.get(k, 0) for k in KERNELS}
+        log("sweeps", f"{what}: launches {got} (expected {want})")
+        if got != want:
+            failures.append(f"{what}: launches {got}, expected {want}")
+
+    def checks_ok(what, st):
+        """Every shape a kernel ran at has checked calls, each within its
+        kernel's limit."""
+        for key, calls in sorted(st.calls.items(), key=str):
+            e = st.errs.get(key, [])
+            worst = max(e, default=math.inf)
+            log("sweeps", f"{what}: {key[0]} at {key[1]}: {calls} calls, "
+                          f"{len(e)} held against the plain version, "
+                          f"largest error {worst:.3g} (limit "
+                          f"{limits[key[0]]:g})")
+            if not worst <= limits[key[0]]:
+                failures.append(f"{what}: {key[0]} at {key[1]} against its "
+                                f"plain version: errors {e}")
+
+    # multistream: S copies of one clip, each stream equal to S = 1's
+    reset_counts()
+    with kernels_checked(SWEEP_CHECK_AT) as st:
+        lines, outs = bench_multistream.main(samples)
+    counts = read_counts()
+    m = bench_multistream.N_FRAMES
+    streams = bench_multistream.STREAMS
+    for line in lines:
+        log("sweeps", f"bench_multistream S={line['streams']}: "
+                      f"{line['ms_per_step']} ms a multi-stream step, "
+                      f"{line['aggregate_fps_per_chip']} stream-frames/s "
+                      f"(spread {line['spread_fps']}), scaling_vs_1 "
+                      f"{line['scaling_vs_1']}")
+        line_ok(f"bench_multistream S={line['streams']}", line,
+                "aggregate_fps_per_chip")
+    launches_ok("bench_multistream (a multi-stream frame)",
+                per_frame(counts, len(streams) * runs * m), once)
+    checks_ok("bench_multistream", st)
+    k2_n = max(cfg.max_tracks, cfg.max_detections)     # K2 pads to square
+    shapes = {key[1]: c for key, c in st.calls.items()
+              if key[0] == "auction_solve"}
+    if shapes != {(s, k2_n, k2_n): runs * m for s in streams}:
+        failures.append(f"bench_multistream: K2 calls a shape {shapes}, "
+                        f"expected [S, {k2_n}, {k2_n}] for S in {streams}, "
+                        f"{runs * m} calls each")
+    _, one = scan.run_sequence(bank_mod.empty_bank(cfg, device=frames.device),
+                               frames[:m], d[:m], v[:m], cfg)
+    first = type(one)(*[x[0] for x in outs[1]])
+    unequal = [(s, k) for s in streams for k in ("ids", "valid", "boxes")
+               for i in range(s)
+               if not torch.equal(getattr(outs[s], k)[i], getattr(first, k))]
+    unequal += [(0, k) for k in ("ids", "valid", "boxes")
+                if not torch.equal(getattr(first, k), getattr(one, k))]
+    log("sweeps", f"bench_multistream: every stream of S = "
+                  f"{list(streams)} bit-equal to stream 0 of S = 1, which "
+                  f"equals run_sequence on frames 0-{m - 1}: "
+                  f"{not unequal} (K2 calls a shape {shapes})")
+    if unequal:
+        failures.append(f"bench_multistream: (S, field) unequal {unequal}")
+
+    # class cost: each row against the dump
+    (lines, outs), seen = rows_counted(
+        lambda: bench_class_cost.main(samples), SWEEP_CHECK_AT)
+    for line, (counts, bank, st) in zip(lines, seen):
+        c = line["class_aware"]
+        what = f"bench_class_cost class_aware={c}"
+        log("sweeps", f"{what}: {line['fps']} frames/s, "
+                      f"{line['ms_per_frame']} ms a frame, assoc_box "
+                      f"{line['assoc_box_resolved']}")
+        line_ok(what, line, "fps")
+        launches_ok(f"{what} (a frame)", per_frame(counts, runs * n), once)
+        checks_ok(what, st)
+        against_dump(what, outs[c], "class_aware" if c else "default",
+                     bank=bank)
+
+    # train site: refined rows against the dump, detect rows at the gate
+    (lines, outs), seen = rows_counted(
+        lambda: bench_train_site.main(samples), SWEEP_CHECK_AT)
+    for line, (counts, bank, st) in zip(lines, seen):
+        row = (line["config"], line["train_site"])
+        what = f"bench_train_site {row[0]} {row[1]}"
+        log("sweeps", f"{what}: {line['fps']} frames/s, MOTA "
+                      f"{line['mota_sanity']}, IDF1 {line['idf1']}, IDSW "
+                      f"{line['idsw']}")
+        line_ok(what, line, "fps")
+        launches_ok(f"{what} (a frame)", per_frame(counts, runs * n),
+                    TRAIN_SITE_LAUNCHES[row])
+        checks_ok(what, st)
+        if row[1] == "refined":
+            against_dump(what, outs[row], {"default-gray": "gray_refined",
+                                           "fhog-3scale": "fhog_refined"}[
+                row[0]], {"mota": line["mota_sanity"]}, bank)
+        elif not line["mota_sanity"] >= M_REF - 0.01:
+            failures.append(f"{what}: MOTA {line['mota_sanity']} under "
+                            f"{M_REF - 0.01}")
+
+    # template size: 48 and 32 against the dump, 64 at the gate
+    (lines, outs), seen = rows_counted(
+        lambda: bench_template_size.main(samples), SWEEP_CHECK_AT)
+    for line, (counts, bank, st) in zip(lines, seen):
+        s = line["template_size"]
+        what = f"bench_template_size {s}"
+        log("sweeps", f"{what}: {line['fps']} frames/s, "
+                      f"{line['ms_per_frame']} ms a frame, MOTA "
+                      f"{line['mota']}, HOTA {line['hota']}")
+        line_ok(what, line, "fps")
+        launches_ok(f"{what} (a frame)", per_frame(counts, runs * n), once)
+        checks_ok(what, st)
+        if s == 64:
+            if not line["mota"] >= M_REF - 0.01:
+                failures.append(f"{what}: MOTA {line['mota']} under "
+                                f"{M_REF - 0.01}")
+        else:
+            against_dump(what, outs[s], f"t{s}",
+                         {"mota": line["mota"], "hota": line["hota"]}, bank)
+
+    log("sweeps", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("sweeps: " + "; ".join(failures))
+
+
 def global_k2_row(b, launches: int) -> dict:
     """K2 on one of the hard fixture's [256, 256] matrices (the rows read
     from global memory) against its plain version: the kernels line's row
@@ -3934,6 +4278,7 @@ def main() -> int:
     # the measuring entry points' twins, then times
     twins = phase_bench(card, e2e_first)
     global_row = phase_tools(card, hard_b[-1])
+    phase_sweeps(card, frames, d, v, cfg)
     times = phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_b,
                         hf_inputs, (a_frames, a_d, a_v, a_cfg), twins)
     windows = served.pop("windows")

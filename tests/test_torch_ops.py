@@ -418,6 +418,10 @@ def test_port_imports_without_jax():
             "tpu_mot_torch.tools.bench_configs4",
             "tpu_mot_torch.tools.bench_ingest",
             "tpu_mot_torch.tools.bench_hard_fixture",
+            "tpu_mot_torch.tools.bench_multistream",
+            "tpu_mot_torch.tools.bench_class_cost",
+            "tpu_mot_torch.tools.bench_train_site",
+            "tpu_mot_torch.tools.bench_template_size",
             "tpu_mot_torch.tools.train_e2e_mota"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -221,14 +221,21 @@ def spread(n: int, secs: list[float]) -> list[float]:
 
 # -- the benchmark ------------------------------------------------------------
 
-def scores(out: StepOutput, fx: Fixture) -> dict:
-    """CLEAR-MOT and HOTA of a run's confirmed tracks against the ground
-    truth: {mota, hota, deta, assa, loca}."""
+def gt_and_hyp(out: StepOutput, fx: Fixture) -> tuple[list, list]:
+    """Per frame the ground truth's objects and a run's confirmed tracks,
+    each [(ids, boxes)]: what utils/metrics scores."""
     ids, boxes, valid = (x.cpu().numpy()
                          for x in (out.ids, out.boxes, out.valid))
     hyp = [(ids[f, valid[f]], boxes[f, valid[f]]) for f in range(len(ids))]
     gt = [(np.where(fx.visible[f])[0], fx.gt_boxes[f, fx.visible[f]])
           for f in range(len(ids))]
+    return gt, hyp
+
+
+def scores(out: StepOutput, fx: Fixture) -> dict:
+    """CLEAR-MOT and HOTA of a run's confirmed tracks against the ground
+    truth: {mota, hota, deta, assa, loca}."""
+    gt, hyp = gt_and_hyp(out, fx)
     h = metrics.hota(gt, hyp)
     return dict(mota=metrics.clear_mot(gt, hyp)["mota"], hota=h["hota"],
                 deta=h["deta"], assa=h["assa"], loca=h["loca"])
@@ -249,6 +256,14 @@ def run_tensors(frames: torch.Tensor, d: torch.Tensor, v: torch.Tensor,
                 ) -> tuple[StepOutput, list[float]]:
     """`run` on frames [N, H, W], detections [N, D, 5] and valid [N, D]
     that already sit on the run's device."""
+    _, out, secs = warm_and_sample(frames, d, v, cfg, samples)
+    return out, secs
+
+
+def warm_and_sample(frames: torch.Tensor, d: torch.Tensor, v: torch.Tensor,
+                    cfg: TrackerConfig, samples: int = 7
+                    ) -> tuple[bank_mod.TrackBank, StepOutput, list[float]]:
+    """`run_tensors`, with the bank the warm-up run left first."""
     dev = frames.device
 
     def track(bank):
@@ -256,7 +271,54 @@ def run_tensors(frames: torch.Tensor, d: torch.Tensor, v: torch.Tensor,
 
     bank, out = track(bank_mod.empty_bank(cfg, device=dev))
     one = chained(track, bank)
-    return out, [sample(one, dev)[0] for _ in range(samples)]
+    return bank, out, [sample(one, dev)[0] for _ in range(samples)]
+
+
+class Row(NamedTuple):
+    """A row of a twin's table: its key, its config and its detections
+    ([N, D, C] and valid [N, D]; None: the fixture's)."""
+    key: object
+    config: TrackerConfig
+    dets: tuple | None = None
+
+
+def rates(n: int, secs: list[float]) -> dict:
+    """fps and ms_per_frame of n frames over the median sample."""
+    dt = statistics.median(secs)
+    return {"fps": round(n / dt, 1), "ms_per_frame": round(1e3 * dt / n, 4)}
+
+
+def tail(n: int, secs: list[float], dev: torch.device, small: bool,
+         metric: str = METRIC) -> dict:
+    """The keys every twin's line ends with: metric, spread_fps (n items a
+    sample), n_samples and device."""
+    return {"metric": metric_name(metric, dev, small),
+            "spread_fps": spread(n, secs), "n_samples": len(secs),
+            "device": device_name(dev)}
+
+
+def table_main(argv, doc: str, rows, line_of) -> tuple[list[dict], dict]:
+    """A twin's main over a table of rows on bench.py's fixture: the flags
+    of `parser` from argv, then for each Row of rows(fixture) the warm-up
+    and `--samples` dependent runs (`warm_and_sample`) and one printed JSON
+    line, line_of(fixture, row, the warm-up run's StepOutput, seconds of
+    each sample) followed by `tail`.  Returns (the lines, {row key: the
+    warm-up run's StepOutput})."""
+    args = parser(doc.splitlines()[0]).parse_args(argv)
+    dev = device_of(args)
+    fx = fixture(args.small)
+    frames = torch.as_tensor(fx.frames, device=dev)
+    lines, outs = [], {}
+    for row in rows(fx):
+        d, v = (torch.as_tensor(x, device=dev)
+                for x in (row.dets or (fx.dets, fx.valid)))
+        _, out, secs = warm_and_sample(frames, d, v, row.config,
+                                       args.samples)
+        outs[row.key] = out
+        lines.append({**line_of(fx, row, out, secs),
+                      **tail(len(fx.frames), secs, dev, fx.small)})
+        print(json.dumps(lines[-1]), flush=True)
+    return lines, outs
 
 
 def line(fx: Fixture, out: StepOutput, secs: list[float],
