@@ -1,7 +1,8 @@
 """The port's aux modules (tpu_mot_torch.utils.supervisor, .profiling)
 against their JAX counterparts' behaviour: the ports of
 tests/test_aux.py:24-97 on device="cpu", output_healthy agreeing with
-JAX's on the same outputs, and the torch.profiler trace summary."""
+JAX's on the same outputs, and the program's spans in a torch.profiler
+capture."""
 
 import json
 
@@ -150,24 +151,143 @@ def test_device_timer_and_fps_meter():
     assert m.stats()["frames"] == 10 and m.fps > 0
 
 
-def test_trace_and_summary(tmp_path):
-    """trace() writes a Chrome trace; summarize_trace sums the device
-    kernels of the newest trace by name (a CPU-only trace has none)."""
-    with profiling.trace(str(tmp_path / "cpu")):
-        torch.ones((64, 64)) @ torch.ones((64, 64))
-    assert (tmp_path / "cpu" / profiling.TRACE_NAME).exists()
-    if not torch.cuda.is_available():
-        assert profiling.summarize_trace(str(tmp_path / "cpu")) == []
-    events = [
-        {"ph": "X", "cat": "kernel", "name": "roi_kernel", "dur": 3.0},
-        {"ph": "X", "cat": "kernel", "name": "roi_kernel", "dur": 4.0},
-        {"ph": "X", "cat": "kernel", "name": "auction_kernel", "dur": 9.0},
-        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "dur": 1.0},
-        {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "dur": 50.0},
-        {"ph": "i", "cat": "kernel", "name": "marker", "dur": 70.0}]
-    (tmp_path / "dev").mkdir()
-    (tmp_path / "dev" / "trace.json").write_text(
-        json.dumps({"traceEvents": events}))
-    assert profiling.summarize_trace(str(tmp_path / "dev"), top=2) == [
-        ("auction_kernel", 0.009, 1), ("roi_kernel", 0.007, 2)]
-    assert profiling.summarize_trace(str(tmp_path / "none")) == []
+STAGES = ["tracker.frames", "tracker.predict", "tracker.kcf_detect",
+          "tracker.cost", "tracker.assign", "tracker.correct",
+          "tracker.lifecycle", "tracker.kcf_train"]
+
+
+def _spans(path):
+    """(name, parent name or None) of each of the program's spans in a
+    written Chrome trace, in start order; the parent is the innermost span
+    that encloses it on its thread."""
+    with open(path) as f:
+        evs = [e for e in json.load(f)["traceEvents"]
+               if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+               and e["name"].split(".")[0] in ("serve", "detector",
+                                               "tracker")]
+    out, stack = [], []
+    for e in sorted(evs, key=lambda e: (e["ts"], -e["dur"])):
+        while stack and stack[-1]["ts"] + stack[-1]["dur"] <= e["ts"]:
+            stack.pop()
+        out.append((e["name"], stack[-1]["name"] if stack else None))
+        stack.append(e)
+    return out
+
+
+def _traced(tmp_path, fn):
+    with profiling.trace(str(tmp_path)):
+        fn()
+    return _spans(tmp_path / profiling.TRACE_NAME)
+
+
+def _tiny_streams(**kw):
+    """2 streams x 8 slots at 64 x 96 on the gather path, one detection a
+    stream."""
+    cfg = TrackerConfig(max_tracks=8, max_detections=8, frame_height=64,
+                        frame_width=96, roi_impl="xla", **kw)
+    frames = torch.rand((2, 64, 96),
+                        generator=torch.Generator().manual_seed(0))
+    dets = torch.tensor([[30.0, 30.0, 12.0, 14.0, 0.9]]).repeat(2, 8, 1)
+    valid = torch.zeros((2, 8), dtype=torch.bool)
+    valid[:, 0] = True
+    return cfg, frames, dets, valid
+
+
+def test_span_without_a_capture_is_one_shared_null_context(monkeypatch):
+    """With no profiler running, span() makes no record_function: it gives
+    the one shared null context, whatever the name."""
+    made = []
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        lambda name: made.append(name))
+    a, b = profiling.span("tracker.step"), profiling.span("serve.step")
+    assert a is b
+    with a:
+        with b:
+            pass
+    assert made == []
+    from torch.profiler import profile
+    with profile():
+        profiling.span("tracker.step")
+    assert made == ["tracker.step"]
+
+
+@pytest.mark.parametrize("scale_step", [1.0, 1.05])
+def test_step_streams_records_the_eight_stages_in_order(tmp_path,
+                                                        scale_step):
+    """Two steps of a tiny step_streams under torch.profiler: tracker.step
+    once a step, its eight stage spans inside it in stage order (unit
+    scale, and the 3-scale search's branch of tracker.kcf_detect)."""
+    from tpu_mot_torch.config import KCFConfig
+    from tpu_mot_torch.tracker import step as step_mod
+    from tpu_mot_torch.tracker.bank import empty_bank, map_bank
+
+    cfg, frames, dets, valid = _tiny_streams(
+        kcf=KCFConfig(scale_step=scale_step))
+    one = empty_bank(cfg, device="cpu")
+    bank = map_bank(lambda x: x[None].expand((2,) + x.shape).clone(), one)
+
+    def two_steps():
+        b = bank
+        for _ in range(2):
+            b, _ = step_mod.step_streams(b, frames, dets, valid, cfg)
+
+    spans = _traced(tmp_path, two_steps)
+    one_step = [("tracker.step", None)] + [(s, "tracker.step")
+                                           for s in STAGES]
+    assert spans == one_step * 2
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_detect_then_track_records_the_detector_then_the_tracker(tmp_path,
+                                                                 shared):
+    """The fused step at dryrun_shared_detector's tiny shapes: serve.detect
+    holds detector.detect and its four stages, then serve.step holds
+    tracker.step."""
+    from tpu_mot_torch.models.detector import YoloDetector, detect_batch
+    from tpu_mot_torch.models.yolo import YOLOV2_TINY_ANCHORS, YoloSpec
+    from tpu_mot_torch.parallel import serve
+
+    spec = YoloSpec("yolov2-tiny", num_classes=2, input_size=64,
+                    anchors=YOLOV2_TINY_ANCHORS)
+    det = YoloDetector.random_init(spec, seed=0, device="cpu", max_out=8,
+                                   score_thr=0.0)
+    cfg, frames, _, _ = _tiny_streams()
+    banks = serve.make_stream_banks(2, cfg, device="cpu")
+
+    def detect_fn(model, fr):
+        return detect_batch(model, fr, (64, 96), 8, 0.45, 0.0)
+
+    def fused():
+        if shared:
+            serve.detect_then_track_step_shared(det.model, banks, frames,
+                                                cfg, detect_fn)
+        else:
+            serve.detect_then_track_step(det.model, banks, frames, cfg,
+                                         detect_fn)
+
+    spans = _traced(tmp_path, fused)
+    assert spans[:6] == [
+        ("serve.detect", None), ("detector.detect", "serve.detect"),
+        ("detector.preprocess", "detector.detect"),
+        ("detector.forward", "detector.detect"),
+        ("detector.decode", "detector.detect"),
+        ("detector.nms", "detector.detect")]
+    assert spans[6:8] == [("serve.step", None),
+                          ("tracker.step", "serve.step")]
+    assert [n for n, _ in spans[8:]] == STAGES
+
+
+def test_trace_writes_the_programs_spans(tmp_path):
+    """trace() writes a Chrome trace that holds the program's spans: a
+    serving step is serve.step around tracker.step and its stages."""
+    from tpu_mot_torch.parallel import serve
+
+    cfg, frames, dets, valid = _tiny_streams()
+    banks = serve.make_stream_banks(2, cfg, device="cpu")
+    with profiling.trace(str(tmp_path / "run")):
+        serve.multi_stream_step(banks, frames, dets, valid, cfg)
+    path = tmp_path / "run" / profiling.TRACE_NAME
+    assert path.exists()
+    assert _spans(path) == ([("serve.step", None),
+                             ("tracker.step", "serve.step")]
+                            + [(s, "tracker.step") for s in STAGES])

@@ -19,6 +19,7 @@ from tpu_mot_torch.models.yolo import (YoloSpec, build_model, decode_head,
                                        layer_shapes)
 from tpu_mot_torch.ops.nms import nms_classwise
 from tpu_mot_torch.tracker.bank import resolve_device
+from tpu_mot_torch.utils.profiling import span
 
 
 def _resize(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -63,16 +64,20 @@ def decode_frames(model, frames: torch.Tensor, frame_hw: tuple):
     _check_device(model, frames)
     spec = model.spec
     s = spec.input_size
-    heads = model(preprocess(frames, spec))
-    parts = [decode_head(head, anchors, stride, spec.num_classes, s,
-                         cls_act=spec.cls_activation)
-             for head, anchors, stride in zip(heads, spec.anchors,
-                                               spec.strides)]
-    boxes, scores, classes = (torch.cat(p, dim=1) for p in zip(*parts))
-    h, w = frame_hw
-    scale = torch.tensor([w / s, h / s, w / s, h / s], dtype=torch.float32,
-                         device=boxes.device)
-    return boxes * scale, scores, classes
+    with span("detector.preprocess"):
+        x = preprocess(frames, spec)
+    with span("detector.forward"):
+        heads = model(x)
+    with span("detector.decode"):
+        parts = [decode_head(head, anchors, stride, spec.num_classes, s,
+                             cls_act=spec.cls_activation)
+                 for head, anchors, stride in zip(heads, spec.anchors,
+                                                   spec.strides)]
+        boxes, scores, classes = (torch.cat(p, dim=1) for p in zip(*parts))
+        h, w = frame_hw
+        scale = torch.tensor([w / s, h / s, w / s, h / s],
+                             dtype=torch.float32, device=boxes.device)
+        return boxes * scale, scores, classes
 
 
 @torch.no_grad()
@@ -88,15 +93,19 @@ def detect_batch(model, frames: torch.Tensor, frame_hw: tuple,
     nms_impl: "greedy" (ops.nms.nms) or "fast" (ops.nms.fast_nms);
     pre_top_k: the NMS candidate cut (>= the anchor count for exact greedy
     NMS).  Invalid slots carry candidate 0's box with score 0, as in JAX."""
-    boxes, scores, classes = decode_frames(model, frames, frame_hw)
-    idx, valid = nms_classwise(boxes, scores, classes, max_out, iou_thr,
-                               score_thr, impl=nms_impl, pre_top_k=pre_top_k)
-    safe = idx.long().clamp(0, boxes.shape[1] - 1)
-    out_boxes = boxes.gather(1, safe[..., None].expand(-1, -1, 4))
-    out_scores = torch.where(valid, scores.gather(1, safe), 0.0)
-    dets = torch.cat([out_boxes, out_scores[..., None]], dim=-1)
-    cls = torch.where(valid, classes.gather(1, safe), -1).to(torch.int32)
-    return dets, valid, cls
+    with span("detector.detect"):
+        boxes, scores, classes = decode_frames(model, frames, frame_hw)
+        with span("detector.nms"):
+            idx, valid = nms_classwise(boxes, scores, classes, max_out,
+                                       iou_thr, score_thr, impl=nms_impl,
+                                       pre_top_k=pre_top_k)
+            safe = idx.long().clamp(0, boxes.shape[1] - 1)
+            out_boxes = boxes.gather(1, safe[..., None].expand(-1, -1, 4))
+            out_scores = torch.where(valid, scores.gather(1, safe), 0.0)
+            dets = torch.cat([out_boxes, out_scores[..., None]], dim=-1)
+            cls = torch.where(valid, classes.gather(1, safe),
+                              -1).to(torch.int32)
+            return dets, valid, cls
 
 
 def dets_with_classes(dets: torch.Tensor,

@@ -41,6 +41,7 @@ from tpu_mot_torch.models.detector import dets_with_classes
 from tpu_mot_torch.parallel import mesh as mesh_mod
 from tpu_mot_torch.tracker import bank as bank_mod
 from tpu_mot_torch.tracker import step as step_mod
+from tpu_mot_torch.utils.profiling import span
 
 
 def make_stream_banks(n_streams: int, cfg: TrackerConfig, mesh=None,
@@ -84,7 +85,8 @@ def multi_stream_step(banks: bank_mod.TrackBank, frames: torch.Tensor,
     dets      : [S, D, 5|6], det_valid [S, D].
     Returns (banks, StepOutput with a leading [S]).  Over a mesh S is this
     rank's streams: no collective."""
-    return step_mod.step_streams(banks, frames, dets, det_valid, cfg)
+    with span("serve.step"):
+        return step_mod.step_streams(banks, frames, dets, det_valid, cfg)
 
 
 def multi_stream_sequence(banks: bank_mod.TrackBank, frames: torch.Tensor,
@@ -147,9 +149,10 @@ def detect_then_track_step(model, banks: bank_mod.TrackBank,
     forward over the frames [S, H, W] given, then every stream's tracker on
     its own detections.  On a rank of a mesh: its own streams, no
     collective (the JAX package's per-shard data-parallel mode)."""
-    dets, valid, cls = detect_fn(model, frames)
-    return multi_stream_step(banks, frames, _fold_classes(dets, cls, cfg),
-                             valid, cfg)
+    with span("serve.detect"):
+        dets, valid, cls = detect_fn(model, frames)
+        dets = _fold_classes(dets, cls, cfg)
+    return multi_stream_step(banks, frames, dets, valid, cfg)
 
 
 def shared_detector_detect(model, frames: torch.Tensor, detect_fn, mesh=None,
@@ -166,14 +169,15 @@ def shared_detector_detect(model, frames: torch.Tensor, detect_fn, mesh=None,
     (dets [k, D, 5], valid [k, D]); with_classes appends the class column
     ([k, D, 6], the cfg.class_aware form)."""
     k = frames.shape[0]
-    if mesh is not None:
-        frames = mesh_mod.all_gather_leading(frames, mesh)
-    dets, valid, cls = detect_fn(model, frames)
-    if with_classes:
-        dets = dets_with_classes(dets, cls)
-    if mesh is not None:
-        r = mesh.get_local_rank()
-        dets, valid = dets[r * k:(r + 1) * k], valid[r * k:(r + 1) * k]
+    with span("serve.detect"):
+        if mesh is not None:
+            frames = mesh_mod.all_gather_leading(frames, mesh)
+        dets, valid, cls = detect_fn(model, frames)
+        if with_classes:
+            dets = dets_with_classes(dets, cls)
+        if mesh is not None:
+            r = mesh.get_local_rank()
+            dets, valid = dets[r * k:(r + 1) * k], valid[r * k:(r + 1) * k]
     return dets, valid
 
 

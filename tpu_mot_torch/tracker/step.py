@@ -30,6 +30,8 @@ host, at least two syncs a frame (ops/assignment.auction_assign_warm).
 Its one body, `step_streams`, runs S streams at once (serving,
 parallel/serve.py): every bank field gains a leading [S] and the
 per-track math runs on [S*T] rows; `step` is that body at S = 1.
+Under a torch.profiler capture the step is the span `tracker.step` and
+each numbered stage a span inside it (utils/profiling.py lists them).
 Scatters with JAX's mode="drop" write into one extra dump slot per stream
 that is sliced off.
 
@@ -75,6 +77,7 @@ from tpu_mot_torch.ops import kcf as kcf_ops
 from tpu_mot_torch.ops import patch as patch_ops
 from tpu_mot_torch.tracker import bank as bank_mod
 from tpu_mot_torch.tracker.bank import CONFIRMED, EMPTY, TENTATIVE, TrackBank
+from tpu_mot_torch.utils.profiling import span
 
 
 class StepOutput(NamedTuple):
@@ -187,6 +190,14 @@ def step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
     one batch of S problems, and the lifecycle's cumsums run along each
     stream's slots.
     """
+    with span("tracker.step"):
+        return _step_streams(bank, frames, dets, det_valid, cfg)
+
+
+def _step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
+                  det_valid: torch.Tensor, cfg: TrackerConfig
+                  ) -> tuple[TrackBank, StepOutput]:
+    """step_streams' body, each numbered stage in its span."""
     n_str = frames.shape[0]
     t_cap = cfg.max_tracks
     rows = n_str * t_cap
@@ -196,20 +207,23 @@ def step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
     frame_hw = tuple(frames.shape[1:3])
     (row_stream, off_t, off_d, slot_iota,
      det_iota) = _stream_consts(n_str, t_cap, n_det, str(dev))
-    if _roi_kernel_path(cfg, frames):
-        # The level shapes and block-origin clamps come from the config's
-        # frame size; a frame that disagrees would sample wrong windows.
-        if frame_hw != (cfg.frame_height, cfg.frame_width):
-            raise ValueError(
-                f"frame shape {frame_hw} != configured "
-                f"({cfg.frame_height}, {cfg.frame_width}); the ROI kernel "
-                "path requires them to match")
-        u8_gray = frames.ndim == 3 and frames.dtype == torch.uint8
-        gray = None if u8_gray else patch_ops.to_gray(frames, batched=True)
-        levels = roi.build_pyramid(frames if u8_gray else gray)
-    else:
-        gray = patch_ops.to_gray(frames, batched=True)
-        levels = None
+    with span("tracker.frames"):
+        if _roi_kernel_path(cfg, frames):
+            # The level shapes and block-origin clamps come from the
+            # config's frame size; a frame that disagrees would sample wrong
+            # windows.
+            if frame_hw != (cfg.frame_height, cfg.frame_width):
+                raise ValueError(
+                    f"frame shape {frame_hw} != configured "
+                    f"({cfg.frame_height}, {cfg.frame_width}); the ROI "
+                    "kernel path requires them to match")
+            u8_gray = frames.ndim == 3 and frames.dtype == torch.uint8
+            gray = (None if u8_gray
+                    else patch_ops.to_gray(frames, batched=True))
+            levels = roi.build_pyramid(frames if u8_gray else gray)
+        else:
+            gray = patch_ops.to_gray(frames, batched=True)
+            levels = None
 
     def per_row(x):
         return x.reshape((rows,) + x.shape[2:])
@@ -226,140 +240,150 @@ def step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
                torch.zeros((n_str, n_det), dtype=torch.int32, device=dev))
 
     # ---- 1. Kalman predict -------------------------------------------
-    kf_mean, kf_cov = kalman.predict(per_row(bank.kf_mean),
-                                     per_row(bank.kf_cov), cfg.kalman)
-    pred_boxes = kf_mean[:, :4]                                  # [S*T, 4]
+    with span("tracker.predict"):
+        kf_mean, kf_cov = kalman.predict(per_row(bank.kf_mean),
+                                         per_row(bank.kf_cov), cfg.kalman)
+        pred_boxes = kf_mean[:, :4]                              # [S*T, 4]
 
     # ---- 2. KCF detect at predicted ROIs ----------------------------
-    use_fft_kcf = kcf_ops._resolve_impl(cfg.kcf_impl) == "xla"
-    zf_div = None          # the unit-scale spectrum, reused by step 8
-    if cfg.use_kcf:
-        sigma = cfg.kcf.kernel_sigma
-        wh = pred_boxes[:, 2:4]                    # best-scale box size
-        if cfg.kcf.scale_step == 1.0:
-            feats_unit = _features_at(gray, pred_boxes, cfg, levels,
-                                      frame_hw, frame=row_stream)
-            if use_fft_kcf:
-                zf_div = fft_ops.rfft2(feats_unit)
-                response = kcf_ops.detect_from_spectrum(kcf_rows, zf_div,
-                                                        sigma, s)
+    with span("tracker.kcf_detect"):
+        use_fft_kcf = kcf_ops._resolve_impl(cfg.kcf_impl) == "xla"
+        zf_div = None          # the unit-scale spectrum, reused by step 8
+        if cfg.use_kcf:
+            sigma = cfg.kcf.kernel_sigma
+            wh = pred_boxes[:, 2:4]                    # best-scale box size
+            if cfg.kcf.scale_step == 1.0:
+                feats_unit = _features_at(gray, pred_boxes, cfg, levels,
+                                          frame_hw, frame=row_stream)
+                if use_fft_kcf:
+                    zf_div = fft_ops.rfft2(feats_unit)
+                    response = kcf_ops.detect_from_spectrum(
+                        kcf_rows, zf_div, sigma, s)
+                else:
+                    response = kcf_ops.detect_auto(kcf_rows, feats_unit,
+                                                   sigma, cfg.kcf_impl)
+                dy, dx, peak = kcf_ops.peak_displacement(response)
+                if cfg.confidence_mode == "psr":
+                    peak = kcf_ops.psr(response, peak)
             else:
-                response = kcf_ops.detect_auto(kcf_rows, feats_unit, sigma,
-                                               cfg.kcf_impl)
-            dy, dx, peak = kcf_ops.peak_displacement(response)
-            if cfg.confidence_mode == "psr":
-                peak = kcf_ops.psr(response, peak)
+                # The 3-scale search at 1/step, 1, step: the scales fold
+                # into the track axis scale-major ([3, S*T]), and each track
+                # keeps its hysteresis-weighted best peak.
+                sstep = cfg.kcf.scale_step
+                scale_vals, scale_wts = _scale_consts(
+                    sstep, cfg.kcf.scale_weight, str(dev))
+                if levels is not None:
+                    # One block per track feeds the three resamples (K3).
+                    p3 = roi.extract_patches_scales(
+                        gray, pred_boxes, cfg.kcf.padding,
+                        cfg.kcf.template_size, (1.0 / sstep, 1.0, sstep),
+                        levels=levels, frame_hw=frame_hw)
+                    f3 = feat_ops.extract_features(
+                        p3.reshape((3 * rows,) + p3.shape[2:]), cfg.kcf)
+                else:
+                    f3 = _features_at(
+                        gray, pred_boxes.repeat(3, 1), cfg, None, frame_hw,
+                        scales=scale_vals.repeat_interleave(rows),
+                        frame=row_stream.repeat(3))
+                f3 = f3.reshape((3, rows) + f3.shape[1:])  # [3, S*T, C, F, F]
+                feats_unit = f3[1]
+                if use_fft_kcf:
+                    zf3 = fft_ops.rfft2(f3)
+                    r3 = kcf_ops.detect_from_spectrum(kcf_rows, zf3, sigma,
+                                                      s)
+                    zf_div = zf3[1]
+                else:
+                    r3 = kcf_ops.detect_scales_auto(
+                        kcf_rows, f3, sigma, cfg.kcf_impl)  # [3, S*T, S, S]
+                response = r3[1]
+                dys, dxs, peaks = kcf_ops.peak_displacement(r3)  # [3, S*T]
+                best = torch.argmax(peaks * scale_wts,
+                                    dim=0)[None]                 # [1, S*T]
+                dy = dys.gather(0, best)[0]
+                dx = dxs.gather(0, best)[0]
+                peak = peaks.gather(0, best)[0]
+                wh = wh * scale_vals[best[0]][:, None]
+                if cfg.confidence_mode == "psr":
+                    # PSR of the unit-scale response (the scale choice
+                    # itself reads the raw weighted peaks).
+                    peak = kcf_ops.psr(
+                        response, response.reshape(rows, -1).amax(dim=1))
+            win = wh * cfg.kcf.padding                           # [S*T, 2]
+            kcf_cxy = (pred_boxes[:, :2]
+                       + torch.stack([dx, dy], dim=1) * win / s)
+            # Trust the correlation only for live slots with a solid peak
+            # and an in-frame box (a fully clamped patch self-correlates at
+            # ~1).
+            h_f, w_f = frame_hw
+            in_frame = ((pred_boxes[:, 0] > 0) & (pred_boxes[:, 0] < w_f)
+                        & (pred_boxes[:, 1] > 0) & (pred_boxes[:, 1] < h_f))
+            kcf_ok = (per_row(alive) & in_frame
+                      & (peak >= cfg.confidence_threshold))
+            if cfg.train_site == "detect":
+                # A slot born last frame (age 1) has no model yet under
+                # detect-site training: it coasts on its Kalman prediction.
+                kcf_ok = kcf_ok & (per_row(bank.age) != 1)
+            refined = torch.where(kcf_ok[:, None],
+                                  torch.cat([kcf_cxy, wh], 1), pred_boxes)
         else:
-            # The 3-scale search at 1/step, 1, step: the scales fold into
-            # the track axis scale-major ([3, S*T]), and each track keeps
-            # its hysteresis-weighted best peak.
-            sstep = cfg.kcf.scale_step
-            scale_vals, scale_wts = _scale_consts(
-                sstep, cfg.kcf.scale_weight, str(dev))
-            if levels is not None:
-                # One block per track feeds the three resamples (K3).
-                p3 = roi.extract_patches_scales(
-                    gray, pred_boxes, cfg.kcf.padding, cfg.kcf.template_size,
-                    (1.0 / sstep, 1.0, sstep), levels=levels,
-                    frame_hw=frame_hw)
-                f3 = feat_ops.extract_features(
-                    p3.reshape((3 * rows,) + p3.shape[2:]), cfg.kcf)
-            else:
-                f3 = _features_at(gray, pred_boxes.repeat(3, 1), cfg, None,
-                                  frame_hw,
-                                  scales=scale_vals.repeat_interleave(rows),
-                                  frame=row_stream.repeat(3))
-            f3 = f3.reshape((3, rows) + f3.shape[1:])      # [3, S*T, C, F, F]
-            feats_unit = f3[1]
-            if use_fft_kcf:
-                zf3 = fft_ops.rfft2(f3)
-                r3 = kcf_ops.detect_from_spectrum(kcf_rows, zf3, sigma, s)
-                zf_div = zf3[1]
-            else:
-                r3 = kcf_ops.detect_scales_auto(kcf_rows, f3, sigma,
-                                                cfg.kcf_impl)  # [3, S*T, S, S]
-            response = r3[1]
-            dys, dxs, peaks = kcf_ops.peak_displacement(r3)   # [3, S*T]
-            best = torch.argmax(peaks * scale_wts, dim=0)[None]   # [1, S*T]
-            dy = dys.gather(0, best)[0]
-            dx = dxs.gather(0, best)[0]
-            peak = peaks.gather(0, best)[0]
-            wh = wh * scale_vals[best[0]][:, None]
-            if cfg.confidence_mode == "psr":
-                # PSR of the unit-scale response (the scale choice itself
-                # reads the raw weighted peaks).
-                peak = kcf_ops.psr(response,
-                                   response.reshape(rows, -1).amax(dim=1))
-        win = wh * cfg.kcf.padding                                 # [S*T, 2]
-        kcf_cxy = pred_boxes[:, :2] + torch.stack([dx, dy], dim=1) * win / s
-        # Trust the correlation only for live slots with a solid peak and
-        # an in-frame box (a fully clamped patch self-correlates at ~1).
-        h_f, w_f = frame_hw
-        in_frame = ((pred_boxes[:, 0] > 0) & (pred_boxes[:, 0] < w_f)
-                    & (pred_boxes[:, 1] > 0) & (pred_boxes[:, 1] < h_f))
-        kcf_ok = per_row(alive) & in_frame & (peak >= cfg.confidence_threshold)
-        if cfg.train_site == "detect":
-            # A slot born last frame (age 1) has no model yet under
-            # detect-site training: it coasts on its Kalman prediction.
-            kcf_ok = kcf_ok & (per_row(bank.age) != 1)
-        refined = torch.where(kcf_ok[:, None],
-                              torch.cat([kcf_cxy, wh], 1), pred_boxes)
-    else:
-        kcf_ok = torch.zeros((rows,), dtype=torch.bool, device=dev)
-        refined = pred_boxes
+            kcf_ok = torch.zeros((rows,), dtype=torch.bool, device=dev)
+            refined = pred_boxes
 
     # ---- 3. Cost matrix [S, T, D] -------------------------------------
-    appearance = None
-    if cfg.use_kcf and cfg.appearance_weight > 0.0:
-        appearance = _sample_response(
-            response, pred_boxes[:, :2], pred_boxes[:, 2:4] * cfg.kcf.padding,
-            det_boxes[..., :2], s)
-        if cfg.train_site == "detect":
-            # Day-one slots have no model yet (the kcf_ok gate above): zero
-            # their rows rather than let stale spectra attract matches.
-            appearance = appearance * (bank.age != 1)[..., None]
-    # A track only matches detections of its birth class; empty slots
-    # (cls < 0, already masked by `alive`) pass.
-    class_gate = (((bank.cls[..., :, None] == det_cls[..., None, :])
-                   | (bank.cls[..., :, None] < 0)) if cfg.class_aware
-                  else None)
-    assoc_box = cfg.assoc_box_resolved
-    cost = iou_ops.association_cost(
-        per_stream(pred_boxes if assoc_box == "predicted" else refined),
-        det_boxes, alive, det_valid, cfg.iou_gate, cfg.cost_infeasible,
-        appearance=appearance, appearance_weight=cfg.appearance_weight,
-        class_gate=class_gate,
-        # "best": the Kalman prediction is a second hypothesis per pair.
-        track_boxes_alt=(per_stream(pred_boxes) if assoc_box == "best"
-                         else None))
-    feasible = cost < cfg.cost_infeasible * 0.5
+    with span("tracker.cost"):
+        appearance = None
+        if cfg.use_kcf and cfg.appearance_weight > 0.0:
+            appearance = _sample_response(
+                response, pred_boxes[:, :2],
+                pred_boxes[:, 2:4] * cfg.kcf.padding, det_boxes[..., :2], s)
+            if cfg.train_site == "detect":
+                # Day-one slots have no model yet (the kcf_ok gate above):
+                # zero their rows rather than let stale spectra attract
+                # matches.
+                appearance = appearance * (bank.age != 1)[..., None]
+        # A track only matches detections of its birth class; empty slots
+        # (cls < 0, already masked by `alive`) pass.
+        class_gate = (((bank.cls[..., :, None] == det_cls[..., None, :])
+                       | (bank.cls[..., :, None] < 0)) if cfg.class_aware
+                      else None)
+        assoc_box = cfg.assoc_box_resolved
+        cost = iou_ops.association_cost(
+            per_stream(pred_boxes if assoc_box == "predicted" else refined),
+            det_boxes, alive, det_valid, cfg.iou_gate, cfg.cost_infeasible,
+            appearance=appearance, appearance_weight=cfg.appearance_weight,
+            class_gate=class_gate,
+            # "best": the Kalman prediction is a second hypothesis per pair.
+            track_boxes_alt=(per_stream(pred_boxes) if assoc_box == "best"
+                             else None))
+        feasible = cost < cfg.cost_infeasible * 0.5
 
     # ---- 4. Assignment: one batch of S problems ----------------------
     # The warm start carries last frame's prices and matching; the carry is
     # sized for cfg.max_detections, and a caller with another detection
     # padding gets the cold solve.
-    n_sq = max(t_cap, n_det)
-    if (cfg.auction_warm_start
-            and tuple(bank.auction_prices.shape) == (n_str, n_sq)):
-        (matched_det, assign_iters, assign_conv, new_prices,
-         new_col_of) = assignment.auction_assign_warm(
-            cost, feasible, bank.auction_prices, bank.auction_col_of)
-    else:
-        matched_det, assign_iters, assign_conv = (
-            assignment.auction_assign_stats(cost, feasible,
-                                            impl=cfg.assign_impl))  # [S, T]
-        new_prices = bank.auction_prices
-        new_col_of = bank.auction_col_of
-    is_matched = matched_det >= 0                                # [S, T]
-    det_idx = matched_det.long().clamp(0, n_det - 1)
-    # Scatters with JAX's mode="drop" write the dropped entries into one
-    # dump slot per stream of the flattened [S*(D+1)] (here) and [S*(T+1)]
-    # (births) buffers, sliced off after.
-    det_taken = torch.zeros((n_str * (n_det + 1),), dtype=torch.bool,
-                            device=dev)
-    det_taken[(torch.where(is_matched, matched_det.long(), n_det)
-               + off_d).reshape(-1)] = True
-    det_taken = det_taken.reshape(n_str, n_det + 1)[:, :n_det]
+    with span("tracker.assign"):
+        n_sq = max(t_cap, n_det)
+        if (cfg.auction_warm_start
+                and tuple(bank.auction_prices.shape) == (n_str, n_sq)):
+            (matched_det, assign_iters, assign_conv, new_prices,
+             new_col_of) = assignment.auction_assign_warm(
+                cost, feasible, bank.auction_prices, bank.auction_col_of)
+        else:
+            matched_det, assign_iters, assign_conv = (
+                assignment.auction_assign_stats(
+                    cost, feasible, impl=cfg.assign_impl))           # [S, T]
+            new_prices = bank.auction_prices
+            new_col_of = bank.auction_col_of
+        is_matched = matched_det >= 0                                # [S, T]
+        det_idx = matched_det.long().clamp(0, n_det - 1)
+        # Scatters with JAX's mode="drop" write the dropped entries into
+        # one dump slot per stream of the flattened [S*(D+1)] (here) and
+        # [S*(T+1)] (births) buffers, sliced off after.
+        det_taken = torch.zeros((n_str * (n_det + 1),), dtype=torch.bool,
+                                device=dev)
+        det_taken[(torch.where(is_matched, matched_det.long(), n_det)
+                   + off_d).reshape(-1)] = True
+        det_taken = det_taken.reshape(n_str, n_det + 1)[:, :n_det]
 
     def det_rows(x, idx):
         """Per-stream detection field x [S, D(, k)] at idx [S, T]."""
@@ -368,115 +392,124 @@ def step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
         return x.gather(1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
     # ---- 5. Kalman correct -------------------------------------------
-    use_kcf_meas = alive & ~is_matched & per_stream(kcf_ok)
-    meas = torch.where(per_row(is_matched)[:, None],
-                       per_row(det_rows(det_boxes, det_idx)), refined)
-    kf_mean, kf_cov = kalman.correct(kf_mean, kf_cov, meas,
-                                     per_row(is_matched | use_kcf_meas),
-                                     cfg.kalman)
+    with span("tracker.correct"):
+        use_kcf_meas = alive & ~is_matched & per_stream(kcf_ok)
+        meas = torch.where(per_row(is_matched)[:, None],
+                           per_row(det_rows(det_boxes, det_idx)), refined)
+        kf_mean, kf_cov = kalman.correct(kf_mean, kf_cov, meas,
+                                         per_row(is_matched | use_kcf_meas),
+                                         cfg.kalman)
 
     # ---- 6/7. Lifecycle, along each stream's slots ---------------------
-    i32 = torch.int32
-    hits = torch.where(is_matched, bank.hits + 1, bank.hits)
-    tsu = torch.where(is_matched, 0, bank.time_since_update + 1).to(i32)
-    age = torch.where(alive, bank.age + 1, 0).to(i32)
-    state = bank.state
-    state = torch.where((state == TENTATIVE) & (hits >= cfg.n_init),
-                        CONFIRMED, state).to(i32)
-    die = alive & (((state == CONFIRMED) & (tsu > cfg.max_age))
-                   | ((state == TENTATIVE) & ~is_matched
-                      & (tsu > cfg.max_age_tentative)))
-    n_deaths = die.sum(dim=-1).to(i32)
-    state = torch.where(die, EMPTY, state).to(i32)
+    with span("tracker.lifecycle"):
+        i32 = torch.int32
+        hits = torch.where(is_matched, bank.hits + 1, bank.hits)
+        tsu = torch.where(is_matched, 0, bank.time_since_update + 1).to(i32)
+        age = torch.where(alive, bank.age + 1, 0).to(i32)
+        state = bank.state
+        state = torch.where((state == TENTATIVE) & (hits >= cfg.n_init),
+                            CONFIRMED, state).to(i32)
+        die = alive & (((state == CONFIRMED) & (tsu > cfg.max_age))
+                       | ((state == TENTATIVE) & ~is_matched
+                          & (tsu > cfg.max_age_tentative)))
+        n_deaths = die.sum(dim=-1).to(i32)
+        state = torch.where(die, EMPTY, state).to(i32)
 
-    # Births: unmatched valid detections -> lowest-index empty slots.
-    empty_slots = state == EMPTY
-    free_rank = torch.cumsum(empty_slots.long(), -1) - 1             # [S, T]
-    slot_of_rank = torch.full((n_str * (t_cap + 1),), t_cap,
-                              dtype=torch.long, device=dev)
-    slot_of_rank[(torch.where(empty_slots, free_rank, t_cap)
-                  + off_t).reshape(-1)] = slot_iota
-    slot_of_rank = slot_of_rank.reshape(n_str, t_cap + 1)[:, :t_cap]
-    new_det = det_valid & ~det_taken
-    birth_rank = torch.cumsum(new_det.long(), -1) - 1                # [S, D]
-    n_free = empty_slots.long().sum(dim=-1, keepdim=True)
-    can_birth = new_det & (birth_rank < n_free)
-    birth_slot = torch.where(
-        can_birth, slot_of_rank.gather(1, birth_rank.clamp(0, t_cap - 1)),
-        t_cap)                                                       # [S, D]
-    slot_birth_det = torch.full((n_str * (t_cap + 1),), -1,
-                                dtype=torch.long, device=dev)
-    slot_birth_det[(birth_slot + off_t).reshape(-1)] = det_iota
-    slot_birth_det = slot_birth_det.reshape(n_str, t_cap + 1)[:, :t_cap]
-    is_birth = slot_birth_det >= 0                                   # [S, T]
-    n_births = is_birth.sum(dim=-1).to(i32)
-    bdet = slot_birth_det.clamp(0, n_det - 1)
+        # Births: unmatched valid detections -> lowest-index empty slots.
+        empty_slots = state == EMPTY
+        free_rank = torch.cumsum(empty_slots.long(), -1) - 1         # [S, T]
+        slot_of_rank = torch.full((n_str * (t_cap + 1),), t_cap,
+                                  dtype=torch.long, device=dev)
+        slot_of_rank[(torch.where(empty_slots, free_rank, t_cap)
+                      + off_t).reshape(-1)] = slot_iota
+        slot_of_rank = slot_of_rank.reshape(n_str, t_cap + 1)[:, :t_cap]
+        new_det = det_valid & ~det_taken
+        birth_rank = torch.cumsum(new_det.long(), -1) - 1            # [S, D]
+        n_free = empty_slots.long().sum(dim=-1, keepdim=True)
+        can_birth = new_det & (birth_rank < n_free)
+        birth_slot = torch.where(
+            can_birth,
+            slot_of_rank.gather(1, birth_rank.clamp(0, t_cap - 1)),
+            t_cap)                                                   # [S, D]
+        slot_birth_det = torch.full((n_str * (t_cap + 1),), -1,
+                                    dtype=torch.long, device=dev)
+        slot_birth_det[(birth_slot + off_t).reshape(-1)] = det_iota
+        slot_birth_det = slot_birth_det.reshape(n_str,
+                                                t_cap + 1)[:, :t_cap]
+        is_birth = slot_birth_det >= 0                               # [S, T]
+        n_births = is_birth.sum(dim=-1).to(i32)
+        bdet = slot_birth_det.clamp(0, n_det - 1)
 
-    init_mean, init_cov = kalman.init(per_row(det_rows(det_boxes, bdet)),
-                                      cfg.kalman)
-    birth_rows = per_row(is_birth)
-    kf_mean = torch.where(birth_rows[:, None], init_mean, kf_mean)
-    kf_cov = torch.where(birth_rows[:, None, None], init_cov, kf_cov)
-    state = torch.where(is_birth, TENTATIVE, state).to(i32)
-    hits = torch.where(is_birth, 1, hits).to(i32)
-    tsu = torch.where(is_birth, 0, tsu).to(i32)
-    age = torch.where(is_birth, 1, age).to(i32)
-    new_ids = bank.next_id[:, None] + torch.where(
-        is_birth, torch.cumsum(is_birth.long(), -1) - 1, 0)
-    ids = torch.where(is_birth, new_ids, bank.ids)
-    ids = torch.where(state == EMPTY, -1, ids).to(i32)
-    det_score = dets[..., 4]
-    score = torch.where(is_birth, det_rows(det_score, bdet), bank.score)
-    score = torch.where(is_matched, det_rows(det_score, det_idx), score)
-    cls = torch.where(is_birth, det_rows(det_cls, bdet), bank.cls)
-    cls = torch.where(state == EMPTY, -1, cls).to(i32)
-    next_id = (bank.next_id + n_births).to(i32)
+        init_mean, init_cov = kalman.init(
+            per_row(det_rows(det_boxes, bdet)), cfg.kalman)
+        birth_rows = per_row(is_birth)
+        kf_mean = torch.where(birth_rows[:, None], init_mean, kf_mean)
+        kf_cov = torch.where(birth_rows[:, None, None], init_cov, kf_cov)
+        state = torch.where(is_birth, TENTATIVE, state).to(i32)
+        hits = torch.where(is_birth, 1, hits).to(i32)
+        tsu = torch.where(is_birth, 0, tsu).to(i32)
+        age = torch.where(is_birth, 1, age).to(i32)
+        new_ids = bank.next_id[:, None] + torch.where(
+            is_birth, torch.cumsum(is_birth.long(), -1) - 1, 0)
+        ids = torch.where(is_birth, new_ids, bank.ids)
+        ids = torch.where(state == EMPTY, -1, ids).to(i32)
+        det_score = dets[..., 4]
+        score = torch.where(is_birth, det_rows(det_score, bdet), bank.score)
+        score = torch.where(is_matched, det_rows(det_score, det_idx), score)
+        cls = torch.where(is_birth, det_rows(det_cls, bdet), bank.cls)
+        cls = torch.where(state == EMPTY, -1, cls).to(i32)
+        next_id = (bank.next_id + n_births).to(i32)
 
     # ---- 8. KCF training, on the [S*T] rows ----------------------------
-    live = per_row(state > EMPTY)
-    if cfg.use_kcf and cfg.train_site == "detect":
-        yf = kcf_ops.make_yf(s, cfg.kcf.padding, cfg.kcf.output_sigma_factor,
-                             device=dev)
-        # The fused detect consumed raw features: take their spectrum here.
-        zf = zf_div if zf_div is not None else fft_ops.rfft2(feats_unit)
-        win = torch.clamp_min(pred_boxes[:, 2:4] * cfg.kcf.padding, 1e-6)
-        # Feature-pixel displacement of the corrected center from the
-        # extraction (predicted) center.
-        delta = (kf_mean[:, :2] - pred_boxes[:, :2]) * s / win     # [S*T, 2]
-        d_x, d_y = delta[:, 0], delta[:, 1]
-        # Beyond ~S/4 the circular wrap stops being a border effect: skip
-        # the EMA update (an init overwrite trains unshifted instead).
-        guard = (torch.abs(d_x) < s / 4) & (torch.abs(d_y) < s / 4)
-        d_x = torch.where(guard, d_x, 0.0)
-        d_y = torch.where(guard, d_y, 0.0)
-        zf_a = kcf_ops.shift_spectrum(zf, d_y, d_x, s)
-        # First post-birth frame -> full overwrite; births this frame have
-        # no sample yet and keep lr = 0.
-        init_now = live & (per_row(age) == 2) & ~birth_rows
-        lr = torch.where(
-            init_now, 1.0,
-            torch.where(live & ~birth_rows & guard
-                        & (per_row(is_matched) | kcf_ok),
-                        cfg.kcf.interp_factor, 0.0))
-        new_model = kcf_ops.train_from_spectrum(
-            zf_a, yf, cfg.kcf.kernel_sigma, cfg.kcf.lambda_, s)
-        kcf_model = kcf_ops.blend(kcf_rows, new_model, lr)
-    elif cfg.use_kcf:
-        # Refined-site training: re-extract at the corrected boxes (births
-        # already carry their detection box in kf_mean), through the
-        # frame's one pyramid on the kernel path.
-        lr = torch.where(birth_rows, 1.0,
-                         torch.where(live & (per_row(is_matched) | kcf_ok),
-                                     cfg.kcf.interp_factor, 0.0))
-        feats_new = _features_at(gray, kf_mean[:, :4], cfg, levels, frame_hw,
-                                 frame=row_stream)
-        yf = kcf_ops.make_yf(s, cfg.kcf.padding, cfg.kcf.output_sigma_factor,
-                             device=dev)
-        kcf_model = kcf_ops.train_blend_auto(
-            kcf_rows, feats_new, yf, cfg.kcf.kernel_sigma, cfg.kcf.lambda_,
-            lr, cfg.kcf_impl)
-    else:
-        kcf_model = kcf_rows
+    with span("tracker.kcf_train"):
+        live = per_row(state > EMPTY)
+        if cfg.use_kcf and cfg.train_site == "detect":
+            yf = kcf_ops.make_yf(s, cfg.kcf.padding,
+                                 cfg.kcf.output_sigma_factor, device=dev)
+            # The fused detect consumed raw features: take their spectrum
+            # here.
+            zf = zf_div if zf_div is not None else fft_ops.rfft2(feats_unit)
+            win = torch.clamp_min(pred_boxes[:, 2:4] * cfg.kcf.padding,
+                                  1e-6)
+            # Feature-pixel displacement of the corrected center from the
+            # extraction (predicted) center.
+            delta = (kf_mean[:, :2] - pred_boxes[:, :2]) * s / win  # [S*T, 2]
+            d_x, d_y = delta[:, 0], delta[:, 1]
+            # Beyond ~S/4 the circular wrap stops being a border effect:
+            # skip the EMA update (an init overwrite trains unshifted
+            # instead).
+            guard = (torch.abs(d_x) < s / 4) & (torch.abs(d_y) < s / 4)
+            d_x = torch.where(guard, d_x, 0.0)
+            d_y = torch.where(guard, d_y, 0.0)
+            zf_a = kcf_ops.shift_spectrum(zf, d_y, d_x, s)
+            # First post-birth frame -> full overwrite; births this frame
+            # have no sample yet and keep lr = 0.
+            init_now = live & (per_row(age) == 2) & ~birth_rows
+            lr = torch.where(
+                init_now, 1.0,
+                torch.where(live & ~birth_rows & guard
+                            & (per_row(is_matched) | kcf_ok),
+                            cfg.kcf.interp_factor, 0.0))
+            new_model = kcf_ops.train_from_spectrum(
+                zf_a, yf, cfg.kcf.kernel_sigma, cfg.kcf.lambda_, s)
+            kcf_model = kcf_ops.blend(kcf_rows, new_model, lr)
+        elif cfg.use_kcf:
+            # Refined-site training: re-extract at the corrected boxes
+            # (births already carry their detection box in kf_mean), through
+            # the frame's one pyramid on the kernel path.
+            lr = torch.where(
+                birth_rows, 1.0,
+                torch.where(live & (per_row(is_matched) | kcf_ok),
+                            cfg.kcf.interp_factor, 0.0))
+            feats_new = _features_at(gray, kf_mean[:, :4], cfg, levels,
+                                     frame_hw, frame=row_stream)
+            yf = kcf_ops.make_yf(s, cfg.kcf.padding,
+                                 cfg.kcf.output_sigma_factor, device=dev)
+            kcf_model = kcf_ops.train_blend_auto(
+                kcf_rows, feats_new, yf, cfg.kcf.kernel_sigma,
+                cfg.kcf.lambda_, lr, cfg.kcf_impl)
+        else:
+            kcf_model = kcf_rows
 
     kf_mean = per_stream(kf_mean)
     new_bank = TrackBank(

@@ -1,28 +1,61 @@
 """Tracing / profiling utilities (counterpart of
 tpu_mot/utils/profiling.py):
 
+  * `span(name)` marks a stage of the serving path as a `record_function`
+    range while a torch.profiler capture is on, and costs one check
+    otherwise.  The ranges sit in the capture beside the card's kernels
+    (CUPTI), on the profiler's clock.
   * `trace()` wraps a block in a torch.profiler trace (the card's kernels
-    through CUPTI when there is a card) and writes it as a Chrome trace
-    (Perfetto / chrome://tracing readable).
+    through CUPTI when there is a card, and the spans) and writes it as a
+    Chrome trace (Perfetto / chrome://tracing readable).
   * `DeviceTimer` gives wall timing that waits for the observed tensors'
     device.
-  * `summarize_trace()` aggregates a written trace's device kernels by
-    name, host-side, for quick terminal triage.
   * `FpsMeter` is the serving loop's frame-rate counter.
+
+The spans, `<layer>.<stage>`, each inside the one above it on the calling
+thread (one serving call is one request):
+
+  parallel/serve.py      serve.step      multi_stream_step
+                         serve.detect    the detector call of a fused
+                                         detect -> track step (with the
+                                         shared batch's all-gather)
+  models/detector.py     detector.detect      detect_batch
+                         detector.preprocess  frames -> the net's input
+                         detector.forward     the net
+                         detector.decode      heads -> boxes in frame pixels
+                         detector.nms         class-wise NMS, padded output
+  tracker/step.py        tracker.step         step_streams (bank and output
+                                              assembly in its self time)
+                         tracker.frames       gray image or u8 pyramid
+                         tracker.predict      1. Kalman predict
+                         tracker.kcf_detect   2. KCF detect, PSR, refined boxes
+                         tracker.cost         3. cost matrix
+                         tracker.assign       4. auction, det_taken
+                         tracker.correct      5. Kalman correct
+                         tracker.lifecycle    6/7. lifecycle, births
+                         tracker.kcf_train    8. KCF training
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
-import glob
-import json
 import os
 import time
 
 import torch
 
 TRACE_NAME = "trace.json"
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A `record_function(name)` range while a torch.profiler capture is
+    on, else a shared null context: `with span("tracker.predict"): ...`."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.autograd.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -76,32 +109,6 @@ class DeviceTimer:
             torch.cuda.synchronize(dev)
         self.elapsed = time.perf_counter() - self.t0
         return False
-
-
-# Chrome-trace categories of work on the device.
-DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def summarize_trace(log_dir: str, top: int = 15):
-    """Aggregate the device events of the newest trace in log_dir (as
-    `trace` writes it) by name: [(name, total_ms, count)], busiest first.
-    A trace without a card has no device events: []."""
-    paths = sorted(glob.glob(os.path.join(log_dir, "*.json")),
-                   key=os.path.getmtime)
-    if not paths:
-        return []
-    with open(paths[-1]) as f:
-        tr = json.load(f)
-    agg: collections.Counter = collections.Counter()
-    cnt: collections.Counter = collections.Counter()
-    for e in tr.get("traceEvents", []):
-        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATEGORIES:
-            continue
-        name = e.get("name", "?")
-        agg[name] += e.get("dur", 0)
-        cnt[name] += 1
-    return [(name, dur / 1e3, cnt[name])
-            for name, dur in agg.most_common(top)]
 
 
 class FpsMeter:
