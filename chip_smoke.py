@@ -38,12 +38,17 @@ nonzero exit, no "ok" line):
              [128, ...] bank; the FFT kernels) and at the gray shape (S=64,
              C=1, T=128; the direct kernels); K4 and K5 alone at C=3, S=12
              (direct kernels) and twice on the HF inputs (bit-equal); the
-             code path of each case is printed and asserted;
+             code path of each case is printed and asserted; K6 (detect-site
+             train + blend from the spectrum) at the serve cell's 32,768
+             rows of gray S = 64 against its plain version (K6_TOL), twice
+             (bit-equal), on 4 of its rows alone (equal to the same rows of
+             the batch), one launch a call by its counter;
   e2e        the default configuration on bench.py's fixture (seed 0, 128
              objects, 64 frames, 1080p u8) through tracker.scan.run_sequence
              on cuda:0: MOTA >= the JAX reference's MOTA - 0.01, exactly 64
-             launches of K1 and K2 and none of K3-K5; then MultiTracker.init
-             + 4 updates must give run_sequence's confirmed ids and boxes;
+             launches of K1, K2 and K6 and none of K3-K5; then
+             MultiTracker.init + 4 updates must give run_sequence's
+             confirmed ids and boxes;
   e2e-heavy  the heavy configuration, fHOG-31 + 3-scale, in modes H (K3,
              K2 64 launches each, the FFT chain) and HF (K1-K5 64 each) on
              the same fixture: the MOTA gate, the exact launch counts, and
@@ -69,10 +74,11 @@ nonzero exit, no "ok" line):
              detections against the dump's tracks (ids and valid equal,
              every box within 0.05 px: a free run on frames 0-27, then
              frames 28-31 from JAX's bank after frame 27, which the dump
-             keeps), exact K1 and K2 launches of the fused detect -> track
-             run and the same run with every K1 and K2 call held against
-             its plain version (K1 1e-5 and bit-equal to the 4-tap mirror,
-             K2 col_of and iters exactly), the strided scans (stride 3,
+             keeps), exact K1, K2 and K6 launches of the fused detect ->
+             track run and the same run with every K1, K2 and K6 call held
+             against its plain version (K1 1e-5 and bit-equal to the 4-tap
+             mirror, K2 col_of and iters exactly, K6 K6_TOL), the strided
+             scans (stride 3,
              N = 32 and 30) and the batched form (equal to run_sequence
              fed its detections; its forward's detections within 2e-3 of
              the B = 1 forwards'; to the scanned form step by step from the
@@ -94,14 +100,16 @@ nonzero exit, no "ok" line):
   serve      multi-stream serving, BASELINE.json configs[4] on one card:
              8 streams of the bench generator (stream s at seed s, 32
              frames of 1080p u8, 128 tracks) through parallel/serve.py, one
-             set of launches a multi-stream frame (K1 and K2 once a frame
-             for all streams; HF K1-K5): exact launch counts; ids, valid and
+             set of launches a multi-stream frame (K1, K2 and K6 once a
+             frame for all streams; HF K1-K5): exact launch counts; ids,
+             valid and
              boxes (0.05 px) and each stream's MOTA against the JAX run's
              dump (tests/golden/serve_jax_v1.npz), stream 0 against the
              default cell; multi_stream_step against 8 single steps from
              the same banks on every frame (default 32, HF 8 frames: ids,
-             valid, state, matches and rounds equal, boxes 1e-4); every
-             K1-K5 call of a serving run against its plain version (K1, K3
+             valid, state, matches and rounds equal, boxes 1e-4; the
+             default bit-equal in every field); every
+             K1-K6 call of a serving run against its plain version (K1, K3
              1.8e-7 and bit-equal to the 4-tap mirror; K2's batch equal to
              the plain version and to a launch per problem; K4, K5 as in
              kcf), K2 batches of odd n (5, 161); the shared yolov3-tiny
@@ -317,6 +325,16 @@ ROI_TOL = 1e-5
 EPS = assignment.DEFAULT_EPS
 SCALES = (1.0 / 1.05, 1.0, 1.05)
 KCF_TOL = {"response": 1e-4, "xf": 1e-4, "alphaf": 1e-3}
+# K6 against its plain version, relative to each tensor's largest magnitude.
+# xf 1e-6: the phase shift and blend repeat the chain's roundings one by one,
+# so only sincosf against separate sin and cos could part them (bit-equal at
+# 32,768 rows on the H100).  alphaf 1e-3, K5's limit for the same reason:
+# K6's FFTs round otherwise than cuFFT's, and the exp of a near-zero energy
+# difference and the divide by k^ + lambda amplify that where k^ is small
+# (2.8e-4 at 32,768 rows of the bench fixture's gray windows, where K5's
+# direct kernel reads 2.6e-4; the float32 chain on the CPU is 5e-5 from
+# float64 on such windows).
+K6_TOL = {"xf": 1e-6, "alphaf": 1e-3}
 
 # The heavy configuration (tools/bench_variants.py "fhog31 + 3-scale"; the
 # heavy golden's KCFConfig) and its two modes: H (defaults otherwise) and
@@ -442,7 +460,8 @@ SWEEP_ROWS = {"default": {},
 # is K3.
 TRAIN_SITE_LAUNCHES = {
     ("default-gray", "refined"): dict(roi_extract=2, auction_solve=1),
-    ("default-gray", "detect"): dict(roi_extract=1, auction_solve=1),
+    ("default-gray", "detect"): dict(roi_extract=1, auction_solve=1,
+                                     kcf_train_shift=1),
     ("fhog-3scale", "refined"): dict(roi_extract=1, roi_extract_scales=1,
                                      auction_solve=1),
     ("fhog-3scale", "detect"): dict(roi_extract_scales=1, auction_solve=1)}
@@ -461,7 +480,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 KERNELS = ("roi_extract", "roi_extract_scales", "auction_solve",
-           "kcf_detect", "kcf_train")
+           "kcf_detect", "kcf_train", "kcf_train_shift")
 
 
 def log(phase: str, msg: str) -> None:
@@ -474,14 +493,15 @@ def reset_counts() -> None:
 
 def set_counts(counts: dict) -> None:
     (roi_k.launches, roi_k.launches_scales, auction_k.launches,
-     kcf_k.launches_detect, kcf_k.launches_train) = (counts[k]
-                                                     for k in KERNELS)
+     kcf_k.launches_detect, kcf_k.launches_train,
+     kcf_k.launches_train_shift) = (counts[k] for k in KERNELS)
 
 
 def read_counts() -> dict:
     return dict(zip(KERNELS, (roi_k.launches, roi_k.launches_scales,
                               auction_k.launches, kcf_k.launches_detect,
-                              kcf_k.launches_train)))
+                              kcf_k.launches_train,
+                              kcf_k.launches_train_shift)))
 
 
 def bench_fixture():
@@ -993,6 +1013,28 @@ def gray_kcf_inputs(frames, boxes0, cfg):
     return model, feats[1], yf, lr
 
 
+# K6's rows in the kcf and times phases: the serve cell's 256 streams x 128
+# slots.
+SHIFT_ROWS = 256 * 128
+
+
+def shift_inputs(gray_inputs, rows: int = SHIFT_ROWS):
+    """K6's arguments at `rows` rows of gray S = 64: the gray bank and
+    frame-1 spectra tiled, shifts from a seeded generator up to just inside
+    +-S/4 (every 7th row 0), the gray inputs' rates repeated."""
+    model, feat, yf, lr = gray_inputs
+    reps = rows // feat.shape[0]
+    dev = feat.device
+    tiled = kcf_ops.KCFModel(*[x.repeat((reps,) + (1,) * (x.ndim - 1))
+                               for x in model])
+    zf = torch.fft.rfft2(feat.repeat(reps, 1, 1, 1)).contiguous()
+    rng = np.random.default_rng(6)
+    shifts = rng.uniform(-15.999, 15.999, (2, rows)).astype(np.float32)
+    shifts[:, ::7] = 0.0
+    dy, dx = (torch.as_tensor(x, device=dev) for x in shifts)
+    return (tiled, zf, dy, dx, yf, 0.2, 1e-4, lr.repeat(reps), 64)
+
+
 def phase_kcf(hf_inputs, gray_inputs, cfg_hf, cfg):
     errs = {"response": 0.0, "xf": 0.0, "alphaf": 0.0}
     model, feat = hf_inputs["detect"]
@@ -1080,6 +1122,45 @@ def phase_kcf(hf_inputs, gray_inputs, cfg_hf, cfg):
                                  f"errors {e}, bit-equal {same}")
         for k in e:
             errs[k] = max(errs[k], e[k])
+
+    # K6 at the serve cell's rows: against the plain version, twice, and
+    # four rows alone against the same rows of the batch.
+    args = shift_inputs(gray_inputs)
+    model, zf, dy, dx, yf, sigma, lam, lr, width = args
+    before = kcf_k.launches_train_shift
+    got = kcf_k.train_shift_fused(*args)
+    again = kcf_k.train_shift_fused(*args)
+    calls = kcf_k.launches_train_shift - before
+    want = kcf_k.train_shift_fused_ref(*args)
+    part = slice(5, 9)
+    alone = kcf_k.train_shift_fused(
+        kcf_ops.KCFModel(*[x[part].contiguous() for x in model]),
+        zf[part].contiguous(), dy[part].contiguous(), dx[part].contiguous(),
+        yf, sigma, lam, lr[part].contiguous(), width)
+    torch.cuda.synchronize()
+    e = {k: rel_err(getattr(got, k), getattr(want, k))
+         for k in ("xf", "alphaf")}
+    same = (torch.equal(got.xf, again.xf)
+            and torch.equal(got.alphaf, again.alphaf))
+    by_row = (torch.equal(alone.xf, got.xf[part])
+              and torch.equal(alone.alphaf, got.alphaf[part]))
+    kept = (torch.equal(got.xf[lr == 0], model.xf[lr == 0])
+            and torch.equal(got.alphaf[lr == 0], model.alphaf[lr == 0]))
+    finite = all(torch.isfinite(x).all().item() for x in got)
+    log("kcf", f"K6 train_shift zf {tuple(zf.shape)}, shifts up to "
+               f"{float(torch.maximum(dy.abs(), dx.abs()).max()):.3f} px: "
+               f"xf error {e['xf']:.3g}, alphaf error {e['alphaf']:.3g} "
+               f"(limits {K6_TOL}); xf bit-equal to the plain version: "
+               f"{torch.equal(got.xf, want.xf)}; two runs bit-equal: {same}; "
+               f"rows 5-8 alone equal to the batch's: {by_row}; lr = 0 rows "
+               f"kept: {kept}; {calls} launches for 2 calls; "
+               f"{kernel_line('K6', kcf_k.train_shift_launch_info())}")
+    if not (all(e[k] <= K6_TOL[k] for k in e) and same and by_row and kept
+            and finite and calls == 2):
+        raise AssertionError(f"K6: errors {e}, bit-equal {same}, by row "
+                             f"{by_row}, lr = 0 kept {kept}, finite "
+                             f"{finite}, launches {calls}")
+    errs["shift_xf"], errs["shift_alphaf"] = e["xf"], e["alphaf"]
     return errs
 
 
@@ -1129,7 +1210,8 @@ def phase_e2e(frames, d, v, cfg, gt_boxes, vis, dets_list, frames_np):
     log("e2e", f"run_sequence {N_FRAMES} frames in {wall:.3f} s (first run); "
                f"kernel launches {launches}")
     want = {k: 0 for k in KERNELS}
-    want.update(roi_extract=N_FRAMES, auction_solve=N_FRAMES)
+    want.update(roi_extract=N_FRAMES, auction_solve=N_FRAMES,
+                kcf_train_shift=N_FRAMES)
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     check_output(out, cfg, "e2e")
@@ -1219,7 +1301,7 @@ def phase_e2e_assoc(frames, d, v, cfg, gt_boxes, vis):
         out, counts, wall = counted_run(frames, d, v, acfg)
         checks = assignment.warm_checks
         want = {k: 0 for k in KERNELS}
-        want.update(roi_extract=N_FRAMES,
+        want.update(roi_extract=N_FRAMES, kcf_train_shift=N_FRAMES,
                     auction_solve=0 if acfg.auction_warm_start else N_FRAMES)
         log("e2e-assoc", f"{name}: run_sequence {N_FRAMES} frames in "
                          f"{wall:.3f} s (first run); kernel launches "
@@ -1394,11 +1476,12 @@ class KernelChecks:
     |kernel - plain|, inf where not bit-equal to the 4-tap mirror; K2 0
     where col_of and iters equal the plain version's and a launch per
     problem's, else inf; K4 the response's and K5 the larger of xf's and
-    alphaf's error relative to the largest magnitude, inf over KCF_TOL);
+    alphaf's error relative to the largest magnitude, inf over KCF_TOL; K6
+    as K5, inf over K6_TOL);
     rounds: K2's per problem of the checked calls; seen: each kernel's last
     checked inputs.  A shape is (rows, S, "u8" or "f32") for K1, (scales,
     rows, S, ...) for K3, the benefit matrix's for K2, the features' for
-    K4 and K5."""
+    K4 and K5, the spectrum's for K6."""
 
     def __init__(self):
         self.calls = collections.Counter()
@@ -1423,6 +1506,7 @@ def kernels_checked(at=None):
     k1, k3 = roi_k._resample_cuda, roi_k._resample_scales_cuda
     k2 = auction_k.auction_solve
     k4, k5 = kcf_k.detect_fused, kcf_k.train_fused
+    k6 = kcf_k.train_shift_fused
 
     def checking(kernel, shape) -> tuple | None:
         """The key to file the call's error under, or None: not checked."""
@@ -1507,15 +1591,33 @@ def kernels_checked(at=None):
             sigma, lambda_, lr.clone())
         return got
 
+    def train_shift(model, zf, dy, dx, yf, sigma, lambda_, lr, width):
+        got = k6(model, zf, dy, dx, yf, sigma, lambda_, lr, width)
+        key = checking("kcf_train_shift", tuple(zf.shape))
+        if key is None:
+            return got
+        want = kcf_k.train_shift_fused_ref(model, zf, dy, dx, yf, sigma,
+                                           lambda_, lr, width)
+        e_x, e_a = rel_err(got.xf, want.xf), rel_err(got.alphaf, want.alphaf)
+        st.errs.setdefault(key, []).append(
+            max(e_x, e_a) if e_x <= K6_TOL["xf"]
+            and e_a <= K6_TOL["alphaf"] else math.inf)
+        st.seen["kcf_train_shift"] = (
+            kcf_ops.KCFModel(*[x.clone() for x in model]), zf.clone(),
+            dy.clone(), dx.clone(), yf, sigma, lambda_, lr.clone(), width)
+        return got
+
     roi_k._resample_cuda, roi_k._resample_scales_cuda = roi, roi3
     auction_k.auction_solve = auction
     kcf_k.detect_fused, kcf_k.train_fused = detect, train
+    kcf_k.train_shift_fused = train_shift
     try:
         yield st
     finally:
         roi_k._resample_cuda, roi_k._resample_scales_cuda = k1, k3
         auction_k.auction_solve = k2
         kcf_k.detect_fused, kcf_k.train_fused = k4, k5
+        kcf_k.train_shift_fused = k6
 
 
 def checked_run(run, *args):
@@ -1637,7 +1739,8 @@ def phase_e2e_detect(dev, card: str):
     torch.cuda.synchronize()
     counts = read_counts()
     want = {k: 0 for k in KERNELS}
-    want.update(roi_extract=E2E_FRAMES, auction_solve=E2E_FRAMES)
+    want.update(roi_extract=E2E_FRAMES, auction_solve=E2E_FRAMES,
+                kcf_train_shift=E2E_FRAMES)
     log("e2e-detect", f"fused detect_batch + run_sequence, {E2E_FRAMES} "
                       f"frames on {frames.device}: kernel launches {counts}; "
                       f"{int(fused.valid.sum())} valid slot-frames")
@@ -1646,11 +1749,13 @@ def phase_e2e_detect(dev, card: str):
     check_tracks = fused.boxes.cpu().numpy()
     if not np.isfinite(check_tracks).all() or not fused.valid.any():
         raise AssertionError("e2e-detect: fused run's tracks not finite")
-    # the same run again with K1 and K2 held against their plain versions
-    # on every call: the path's own pyramids, boxes and benefit matrices
+    # the same run again with K1, K2 and K6 held against their plain
+    # versions on every call: the path's own pyramids, boxes, benefit
+    # matrices and spectra
     checked, errs, rounds, _ = checked_run(scan.run_sequence, bank0, frames,
                                            dets, valid, cfg)
     k1_err, k2_err = errs["roi_extract"], errs["auction_solve"]
+    k6_err = errs.get("kcf_train_shift", [])
     same_run = all(torch.equal(getattr(checked, f), getattr(fused, f))
                    for f in ("ids", "valid", "boxes", "assign_iters"))
     log("e2e-detect", f"fused run checked call by call: K1 on the {E2E_H}p "
@@ -1661,11 +1766,17 @@ def phase_e2e_detect(dev, card: str):
                       f"{len(k2_err)} calls, col_of and iters exactly equal "
                       f"on {k2_err.count(0)} (rounds median "
                       f"{statistics.median(rounds)}, max {max(rounds)}); "
-                      f"outputs equal the counted run's: {same_run}")
-    if not (len(k1_err) == len(k2_err) == E2E_FRAMES and same_run
-            and max(k1_err) <= ROI_TOL and max(k2_err) == 0
-            and set(errs) == {"roi_extract", "auction_solve"}):
+                      f"K6 {len(k6_err)} calls, largest error "
+                      f"{max(k6_err, default=math.inf):.3g} (limit "
+                      f"{K6_TOL['alphaf']:g}); outputs equal the counted "
+                      f"run's: {same_run}")
+    if not (len(k1_err) == len(k2_err) == len(k6_err) == E2E_FRAMES
+            and same_run and max(k1_err) <= ROI_TOL and max(k2_err) == 0
+            and max(k6_err) <= K6_TOL["alphaf"]
+            and set(errs) == {"roi_extract", "auction_solve",
+                              "kcf_train_shift"}):
         raise AssertionError(f"e2e-detect: K1 errors {k1_err}; K2 {k2_err}; "
+                             f"K6 {k6_err}; "
                              f"same run {same_run}")
 
     # 5. variants: the strided scans, bf16 + fast NMS, int8
@@ -2261,6 +2372,8 @@ def phase_serve(dev, card, default_out):
         want.update(roi_extract=nf, auction_solve=nf)
         if name == "HF":
             want.update(roi_extract_scales=nf, kcf_detect=nf, kcf_train=nf)
+        else:
+            want.update(kcf_train_shift=nf)
         log("serve", f"{name}: multi_stream_sequence {n_str} streams x {nf} "
                      f"frames in {time.perf_counter() - t0:.3f} s (first "
                      f"run); kernel launches {launches[name]} (one set a "
@@ -2303,13 +2416,20 @@ def phase_serve(dev, card, default_out):
                      f"state, matched_det, assign_iters equal; largest box "
                      f"difference {worst:.3g} px over {count} slot-frames "
                      f"(limit 1e-4); bit-equal: {bit}")
+        # Every kernel of the default step computes a row from that row
+        # alone, K6 included: the stream step is the single steps, bit for
+        # bit.
+        if name == "default" and not bit:
+            raise AssertionError("serve: the default stream step is not "
+                                 "bit-equal to the single steps")
 
     # gate 3: every kernel call of the serving runs against its plain
     # version; K2 on odd n
     limits = {"roi_extract": SERVE_ROI_TOL,
               "roi_extract_scales": SERVE_ROI_TOL, "auction_solve": 0,
               "kcf_detect": KCF_TOL["response"],
-              "kcf_train": KCF_TOL["alphaf"]}
+              "kcf_train": KCF_TOL["alphaf"],
+              "kcf_train_shift": K6_TOL["alphaf"]}
     _, errs, _, seen = checked_run(serve.multi_stream_sequence, banks0,
                                    frames, d, v, cfg)
     _, errs_hf, _, seen_hf = checked_run(
@@ -2324,8 +2444,8 @@ def phase_serve(dev, card, default_out):
                      f"error {max(e):.3g} (limit {limit:g}; K1/K3: "
                      "|kernel - plain|, inf where not bit-equal to "
                      "the 4-tap mirror; K2: 0 = col_of and iters equal to "
-                     "the plain version and to a launch per problem; K4, "
-                     "K5: relative to the largest magnitude)")
+                     "the plain version and to a launch per problem; "
+                     "K4-K6: relative to the largest magnitude)")
         if not max(e) <= limit:
             raise AssertionError(f"serve: {k} against its plain version on "
                                  f"the serving run: errors {e}")
@@ -2802,10 +2922,13 @@ def phase_dist(dev, card, refs) -> dict:
     worlds = ([(min(torch.cuda.device_count(), 4), "nccl", "cuda")]
               + [(n, "gloo", "cuda:0") for n in DIST_GLOO_WORLDS])
     want_t = {k: 0 for k in KERNELS}
-    want_t.update(roi_extract=SERVE_FRAMES, auction_solve=SERVE_FRAMES)
+    want_t.update(roi_extract=SERVE_FRAMES, auction_solve=SERVE_FRAMES,
+                  kcf_train_shift=SERVE_FRAMES)
     want_d = dict(want_t, roi_extract=SERVE_FRAMES + 1,
-                  auction_solve=SERVE_FRAMES + 1)
-    limits = {"roi_extract": SERVE_ROI_TOL, "auction_solve": 0}
+                  auction_solve=SERVE_FRAMES + 1,
+                  kcf_train_shift=SERVE_FRAMES + 1)
+    limits = {"roi_extract": SERVE_ROI_TOL, "auction_solve": 0,
+              "kcf_train_shift": K6_TOL["alphaf"]}
     kept = dict(errs={k: 0.0 for k in limits})
     for world, backend, where in worlds:
         t0 = time.perf_counter()
@@ -2833,11 +2956,12 @@ def phase_dist(dev, card, refs) -> dict:
                                          f"{key} against its plain version "
                                          f"{e}")
                 kept["errs"][key] = max(kept["errs"][key], e)
-        log("dist", f"{tag}: every rank launched K1 and K2 {SERVE_FRAMES} "
-                    f"times in the tracker cell and {SERVE_FRAMES + 1} in "
-                    "the detector cells (fused step + strided-4), K3-K5 "
-                    "never; every K1/K2 call of the tracker cell against "
-                    "its plain version, per rank (calls, largest error): "
+        log("dist", f"{tag}: every rank launched K1, K2 and K6 "
+                    f"{SERVE_FRAMES} times in the tracker cell and "
+                    f"{SERVE_FRAMES + 1} in the detector cells (fused step "
+                    "+ strided-4), K3-K5 never; every K1/K2/K6 call of the "
+                    "tracker cell against its plain version, per rank "
+                    "(calls, largest error): "
                     f"{[r['errs'] for r in ranks]} (K1 limit "
                     f"{SERVE_ROI_TOL:g} and bit-equal to the 4-tap mirror, "
                     "K2 exact)")
@@ -3259,7 +3383,7 @@ def phase_sweeps(card: str, frames, d, v, cfg) -> None:
     through its main at full size on the card, with the gates of each:
     bench_multistream (every stream of every S bit-equal to stream 0 of
     S = 1, which equals run_sequence on the same frames; K1 and K2 once a
-    multi-stream frame, K2 [S, 160, 160]), bench_class_cost (each row
+    multi-stream frame, K6 too, K2 [S, 160, 160]), bench_class_cost (each row
     against SWEEPS_DUMP), bench_train_site (the refined rows against
     SWEEPS_DUMP, the detect rows at the MOTA gate, TRAIN_SITE_LAUNCHES
     exactly) and bench_template_size (48 and 32 against SWEEPS_DUMP, 64 at
@@ -3273,10 +3397,12 @@ def phase_sweeps(card: str, frames, d, v, cfg) -> None:
     n = N_FRAMES
     dump = np.load(SWEEPS_DUMP)
     failures = []
-    once = dict(roi_extract=1, auction_solve=1)      # K1, K2 once a frame
+    # K1, K2 and (gray S = 64, detect-site training) K6 once a frame
+    once = dict(roi_extract=1, auction_solve=1, kcf_train_shift=1)
     limits = {"roi_extract": ROI_TOL, "roi_extract_scales": ROI_TOL,
               "auction_solve": 0, "kcf_detect": KCF_TOL["response"],
-              "kcf_train": KCF_TOL["alphaf"]}
+              "kcf_train": KCF_TOL["alphaf"],
+              "kcf_train_shift": K6_TOL["alphaf"]}
 
     def against_dump(what, out, row, scores=None, bank=None):
         """ids and valid exact, boxes within SWEEP_BOX_TOL, the auction's
@@ -3416,7 +3542,8 @@ def phase_sweeps(card: str, frames, d, v, cfg) -> None:
                       f"{line['ms_per_frame']} ms a frame, MOTA "
                       f"{line['mota']}, HOTA {line['hota']}")
         line_ok(what, line, "fps")
-        launches_ok(f"{what} (a frame)", per_frame(counts, runs * n), once)
+        launches_ok(f"{what} (a frame)", per_frame(counts, runs * n),
+                    once if s == 64 else dict(once, kcf_train_shift=0))
         checks_ok(what, st)
         if s == 64:
             if not line["mota"] >= M_REF - 0.01:
@@ -3552,6 +3679,18 @@ def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_bs, hf_inputs,
             lambda: kcf_k.train_fused(t_model, t_feat, yf, sigma, lam, lr),
             50),
     }
+    # K6 at the serve cell's rows: five [rows, 64, 33] spectra cross the
+    # bus (z^, x^ and alpha^ in, x^ and alpha^ out); two real 2-D FFTs, the
+    # phase ramp and the Gaussian kernel's exp in operations.
+    sh = shift_inputs(gray_kcf_inputs(frames, boxes0, cfg))
+    rows = sh[1].shape[0]
+    bounds["kcf_train_shift"] = bound(
+        rows * (5 * 64 * 33 * 8 + 3 * 4) + 64 * 33 * 8,
+        rows * (2 * fft_flops(64) + 20 * 64 * 33 + 20 * 64 * 64))
+    pairs["kcf_train_shift"] = (
+        f"K6 train_shift zf {tuple(sh[1].shape)}",
+        lambda: kcf_k.train_shift_fused_ref(*sh),
+        lambda: kcf_k.train_shift_fused(*sh), 20)
     times = {}
     for key, (what, plain, kernel, reps) in pairs.items():
         ms, plain_ms = in_turns(plain, kernel, reps)
@@ -3624,7 +3763,9 @@ def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_bs, hf_inputs,
             ("kcf_detect", f"K4 fused detect C={c} S={s}",
              kcf_k.detect_launch_info(c, s)),
             ("kcf_train", f"K5 fused train C={c} S={s}",
-             kcf_k.train_launch_info(c, s))):
+             kcf_k.train_launch_info(c, s)),
+            ("kcf_train_shift", "K6 train_shift C=1 S=64",
+             kcf_k.train_shift_launch_info())):
         log("times", kernel_line(what, info))
         times[key]["launch"] = info
     return times
@@ -4051,10 +4192,11 @@ def phase_cli(dev, frames, d, v, cfg, sched_check, frames_np, dets_list,
         raise AssertionError(f"cli: MOTA {m['mota']} < {want} - 0.01")
     n = args[args.index("--frames") + 1]
     for name, argv, n_frames, kernels in (
-            ("default", args, int(n), ("roi_extract", "auction_solve")),
+            ("default", args, int(n),
+             ("roi_extract", "auction_solve", "kcf_train_shift")),
             ("HF", [*args[:args.index("--frames")], "--frames", "32",
                     *args[args.index("--frames") + 2:], *CLI_HF], 32,
-             KERNELS)):
+             KERNELS[:-1])):
         m, counts, secs = cli_run(argv)
         want_counts = {k: (n_frames if k in kernels else 0) for k in KERNELS}
         log("cli", f"in process, {name} flags, {n_frames} frames in "
@@ -4145,7 +4287,8 @@ def cli_with_cv2(frames_u8, dets_list, gt_boxes, vis, dev_args=()):
 
 OUR_KERNELS = ("roi_kernel", "roi_scales_kernel", "auction_kernel",
                "kcf_detect_kernel", "kcf_detect_fft16_kernel",
-               "kcf_train_kernel", "kcf_train_fft16_kernel")
+               "kcf_train_kernel", "kcf_train_fft16_kernel",
+               "kcf_train_shift_kernel")
 
 
 def profiled(fn) -> tuple[list, float, object]:
@@ -4315,6 +4458,13 @@ def main() -> int:
          max(kcf_err["xf"], kcf_err["alphaf"]),
          {"err_kind": "relative to the largest |xf| and |alphaf|",
           "rel_err_xf": kcf_err["xf"], "rel_err_alphaf": kcf_err["alphaf"]}),
+        ("kcf_train_shift", "tpu_mot_torch/csrc/kcf.cu",
+         "none (stage 8's detect-site chain, left to XLA by the JAX package)",
+         launches["kcf_train_shift"],
+         max(kcf_err["shift_xf"], kcf_err["shift_alphaf"]),
+         {"err_kind": "relative to the largest |xf| and |alphaf|",
+          "rel_err_xf": kcf_err["shift_xf"],
+          "rel_err_alphaf": kcf_err["shift_alphaf"]}),
     ]
     print(card)
     print(json.dumps({"kernels": [

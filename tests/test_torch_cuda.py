@@ -13,7 +13,10 @@ products per axis in another order); auction col_of and iters exactly
 equal (sums and differences only); fused KCF (K4, K5) against the
 torch.fft chain, relative to the largest magnitude of each tensor: 1e-4
 for the response and xf, 1e-3 for alphaf (the divide by k^ + lambda
-amplifies float32 error where k^ is small); the tracker on the card
+amplifies float32 error where k^ is small); K6 likewise 1e-6 for xf (its
+phase shift and blend repeat the chain's roundings one by one) and 1e-4
+for alphaf (its own 64-point FFTs against cuFFT's, amplified as for K5);
+the tracker on the card
 against the tracker on the CPU: ids and valid exact, boxes 1e-3 (cuFFT
 and the kernels' own transforms against pocketfft); the detector's heads
 on the card against the CPU's within 1e-4 of the largest |head| (cuDNN
@@ -250,11 +253,14 @@ def test_tracker_on_card_matches_cpu(cuda):
     _, want = t_scan.run_sequence(t_bank.empty_bank(cpu_cfg, device="cpu"),
                                   frames_u8, d, v, cpu_cfg)
     roi0, auc0 = t_roi.launches, t_auction.launches
+    k6 = t_kcfk.launches_train_shift
     _, got = t_scan.run_sequence(t_bank.empty_bank(cfg, device=cuda),
                                  frames_u8.to(cuda), d.to(cuda), v.to(cuda),
                                  cfg)
     torch.cuda.synchronize()
     assert (t_roi.launches - roi0, t_auction.launches - auc0) == (8, 8)
+    # stage 8 (gray S = 64, detect-site training) is one K6 launch a frame
+    assert t_kcfk.launches_train_shift - k6 == 8
     assert torch.equal(got.ids.cpu(), want.ids)
     assert torch.equal(got.valid.cpu(), want.valid)
     assert (got.boxes.cpu() - want.boxes).abs().max().item() <= 1e-3
@@ -510,6 +516,103 @@ def test_kcf_wrappers_reject_what_the_kernels_do_not_take(cuda):
     big, feat_big, _ = _kcf_inputs(cuda, 2, 31, 64)
     with pytest.raises(ValueError, match="shared memory"):
         t_kcfk.detect_fused(big, feat_big, 0.2)
+
+
+K6_TOL = {"xf": 1e-6, "alphaf": 1e-4}
+
+
+def _shift_inputs(dev, t, seed=0):
+    """K6's arguments at t rows: a bank trained on seeded features, the
+    spectra of others, shifts up to just inside +-S/4 (every 7th row 0),
+    rates 0, 0.075, 1, 0.075."""
+    model, feat, yf = _kcf_inputs(dev, t, 1, 64, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    shifts = rng.uniform(-15.999, 15.999, (2, t)).astype(np.float32)
+    shifts[:, ::7] = 0.0
+    dy, dx = (torch.as_tensor(x, device=dev) for x in shifts)
+    lr = torch.tensor([0.0, 0.075, 1.0, 0.075], device=dev).repeat(t // 4)
+    return (model, torch.fft.rfft2(feat).contiguous(), dy, dx, yf, 0.2,
+            1e-4, lr, 64)
+
+
+def test_kcf_train_shift_kernel_matches_plain_version(cuda):
+    """K6 at the serve cell's 256 x 128 rows against its plain version;
+    one launch; lr = 0 keeps the old model exactly."""
+    args = _shift_inputs(cuda, 256 * 128)
+    model, lr = args[0], args[7]
+    before = t_kcfk.launches_train_shift
+    got = t_kcfk.train_shift_fused(*args)
+    want = t_kcfk.train_shift_fused_ref(*args)
+    torch.cuda.synchronize()
+    assert t_kcfk.launches_train_shift == before + 1
+    assert _rel_err(got.xf, want.xf) <= K6_TOL["xf"]
+    assert _rel_err(got.alphaf, want.alphaf) <= K6_TOL["alphaf"]
+    assert torch.equal(got.xf[lr == 0], model.xf[lr == 0])
+    assert torch.equal(got.alphaf[lr == 0], model.alphaf[lr == 0])
+
+
+def test_kcf_train_shift_kernel_is_deterministic_by_row(cuda):
+    """Fixed orders, no atomics, a row from that row alone: two runs
+    bit-equal, and rows run alone equal to the same rows of the batch."""
+    args = _shift_inputs(cuda, 64, seed=3)
+    first = t_kcfk.train_shift_fused(*args)
+    second = t_kcfk.train_shift_fused(*args)
+    part = slice(9, 14)
+    model, zf, dy, dx, yf, sigma, lam, lr, width = args
+    alone = t_kcfk.train_shift_fused(
+        t_kcf.KCFModel(*[x[part].contiguous() for x in model]),
+        zf[part].contiguous(), dy[part].contiguous(), dx[part].contiguous(),
+        yf, sigma, lam, lr[part].contiguous(), width)
+    torch.cuda.synchronize()
+    assert torch.equal(first.xf, second.xf)
+    assert torch.equal(first.alphaf, second.alphaf)
+    assert torch.equal(alone.xf, first.xf[part])
+    assert torch.equal(alone.alphaf, first.alphaf[part])
+
+
+@pytest.mark.parametrize("c,s,impl,kernel", [
+    (1, 64, "auto", True), (1, 64, "pallas", True), (1, 64, "xla", False),
+    (31, 16, "auto", False), (1, 48, "auto", False), (1, 32, "pallas", False)])
+def test_kcf_train_shift_route_on_card(cuda, c, s, impl, kernel):
+    """train_shift_blend_auto launches K6 for gray S = 64 under "auto" or
+    "pallas" and runs the chain (bit for bit its plain version) otherwise."""
+    model, feat, yf = _kcf_inputs(cuda, 8, c, s, seed=5)
+    zf = torch.fft.rfft2(feat)
+    dy = torch.linspace(-3.0, 3.0, 8, device=cuda)
+    lr = torch.full((8,), 0.075, device=cuda)
+    before = t_kcfk.launches_train_shift
+    got = t_kcf.train_shift_blend_auto(model, zf, dy, -dy, yf, 0.2, 1e-4,
+                                       lr, s, impl)
+    want = t_kcfk.train_shift_fused_ref(model, zf, dy, -dy, yf, 0.2, 1e-4,
+                                        lr, s)
+    torch.cuda.synchronize()
+    assert t_kcfk.launches_train_shift - before == int(kernel)
+    if kernel:
+        assert _rel_err(got.alphaf, want.alphaf) <= K6_TOL["alphaf"]
+    else:
+        assert torch.equal(got.xf, want.xf)
+        assert torch.equal(got.alphaf, want.alphaf)
+
+
+def test_kcf_train_shift_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args = list(_shift_inputs(cuda, 8))
+    model, zf = args[0], args[1]
+    cases = [
+        (dict(width=48), "width"),
+        (dict(zf=zf.transpose(-1, -2).contiguous().transpose(-1, -2)), "zf"),
+        (dict(lr=args[7].double()), "lr"),
+        (dict(model=t_kcf.KCFModel(model.xf[:4], model.alphaf)), "xf"),
+    ]
+    flat = torch.zeros(zf.numel() + 1, dtype=zf.dtype, device=cuda)
+    off = flat[1:].view(zf.shape)
+    off.copy_(zf)
+    cases.append((dict(zf=off), "aligned"))
+    names = ("model", "zf", "dy", "dx", "yf", "sigma", "lambda_", "lr",
+             "width")
+    for change, match in cases:
+        kw = dict(zip(names, args), **change)
+        with pytest.raises(ValueError, match=match):
+            t_kcfk.train_shift_fused(**kw)
 
 
 @pytest.mark.parametrize("kcf_impl,train_site", [("pallas", "refined"),

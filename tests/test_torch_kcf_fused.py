@@ -268,3 +268,112 @@ def test_train_fft16_mirror_matches_plain_version(c):
     np.testing.assert_array_equal(xf[0::4], other[0::4])
     fresh = t_kcf.train(torch.as_tensor(feat), tyf, 0.2, 1e-4)
     assert _max_rel(xf[0::4], fresh.xf.numpy()[0::4]) <= 1e-5
+
+
+# ---- K6: detect-site training at S = 64 (the mirror, the route) ----------
+# K6's 64-point FFT is an 8 x 8 schedule over a group of 8 lanes with the
+# float64-derived twiddles of kernels/kcf._twiddles; the mirror repeats it
+# and K6's four passes in numpy.
+
+def _shift_case(seed, t=12, s=64):
+    """A bank trained on seeded features, the spectra of others; shifts 0,
+    fractional and just inside +-S/4 (the stage's guard) on each axis."""
+    rng = np.random.default_rng(seed)
+    feat0 = torch.as_tensor(
+        rng.standard_normal((t, 1, s, s)).astype(np.float32) * 0.3)
+    yf = t_kcf.make_yf(s, 2.5, 0.125)
+    model = t_kcf.KCFModel(*[x.contiguous() for x in
+                             t_kcf.train(feat0, yf, 0.2, 1e-4)])
+    zf = torch.fft.rfft2(torch.as_tensor(
+        rng.standard_normal((t, 1, s, s)).astype(np.float32) * 0.3))
+    edge = s / 4 - 1e-3
+    dy = torch.tensor([0.0, 0.5, -edge, edge, 3.3, -7.25, 0.0, 1.0, 2.0,
+                       -3.0, 1e-3, -0.4][:t])
+    dx = torch.tensor([0.0, -0.5, edge, -edge, -2.2, 7.75, 0.25, 0.0, -2.0,
+                       3.0, 0.3, 8.0][:t])
+    return model, zf, dy, dx, yf
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft64_mirror_matches_numpy(dtype, inverse):
+    rng = np.random.default_rng(11)
+    ctype = np.complex64 if dtype == np.float32 else np.complex128
+    z = (rng.standard_normal((40, 64))
+         + 1j * rng.standard_normal((40, 64))).astype(ctype)
+    got = t_fused.fft64_mirror(z, inverse)
+    assert got.dtype == ctype and got.shape == z.shape
+    z64 = z.astype(np.complex128)
+    want = np.fft.ifft(z64) * 64 if inverse else np.fft.fft(z64)
+    assert _max_rel(got, want) <= MIRROR_TOL[dtype]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.075, 1.0])
+def test_train_shift_mirror_matches_plain_version(rate):
+    """K6's passes in numpy float32 against train_shift_fused_ref, relative
+    to the largest magnitude: xf 1e-6 (the shift and blend are the same
+    roundings; numpy's and torch's float32 sin and cos may part by an
+    ulp), alphaf 1e-5 (the FFT schedules round differently, amplified by
+    the exp and the divide; 5e-7 seen).  lr = 0 keeps the old model
+    exactly."""
+    model, zf, dy, dx, yf = _shift_case(30)
+    lr = torch.full((zf.shape[0],), rate)
+    want = t_fused.train_shift_fused_ref(model, zf, dy, dx, yf, 0.2, 1e-4,
+                                         lr, 64)
+    xf, alphaf = t_fused.train_shift_fused_mirror(
+        model.xf.numpy(), model.alphaf.numpy(), zf.numpy(), dy.numpy(),
+        dx.numpy(), yf.numpy(), 0.2, 1e-4, lr.numpy())
+    assert xf.dtype == alphaf.dtype == np.complex64
+    assert xf.shape == (12, 1, 64, 33) and alphaf.shape == (12, 64, 33)
+    assert _max_rel(xf, want.xf.numpy()) <= 1e-6
+    assert _max_rel(alphaf, want.alphaf.numpy()) <= 1e-5
+    if rate == 0.0:
+        np.testing.assert_array_equal(xf, model.xf.numpy())
+        np.testing.assert_array_equal(alphaf, model.alphaf.numpy())
+
+
+@pytest.mark.parametrize("c,s", [(1, 64), (31, 16)])
+def test_train_shift_plain_version_is_stage8_chain(c, s):
+    """train_shift_fused_ref, the CPU wrapper and train_shift_blend_auto on
+    the CPU under every impl equal, bit for bit, the chain that stage 8 ran
+    before K6: shift, train from the spectrum, blend."""
+    rng = np.random.default_rng(31)
+    t = 8
+    _, tm, yf = _models(rng, t, c, s)
+    tyf = interop.cf_to_complex(yf.re, yf.im)
+    zf = torch.fft.rfft2(torch.as_tensor(
+        rng.standard_normal((t, c, s, s)).astype(np.float32) * 0.3))
+    dy = torch.as_tensor(rng.uniform(-s / 4, s / 4, t).astype(np.float32))
+    dx = torch.as_tensor(rng.uniform(-s / 4, s / 4, t).astype(np.float32))
+    lr = torch.tensor([0.0, 0.075, 1.0, 0.075] * (t // 4))
+    zf_a = t_kcf.shift_spectrum(zf, dy, dx, s)
+    chain = t_kcf.blend(tm, t_kcf.train_from_spectrum(zf_a, tyf, 0.2, 1e-4,
+                                                      s), lr)
+    before = t_fused.launches_train_shift
+    got = [t_fused.train_shift_fused_ref(tm, zf, dy, dx, tyf, 0.2, 1e-4, lr,
+                                         s),
+           t_fused.train_shift_fused(tm, zf, dy, dx, tyf, 0.2, 1e-4, lr, s)]
+    got += [t_kcf.train_shift_blend_auto(tm, zf, dy, dx, tyf, 0.2, 1e-4, lr,
+                                         s, impl)
+            for impl in ("auto", "pallas", "xla")]
+    for g in got:
+        assert torch.equal(g.xf, chain.xf)
+        assert torch.equal(g.alphaf, chain.alphaf)
+    assert t_fused.launches_train_shift == before
+
+
+@pytest.mark.parametrize("device,c,s,width,impl,kernel", [
+    ("cuda", 1, 64, 64, "auto", True),
+    ("cuda", 1, 64, 64, "pallas", True),
+    ("cuda", 1, 64, 64, "xla", False),
+    ("cpu", 1, 64, 64, "auto", False),
+    ("cpu", 1, 64, 64, "pallas", False),
+    ("cuda", 31, 16, 16, "auto", False),     # fHOG-31
+    ("cuda", 1, 48, 48, "auto", False),      # bench_template_size
+    ("cuda", 1, 32, 32, "pallas", False),
+    ("cuda", 3, 64, 64, "auto", False),
+])
+def test_train_shift_route(device, c, s, width, impl, kernel):
+    """K6 for a CUDA spectrum of one channel at S = 64 under "auto" or
+    "pallas"; the chain for "xla", the CPU and every other shape."""
+    assert t_kcf.train_shift_on_kernel(device, c, s, width, impl) is kernel

@@ -63,6 +63,7 @@ from tpu_mot.utils import metrics as j_metrics
 from tpu_mot_torch.kernels import auction as auction_k
 from tpu_mot_torch.kernels import kcf as kcf_k
 from tpu_mot_torch.kernels import roi as roi_k
+from tpu_mot_torch.ops import kcf as kcf_ops
 from tpu_mot_torch.tools import (bench, bench_class_cost, bench_multistream,
                                  bench_template_size, bench_train_site)
 from tpu_mot_torch.tracker import bank as t_bank
@@ -382,7 +383,9 @@ def test_class_aware_decisions_against_class_blind(runs):
                               chip_smoke.TRAIN_SITE_LAUNCHES])
 def test_train_site_launches_a_frame(monkeypatch, row):
     """Each kernel wrapper's calls in a --small run of the row on the CPU
-    through the kernel path (roi_impl="pallas"), over its frames."""
+    through the kernel path (roi_impl="pallas"), over its frames.  K6 is
+    chosen by the device, so its count is of the calls whose input would
+    take it on the card (`ops/kcf.train_shift_on_kernel` with "cuda")."""
     calls = dict.fromkeys(chip_smoke.KERNELS, 0)
     for mod, attr, kernel in (
             (roi_k, "extract_patches", "roi_extract"),
@@ -394,6 +397,15 @@ def test_train_site_launches_a_frame(monkeypatch, row):
             calls[_k] += 1
             return _fn(*a, **kw)
         monkeypatch.setattr(mod, attr, counted)
+    blend_auto = kcf_ops.train_shift_blend_auto
+
+    def shift_counted(model, zf, dy, dx, yf, sigma, lambda_, lr, width,
+                      impl="auto"):
+        calls["kcf_train_shift"] += kcf_ops.train_shift_on_kernel(
+            "cuda", zf.shape[-3], zf.shape[-2], width, impl)
+        return blend_auto(model, zf, dy, dx, yf, sigma, lambda_, lr, width,
+                          impl)
+    monkeypatch.setattr(kcf_ops, "train_shift_blend_auto", shift_counted)
     fx = bench.fixture(small=True)
     cfg = bench_train_site.config(fx, *row).replace(roi_impl="pallas")
     t_scan.run_sequence(t_bank.empty_bank(cfg, device="cpu"),
@@ -429,12 +441,14 @@ def test_kernels_checked_holds_the_chosen_calls():
 
 
 def test_uncounted_leaves_the_launch_counts():
-    chip_smoke.set_counts(dict(zip(chip_smoke.KERNELS, range(1, 6))))
+    counts = dict(zip(chip_smoke.KERNELS,
+                      range(1, len(chip_smoke.KERNELS) + 1)))
+    chip_smoke.set_counts(counts)
     with chip_smoke.uncounted():
         roi_k.launches += 3
         auction_k.launches += 8
-    assert chip_smoke.read_counts() == dict(zip(chip_smoke.KERNELS,
-                                                range(1, 6)))
+        kcf_k.launches_train_shift += 2
+    assert chip_smoke.read_counts() == counts
     chip_smoke.reset_counts()
     assert set(chip_smoke.read_counts().values()) == {0}
 

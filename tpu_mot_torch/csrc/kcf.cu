@@ -1,4 +1,5 @@
-// Fused KCF detect (K4) and train + blend (K5): the whole FFT-domain chain
+// Fused KCF detect (K4), train + blend (K5) and detect-site train + blend
+// from a spectrum (K6, at the end of the file): the whole FFT-domain chain
 // of one item in one CTA, with only the inputs read from and the results
 // written to device memory.
 //
@@ -928,6 +929,386 @@ kcf_train_fft16_kernel(const float* __restrict__ feat,
   }
 }
 
+// ---- K6: detect-site training at S = 64, C = 1 --------------------------
+//
+// Stage 8 of the tracker step under train_site="detect" at the default gray
+// 64 x 64 template: blend(model, train_from_spectrum(shift_spectrum(zf, dy,
+// dx)), lr) on [R, 1, 64, 33] spectra, R = streams x slots.  It replaces no
+// TPU kernel (the JAX package leaves this chain to XLA); it was added
+// because the chain ran as ~100 elementwise and reduction passes plus two
+// cuFFT calls, ~18 ms a step at R = 32,768 on the H100, 4.6% of its bound.
+//
+// Bound: bytes.  A row reads z^, the old x^ and the old alpha^ and writes the
+// new x^ and alpha^, 5 x 16,896 B = 84.5 KB; at R = 32,768 that is 2.77 GB,
+// 0.83 ms at 3.35 TB/s.  The arithmetic (four 2-D passes of 64-point FFTs,
+// 4,096 exp, 2,112 sincos a row) is ~0.2 ms at the float32 peak.
+//
+// Design: one CTA of 256 threads per row, four CTAs per SM (64 registers,
+// ~37 KB of static shared memory), so the rows in flight cover the
+// latency; no intermediate leaves the SM.
+//   1. Every thread streams 16-byte words of z^ and the old x^ (five each,
+//      all loads issued before use), applies the phase shift, writes the
+//      blended x^ straight back out (coalesced, streaming stores) and keeps
+//      |x^|^2 in shared memory with its Parseval-weighted sum.  The old
+//      alpha^ row is prefetched into L2 at entry and read last.
+//   2. The 64-point FFTs run in registers: a group of 8 lanes holds one
+//      transform, 8 points a lane, as an 8 x 8 Cooley-Tukey schedule
+//      (8-point DFTs as two 4-point ones, twiddles w64^(j k1) from the
+//      float64-derived table `tw`, one transpose through the group's own
+//      8 x 9 scratch, whose odd stride puts both directions on 32 distinct
+//      banks).  Lane j ends with outputs j + 8 k, the order the next
+//      transform of the same lane takes as input, so inverse rows -> exp ->
+//      forward rows need no exchange.
+//   3. Passes: inverse columns (17 transforms: real columns in pairs (g,
+//      g + 16), DC with Nyquist, column 16 alone); per row pair inverse
+//      rows -> k = exp(-max(2 xx - 2 cross, 0) / (sigma^2 4096)) -> forward
+//      rows (32 transforms, one per group); forward columns (17 transforms,
+//      columns in pairs).  The planes' row stride 36 keeps every pass's
+//      column and row reads on distinct banks.
+//   4. alpha^ = y^ / (k^ + lambda), floored at 1e-20, blended with the old
+//      alpha^ and written as 16-byte words.
+// Identities used (each exact in the mathematics; the kernel stays within
+// the card tests' tolerance of the plain chain):
+//   - the auto-correlation's cross spectrum sum_c x^ conj(x^) = |x^|^2 is
+//     real (its imaginary part is taken as 0);
+//   - k is real and even (an auto-correlation), so k^ is real: two columns
+//     of the row transforms go through one complex column FFT as
+//     A + i B, and k^ = Re, Im of the result (the imaginary part of k^ is
+//     taken as 0);
+//   - C2R semantics: the imaginary parts of the DC and Nyquist columns are
+//     dropped, as cuFFT's and numpy's inverse real transforms drop them.
+// The x^ path repeats the plain chain's roundings one by one (__fmul_rn,
+// __fadd_rn: no contraction).  Sums run in a fixed order and nothing is
+// atomic: a row's result depends on that row alone, bit for bit.
+
+constexpr int kGS = 64;                // template side
+constexpr int kGSf = kGS / 2 + 1;      // 33
+constexpr int kGN4 = kGS * kGSf / 2;   // 1056 16-byte words a row
+constexpr int kGThreads = 256;
+constexpr int kGWarps = kGThreads / 32;
+constexpr int kGCtasPerSm = 4;
+constexpr int kGW = 36;                // plane row stride (floats)
+constexpr int kGX = 8 * 9;             // a group's scratch plane (floats)
+constexpr int kGWords = (kGN4 + kGThreads - 1) / kGThreads;  // 5 a thread
+constexpr int kGColGroups = 17;        // groups of a column pass
+
+// A group's 64-point FFT (kInv: e^{+}).  On entry lane j holds x(8 n1 + j)
+// in v[n1]; on exit X(j + 8 k2) in v[k2].  sr, si: the group's scratch.
+template <bool kInv>
+__device__ __forceinline__ void fft64(float2 (&v)[8], int j, float* sr,
+                                      float* si, const float2* tw) {
+  dft4<kInv>(v[0], v[2], v[4], v[6]);
+  dft4<kInv>(v[1], v[3], v[5], v[7]);
+  const float2 o1 = twiddle<kInv>(v[3], kR2, kR2);
+  const float2 o2 = kInv ? make_float2(-v[5].y, v[5].x)
+                         : make_float2(v[5].y, -v[5].x);
+  const float2 o3 = twiddle<kInv>(v[7], -kR2, kR2);
+  float2 y[8];
+  y[0] = make_float2(v[0].x + v[1].x, v[0].y + v[1].y);
+  y[4] = make_float2(v[0].x - v[1].x, v[0].y - v[1].y);
+  y[1] = make_float2(v[2].x + o1.x, v[2].y + o1.y);
+  y[5] = make_float2(v[2].x - o1.x, v[2].y - o1.y);
+  y[2] = make_float2(v[4].x + o2.x, v[4].y + o2.y);
+  y[6] = make_float2(v[4].x - o2.x, v[4].y - o2.y);
+  y[3] = make_float2(v[6].x + o3.x, v[6].y + o3.y);
+  y[7] = make_float2(v[6].x - o3.x, v[6].y - o3.y);
+#pragma unroll
+  for (int k1 = 1; k1 < 8; ++k1) {
+    const float2 w = tw[(j * k1) & 63];
+    y[k1] = twiddle<kInv>(y[k1], w.x, -w.y);
+  }
+  __syncwarp();  // the scratch's last readers are done
+#pragma unroll
+  for (int k1 = 0; k1 < 8; ++k1) {
+    sr[k1 * 9 + j] = y[k1].x;
+    si[k1 * 9 + j] = y[k1].y;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int n2 = 0; n2 < 8; ++n2) {
+    v[n2] = make_float2(sr[j * 9 + n2], si[j * 9 + n2]);
+  }
+  dft4<kInv>(v[0], v[2], v[4], v[6]);
+  dft4<kInv>(v[1], v[3], v[5], v[7]);
+  const float2 p1 = twiddle<kInv>(v[3], kR2, kR2);
+  const float2 p2 = kInv ? make_float2(-v[5].y, v[5].x)
+                         : make_float2(v[5].y, -v[5].x);
+  const float2 p3 = twiddle<kInv>(v[7], -kR2, kR2);
+  y[0] = make_float2(v[0].x + v[1].x, v[0].y + v[1].y);
+  y[4] = make_float2(v[0].x - v[1].x, v[0].y - v[1].y);
+  y[1] = make_float2(v[2].x + p1.x, v[2].y + p1.y);
+  y[5] = make_float2(v[2].x - p1.x, v[2].y - p1.y);
+  y[2] = make_float2(v[4].x + p2.x, v[4].y + p2.y);
+  y[6] = make_float2(v[4].x - p2.x, v[4].y - p2.y);
+  y[3] = make_float2(v[6].x + p3.x, v[6].y + p3.y);
+  y[7] = make_float2(v[6].x - p3.x, v[6].y - p3.y);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = y[k];
+}
+
+// X(-(j + 8 k)) for each k, from the partner lane (8 - j) & 7 of the group.
+__device__ __forceinline__ void mirrored(const float2 (&v)[8], int j,
+                                         int lane, float2 (&m)[8]) {
+  const int src = (lane & ~7) | ((8 - j) & 7);
+  float2 r[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    r[i] = make_float2(__shfl_sync(0xffffffffu, v[i].x, src),
+                       __shfl_sync(0xffffffffu, v[i].y, src));
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) m[k] = j == 0 ? r[(8 - k) & 7] : r[7 - k];
+}
+
+// Column pass group g < 17: columns (g, g + 16) for 1 <= g <= 15, DC with
+// Nyquist (0, 32) for g = 0, column 16 alone for g = 16 (b = -1).
+__device__ __forceinline__ int pair_col_b(int g) {
+  return g == 0 ? 32 : (g < 16 ? g + 16 : -1);
+}
+
+// K6: grid = R rows; every pointer 16-byte aligned.
+__global__ void __launch_bounds__(kGThreads, kGCtasPerSm)
+kcf_train_shift_kernel(const float4* __restrict__ zf,
+                       const float4* __restrict__ xf,
+                       const float4* __restrict__ alphaf,
+                       const float4* __restrict__ yf,
+                       const float* __restrict__ dy_g,
+                       const float* __restrict__ dx_g,
+                       const float* __restrict__ lr_g,
+                       const float2* __restrict__ twg,
+                       float4* __restrict__ out_xf,
+                       float4* __restrict__ out_alphaf, float denom,
+                       float lambda) {
+  __shared__ float wre[kGS * kGW];   // [ky][kx] planes of the row's spectra
+  __shared__ float wim[kGS * kGW];
+  __shared__ float xre[32 * kGX];    // a group's transpose scratch
+  __shared__ float xim[32 * kGX];
+  __shared__ float2 tw[kGS];
+  __shared__ float red[kGWarps];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int j = tid & 7;
+  const int grp = tid >> 3;
+  float* sr = xre + grp * kGX;
+  float* si = xim + grp * kGX;
+  const size_t row = blockIdx.x;
+  const size_t base = row * kGN4;
+
+  // The old alpha^ row is read last: bring its 132 lines into L2 now.
+  if (tid < kGN4 / 8) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(alphaf + base + 8 * tid));
+  }
+  if (tid < kGS) tw[tid] = twg[tid];
+  const float lr = lr_g[row];
+  const float keep = 1.0f - lr;
+  const float sy = dy_g[row] * (1.0f / kGS);
+  const float sx = dx_g[row] * (1.0f / kGS);
+
+  // 1. Phase shift, x^ blend and |x^|^2, two spectrum points a word.
+  float4 z[kGWords], o[kGWords];
+#pragma unroll
+  for (int i = 0; i < kGWords; ++i) {
+    const int q = tid + i * kGThreads;
+    if (q < kGN4) {
+      z[i] = __ldcs(zf + base + q);
+      o[i] = __ldcs(xf + base + q);
+    }
+  }
+  float energy = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kGWords; ++i) {
+    const int q = tid + i * kGThreads;
+    if (q < kGN4) {
+      float zr[2] = {z[i].x, z[i].z}, zi[2] = {z[i].y, z[i].w};
+      float nr[2], ni[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = 2 * q + h;
+        const int ky = e / kGSf;
+        const int kx = e - ky * kGSf;
+        const float fy = (float)(ky < kGS / 2 ? ky : ky - kGS);
+        const float theta = __fmul_rn(
+            6.2831855f,
+            __fadd_rn(__fmul_rn(fy, sy), __fmul_rn((float)kx, sx)));
+        float sn, cs;
+        sincosf(theta, &sn, &cs);
+        const float ar = __fsub_rn(__fmul_rn(zr[h], cs), __fmul_rn(zi[h], sn));
+        const float ai = __fadd_rn(__fmul_rn(zr[h], sn), __fmul_rn(zi[h], cs));
+        nr[h] = ar;
+        ni[h] = ai;
+        const float p = __fadd_rn(__fmul_rn(ar, ar), __fmul_rn(ai, ai));
+        wre[ky * kGW + kx] = p;
+        energy += (kx == 0 || kx == kGS / 2) ? p : 2.0f * p;
+      }
+      __stcs(out_xf + base + q,
+             make_float4(
+                 __fadd_rn(__fmul_rn(o[i].x, keep), __fmul_rn(nr[0], lr)),
+                 __fadd_rn(__fmul_rn(o[i].y, keep), __fmul_rn(ni[0], lr)),
+                 __fadd_rn(__fmul_rn(o[i].z, keep), __fmul_rn(nr[1], lr)),
+                 __fadd_rn(__fmul_rn(o[i].w, keep), __fmul_rn(ni[1], lr))));
+    }
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    energy += __shfl_xor_sync(0xffffffffu, energy, s);
+  }
+  if (lane == 0) red[warp] = energy;
+  __syncthreads();
+  float xx = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kGWarps; ++w) xx += red[w];
+  xx *= 1.0f / (float)(kGS * kGS);
+  const float energies = xx + xx;
+
+  // 2. Inverse columns: Q = sum_ky |x^|^2 e^{+}, real columns in pairs.
+  if (warp < (kGColGroups + 3) / 4) {
+    const bool act = grp < kGColGroups;
+    const int a = act ? grp : 0;
+    const int b = act ? pair_col_b(grp) : -1;
+    float2 v[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int at = (8 * n + j) * kGW;
+      v[n] = make_float2(act ? wre[at + a] : 0.0f,
+                         b >= 0 ? wre[at + b] : 0.0f);
+    }
+    fft64<true>(v, j, sr, si, tw);
+    float2 m[8];
+    mirrored(v, j, lane, m);
+    if (act) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int at = (j + 8 * k) * kGW;
+        if (grp == 0) {  // DC and Nyquist: real (their imaginary parts drop)
+          wre[at] = v[k].x;
+          wim[at] = 0.0f;
+          wre[at + 32] = v[k].y;
+          wim[at + 32] = 0.0f;
+        } else if (b < 0) {
+          wre[at + a] = v[k].x;
+          wim[at + a] = v[k].y;
+        } else {  // A = (Z + conj Z-) / 2, B = (Z - conj Z-) / 2i
+          wre[at + a] = 0.5f * (v[k].x + m[k].x);
+          wim[at + a] = 0.5f * (v[k].y - m[k].y);
+          wre[at + b] = 0.5f * (v[k].y + m[k].y);
+          wim[at + b] = 0.5f * (m[k].x - v[k].x);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. Rows 2 p and 2 p + 1 as one complex transform: inverse -> the
+  // Gaussian kernel -> forward -> the two half spectra.
+  {
+    const int r1 = 8 * warp + 2 * (grp & 3);
+    const float* a1r = wre + r1 * kGW;
+    const float* a1i = wim + r1 * kGW;
+    const float* a2r = a1r + kGW;
+    const float* a2i = a1i + kGW;
+    float2 v[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (n < 4) {  // kx = j + 8 n <= 31: Q1 + i Q2
+        const int c = j + 8 * n;
+        v[n] = make_float2(a1r[c] - a2i[c], a1i[c] + a2r[c]);
+      } else {      // kx >= 32: conj Q1(64 - kx) + i conj Q2(64 - kx)
+        const int c = kGS - j - 8 * n;
+        v[n] = make_float2(a1r[c] + a2i[c], a2r[c] - a1i[c]);
+      }
+    }
+    fft64<true>(v, j, sr, si, tw);
+    const float inv_n = 1.0f / (float)(kGS * kGS);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      v[k] = make_float2(
+          expf(-fmaxf(energies - 2.0f * (v[k].x * inv_n), 0.0f) / denom),
+          expf(-fmaxf(energies - 2.0f * (v[k].y * inv_n), 0.0f) / denom));
+    }
+    fft64<false>(v, j, sr, si, tw);
+    float2 m[8];
+    mirrored(v, j, lane, m);
+    float* b1r = wre + r1 * kGW;
+    float* b1i = wim + r1 * kGW;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const int c = j + 8 * k;
+      if (k < 4 || j == 0) {
+        b1r[c] = 0.5f * (v[k].x + m[k].x);
+        b1i[c] = 0.5f * (v[k].y - m[k].y);
+        b1r[c + kGW] = 0.5f * (v[k].y + m[k].y);
+        b1i[c + kGW] = 0.5f * (m[k].x - v[k].x);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 4. Forward columns: k^ = Re, Im of the transform of K_a + i K_b.
+  if (warp < (kGColGroups + 3) / 4) {
+    const bool act = grp < kGColGroups;
+    const int a = act ? grp : 0;
+    const int b = act ? pair_col_b(grp) : -1;
+    float2 v[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int at = (8 * n + j) * kGW;
+      const float ar = act ? wre[at + a] : 0.0f;
+      const float ai = act ? wim[at + a] : 0.0f;
+      const float br = b >= 0 ? wre[at + b] : 0.0f;
+      const float bi = b >= 0 ? wim[at + b] : 0.0f;
+      v[n] = make_float2(ar - bi, ai + br);
+    }
+    fft64<false>(v, j, sr, si, tw);
+    if (act) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int at = (j + 8 * k) * kGW;
+        wre[at + a] = v[k].x;
+        if (b >= 0) wre[at + b] = v[k].y;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 5. alpha^ = y^ / (k^ + lambda), blended: two points a word.
+  float4 old[kGWords], y[kGWords];
+#pragma unroll
+  for (int i = 0; i < kGWords; ++i) {
+    const int q = tid + i * kGThreads;
+    if (q < kGN4) {
+      old[i] = __ldcs(alphaf + base + q);
+      y[i] = __ldg(yf + q);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kGWords; ++i) {
+    const int q = tid + i * kGThreads;
+    if (q < kGN4) {
+      const int e = 2 * q;
+      const int ky = e / kGSf;
+      const int kx = e - ky * kGSf;
+      const float k0 = wre[ky * kGW + kx];
+      const float k1 =
+          kx == kGSf - 1 ? wre[(ky + 1) * kGW] : wre[ky * kGW + kx + 1];
+      const float d0 = k0 + lambda;
+      const float d1 = k1 + lambda;
+      const float i0 = 1.0f / fmaxf(__fmul_rn(d0, d0), 1e-20f);
+      const float i1 = 1.0f / fmaxf(__fmul_rn(d1, d1), 1e-20f);
+      const float n0r = __fmul_rn(__fmul_rn(y[i].x, d0), i0);
+      const float n0i = __fmul_rn(__fmul_rn(y[i].y, d0), i0);
+      const float n1r = __fmul_rn(__fmul_rn(y[i].z, d1), i1);
+      const float n1i = __fmul_rn(__fmul_rn(y[i].w, d1), i1);
+      __stcs(out_alphaf + base + q,
+             make_float4(
+                 __fadd_rn(__fmul_rn(old[i].x, keep), __fmul_rn(n0r, lr)),
+                 __fadd_rn(__fmul_rn(old[i].y, keep), __fmul_rn(n0i, lr)),
+                 __fadd_rn(__fmul_rn(old[i].z, keep), __fmul_rn(n1r, lr)),
+                 __fadd_rn(__fmul_rn(old[i].w, keep), __fmul_rn(n1i, lr))));
+    }
+  }
+}
+
 // Opt `kernel` in to `bytes` of dynamic shared memory (above 48 KB this
 // must be asked for).  The attribute is a ceiling: `prepared` holds, per
 // device, what was last asked for, and it is raised only when a larger
@@ -1097,5 +1478,46 @@ extern "C" int tpu_mot_kcf_train(const void* feat, const void* xf,
       static_cast<const float*>(lr), static_cast<const float2*>(tw),
       static_cast<float2*>(out_xf), static_cast<float2*>(out_alphaf), C, S,
       denom, lambda);
+  return (int)cudaGetLastError();
+}
+
+// What K6 launches: info[0] its code path (0: it has one), info[1] threads
+// per CTA, info[2] registers per thread, info[3] static shared memory per
+// CTA, info[4] CTAs resident per SM.  Returns a CUDA error code.
+extern "C" int tpu_mot_kcf_train_shift_info(int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, (const void*)kcf_train_shift_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, (const void*)kcf_train_shift_kernel, kGThreads, 0);
+  info[0] = 0;
+  info[1] = kGThreads;
+  info[2] = attr.numRegs;
+  info[3] = (int)attr.sharedSizeBytes;
+  info[4] = ctas;
+  return (int)err;
+}
+
+// K6.  zf, xf [R, 1, 64, 33], alphaf [R, 64, 33], yf [64, 33] complex64
+// (interleaved), each 16-byte aligned; dy, dx, lr [R] float32; tw [64]
+// complex64 e^{-2 pi i j / 64}; out_xf, out_alphaf the new model, not the
+// old one's memory; denom = sigma^2 4096.  Returns cudaGetLastError().
+extern "C" int tpu_mot_kcf_train_shift(const void* zf, const void* xf,
+                                       const void* alphaf, const void* yf,
+                                       const void* dy, const void* dx,
+                                       const void* lr, const void* tw,
+                                       void* out_xf, void* out_alphaf, int R,
+                                       float denom, float lambda,
+                                       void* stream) {
+  kcf_train_shift_kernel<<<R, kGThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(zf), static_cast<const float4*>(xf),
+      static_cast<const float4*>(alphaf), static_cast<const float4*>(yf),
+      static_cast<const float*>(dy), static_cast<const float*>(dx),
+      static_cast<const float*>(lr), static_cast<const float2*>(tw),
+      static_cast<float4*>(out_xf), static_cast<float4*>(out_alphaf), denom,
+      lambda);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-"""Fused KCF detect and train: the CUDA kernels K4 and K5 (csrc/kcf.cu) and
-their plain torch versions (counterpart of tpu_mot/kernels/kcf.py).
+"""Fused KCF detect and train: the CUDA kernels K4, K5 and K6 (csrc/kcf.cu)
+and their plain torch versions (K4 and K5 are the counterparts of
+tpu_mot/kernels/kcf.py; K6 has no TPU kernel).
 
   detect_fused : feat [N, C, S, S] against a model bank of T rows (N a
                  multiple of T; item i reads model row i % T, the
@@ -7,9 +8,13 @@ their plain torch versions (counterpart of tpu_mot/kernels/kcf.py).
                  response [N, S, S]                     (eqs. 31, 22)
   train_fused  : feat [T, C, S, S] -> x^, k^xx, alpha^ = y^/(k^+lambda),
                  blended into the bank with a per-track lr  (eq. 17)
+  train_shift_fused : detect-site training, C = 1 and S = 64 only: the
+                 spectrum zf [T, 1, 64, 33] phase-shifted by (dy, dx) [T],
+                 trained as train_fused and blended with lr [T]
 
 The plain versions are the torch.fft chain of ops/kcf.py: `detect` on the
-tiled model, and `blend(model, train(feat), lr)`.  The wrappers launch the
+tiled model, `blend(model, train(feat), lr)`, and blend(model,
+train_from_spectrum(shift_spectrum(zf, dy, dx)), lr).  The wrappers launch the
 kernel for CUDA tensors and run the plain version for CPU tensors, as the
 JAX package runs its Pallas kernels in interpret mode on the CPU; for a
 CUDA tensor they launch or raise, never fall back.
@@ -32,10 +37,14 @@ MAX_S = 64          # direct row/column DFTs: S <= 64
 # model (any tensor torch allocates).
 PATHS = ("direct DFTs", "FFTs in registers (S = 16, C <= 32)")
 
-# Kernel launches made by `detect_fused` (K4) and `train_fused` (K5):
-# plain counts; reset them to 0 to measure a run.
+# Kernel launches made by `detect_fused` (K4), `train_fused` (K5) and
+# `train_shift_fused` (K6): plain counts; reset them to 0 to measure a run.
 launches_detect = 0
 launches_train = 0
+launches_train_shift = 0
+
+# K6's one shape: a gray (C = 1) 64 x 64 template.
+SHIFT_S = 64
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,6 +75,17 @@ def train_fused_ref(model: kcf_ops.KCFModel, feat: torch.Tensor,
                     lr: torch.Tensor) -> kcf_ops.KCFModel:
     """Plain version of `train_fused`: blend(model, train(feat), lr)."""
     return kcf_ops.blend(model, kcf_ops.train(feat, yf, sigma, lambda_), lr)
+
+
+def train_shift_fused_ref(model: kcf_ops.KCFModel, zf: torch.Tensor,
+                          dy: torch.Tensor, dx: torch.Tensor,
+                          yf: torch.Tensor, sigma: float, lambda_: float,
+                          lr: torch.Tensor, width: int) -> kcf_ops.KCFModel:
+    """Plain version of `train_shift_fused`: stage 8's detect-site chain,
+    blend(model, train_from_spectrum(shift_spectrum(zf, dy, dx)), lr)."""
+    return kcf_ops.blend(model, kcf_ops.train_from_spectrum(
+        kcf_ops.shift_spectrum(zf, dy, dx, width), yf, sigma, lambda_,
+        width), lr)
 
 
 def _check(what: str, name: str, t: torch.Tensor, dtype, shape, dev) -> None:
@@ -109,6 +129,12 @@ def train_launch_info(c: int, s: int) -> dict:
     """What K5 launches for C channels of S x S features, as
     `detect_launch_info`."""
     return _launch_info("tpu_mot_kcf_train_info", c, s)
+
+
+def train_shift_launch_info() -> dict:
+    """What K6 launches, as `detect_launch_info` (its one code path is
+    0; shared memory is static)."""
+    return _build.launch_info(_build.load().tpu_mot_kcf_train_shift_info)
 
 
 def _check_shape(what: str, c: int, s: int) -> None:
@@ -193,6 +219,53 @@ def train_fused(model: kcf_ops.KCFModel, feat: torch.Tensor,
             float(sigma * sigma * (s * s * c)), float(lambda_), stream)
     _build.check(rc, what)
     launches_train += 1
+    return out
+
+
+def train_shift_fused(model: kcf_ops.KCFModel, zf: torch.Tensor,
+                      dy: torch.Tensor, dx: torch.Tensor, yf: torch.Tensor,
+                      sigma: float, lambda_: float, lr: torch.Tensor,
+                      width: int) -> kcf_ops.KCFModel:
+    """Detect-site training of a gray 64 x 64 bank: the spectrum zf [T, 1,
+    64, 33] shifted by (dy, dx) [T] feature pixels, trained against yf
+    [64, 33] and blended into the bank with lr [T] (old (1 - lr) + new
+    lr), into new tensors.  K6 for CUDA tensors (16-byte aligned,
+    contiguous), the plain version for CPU tensors."""
+    global launches_train_shift
+    what = "train_shift_fused"
+    if not _build.on_card(what, zf):
+        return train_shift_fused_ref(model, zf, dy, dx, yf, sigma, lambda_,
+                                     lr, width)
+    dev = zf.device
+    t = zf.shape[0]
+    s, sf = SHIFT_S, SHIFT_S // 2 + 1
+    if width != s:
+        raise ValueError(f"{what}: width {width}, the kernel takes {s}")
+    _check(what, "zf", zf, torch.complex64, (t, 1, s, sf), dev)
+    _check(what, "xf", model.xf, torch.complex64, (t, 1, s, sf), dev)
+    _check(what, "alphaf", model.alphaf, torch.complex64, (t, s, sf), dev)
+    _check(what, "yf", yf, torch.complex64, (s, sf), dev)
+    for name, v in (("dy", dy), ("dx", dx), ("lr", lr)):
+        _check(what, name, v, torch.float32, (t,), dev)
+    for name, v in (("zf", zf), ("xf", model.xf), ("alphaf", model.alphaf),
+                    ("yf", yf)):
+        if v.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
+    out = kcf_ops.KCFModel(xf=torch.empty_like(model.xf),
+                           alphaf=torch.empty_like(model.alphaf))
+    if t == 0:
+        return out
+    lib = _build.load()
+    tw = _twiddles(s, str(dev))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tpu_mot_kcf_train_shift(
+            zf.data_ptr(), model.xf.data_ptr(), model.alphaf.data_ptr(),
+            yf.data_ptr(), dy.data_ptr(), dx.data_ptr(), lr.data_ptr(),
+            tw.data_ptr(), out.xf.data_ptr(), out.alphaf.data_ptr(), t,
+            float(sigma * sigma * (s * s)), float(lambda_), stream)
+    _build.check(rc, what)
+    launches_train_shift += 1
     return out
 
 
@@ -382,4 +455,146 @@ def train_fft16_mirror(xf: np.ndarray, alphaf: np.ndarray, feat: np.ndarray,
              + 1j * ((y.imag * dr - y.real * kf.imag) * inv))
     new_alphaf = blend(alphaf.astype(np.complex64),
                        alpha.astype(np.complex64), (t, 1, 1))
+    return new_xf, new_alphaf
+
+
+# ---- numpy mirror of K6's schedule (csrc/kcf.cu, S = 64) ---------------
+#
+# K6's 64-point FFT runs on a group of 8 lanes as an 8 x 8 Cooley-Tukey
+# schedule: lane j takes x(8 n1 + j), runs an 8-point DFT (two 4-point
+# DFTs and the w8 twiddles), multiplies output k1 by w64^(j k1) from
+# `_twiddles(64)`, trades through scratch so that lane j takes Y(n2, j),
+# runs the second 8-point DFT and ends with X(j + 8 k2).  The functions
+# below repeat that schedule, and K6's four passes, in the dtype they are
+# given, so the CPU tests can hold them against numpy's FFT and the plain
+# chain.
+
+def _dft8(v: list, inverse: bool) -> None:
+    """8-point DFT in place on a list of 8 arrays: two 4-point DFTs (evens,
+    odds) and the twiddles w8^k of the odd half, as the kernel's fft64."""
+    _dft4(v, (0, 2, 4, 6), inverse)
+    _dft4(v, (1, 3, 5, 7), inverse)
+    r = np.sqrt(0.5)
+    sgn = 1.0 if inverse else -1.0
+    o1 = v[3] * v[3].dtype.type(complex(r, sgn * r))
+    o2 = v[5] * v[5].dtype.type(sgn * 1j)
+    o3 = v[7] * v[7].dtype.type(complex(-r, sgn * r))
+    v[:] = [v[0] + v[1], v[2] + o1, v[4] + o2, v[6] + o3,
+            v[0] - v[1], v[2] - o1, v[4] - o2, v[6] - o3]
+
+
+def fft64_mirror(x: np.ndarray, inverse: bool = False) -> np.ndarray:
+    """K6's fft64 on the last axis (length 64, complex): the unnormalised
+    DFT (inverse: e^{+}), in natural order."""
+    ctype = x.dtype
+    theta = 2.0 * np.pi * np.arange(64, dtype=np.float64) / 64
+    tw = (np.cos(theta) - 1j * np.sin(theta)).astype(ctype)  # = _twiddles
+    lanes = np.arange(8)
+    v = [x[..., 8 * n1:8 * n1 + 8] for n1 in range(8)]   # [..., lane j]
+    _dft8(v, inverse)
+    for k1 in range(1, 8):
+        w = tw[(lanes * k1) % 64]
+        v[k1] = (v[k1] * (np.conj(w) if inverse else w)).astype(ctype)
+    u = [np.stack([v[k1][..., n2] for k1 in range(8)], axis=-1)
+         for n2 in range(8)]                             # lane j: Y(n2, j)
+    _dft8(u, inverse)
+    return np.concatenate(u, axis=-1)                    # X(j + 8 k2)
+
+
+def _unpack(z: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The two transforms packed as z = A + i B of Hermitian pairs, from
+    Z = the transform of z (natural order, last axis): A = (Z + conj
+    Z(-n)) / 2, B = (Z - conj Z(-n)) / 2i, the kernel's operations."""
+    m = z[..., (-np.arange(z.shape[-1])) % z.shape[-1]]
+    half = z.real.dtype.type(0.5)
+    a = half * (z.real + m.real) + 1j * (half * (z.imag - m.imag))
+    b = half * (z.imag + m.imag) + 1j * (half * (m.real - z.real))
+    return a.astype(z.dtype), b.astype(z.dtype)
+
+
+def train_shift_fused_mirror(xf: np.ndarray, alphaf: np.ndarray,
+                             zf: np.ndarray, dy: np.ndarray, dx: np.ndarray,
+                             yf: np.ndarray, sigma: float, lambda_: float,
+                             lr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """K6 in numpy float32, pass by pass: zf and the old xf [T, 1, 64, 33],
+    the old alphaf [T, 64, 33], yf [64, 33], dy, dx, lr [T] -> the new (xf,
+    alphaf).  The phase shift and blend repeat the plain chain's roundings;
+    the cross spectrum is |x^|^2 (real); columns 0 and 32, then (g, g + 16),
+    go through one complex column FFT in pairs, column 16 alone; rows 2p
+    and 2p + 1 through one; k^ is taken real (k is even)."""
+    f32 = np.float32
+    t = zf.shape[0]
+    z = zf[:, 0].astype(np.complex64)
+    lr = lr.astype(f32)
+    keep = f32(1.0) - lr
+    ky = np.arange(64)
+    ky = np.where(ky < 32, ky, ky - 64).astype(f32)[:, None]
+    kx = np.arange(33, dtype=f32)
+    sy = (dy.astype(f32) * f32(1.0 / 64))[:, None, None]
+    sx = (dx.astype(f32) * f32(1.0 / 64))[:, None, None]
+    theta = f32(2.0 * np.pi) * (ky * sy + kx * sx)
+    c, s = np.cos(theta), np.sin(theta)
+    ar = z.real * c - z.imag * s
+    ai = z.real * s + z.imag * c
+
+    def blend(old, nr, ni, shape):
+        k, w = keep.reshape(shape), lr.reshape(shape)
+        return ((old.real * k + nr * w)
+                + 1j * (old.imag * k + ni * w)).astype(np.complex64)
+
+    new_xf = blend(xf.astype(np.complex64), ar[:, None], ai[:, None],
+                   (t, 1, 1, 1))
+    p = ar * ar + ai * ai                                    # [T, 64, 33]
+    fold = np.array([1.0] + [2.0] * 31 + [1.0], f32)
+    xx = np.sum(p * fold, axis=(1, 2), dtype=f32) * f32(1.0 / 4096)
+    energies = (xx + xx)[:, None, None]
+    # inverse columns: Q = sum_ky |x^|^2 e^{+}
+    cols = p.transpose(0, 2, 1).astype(np.complex64)         # [T, 33, 64]
+    q = np.empty((t, 33, 64), np.complex64)
+    dc = fft64_mirror(cols[:, 0] + 1j * cols[:, 32], inverse=True)
+    q[:, 0], q[:, 32] = dc.real, dc.imag
+    q[:, 16] = fft64_mirror(cols[:, 16], inverse=True)
+    q[:, 1:16], q[:, 17:32] = _unpack(fft64_mirror(
+        (cols[:, 1:16] + 1j * cols[:, 17:32]).astype(np.complex64),
+        inverse=True))
+    q = q.transpose(0, 2, 1)                                 # [T, 64, 33]
+    # rows 2p, 2p + 1: inverse -> Gaussian kernel -> forward
+    q1, q2 = q[:, 0::2], q[:, 1::2]
+    zr = np.empty((t, 32, 64), np.complex64)
+    zr[..., :32] = (q1.real[..., :32] - q2.imag[..., :32]) + 1j * (
+        q1.imag[..., :32] + q2.real[..., :32])
+    mir = q[..., 32:0:-1]                                    # kx = 32..63
+    m1, m2 = mir[:, 0::2], mir[:, 1::2]
+    zr[..., 32:] = (m1.real + m2.imag) + 1j * (m2.real - m1.imag)
+    cross = fft64_mirror(zr, inverse=True)
+    denom = f32(sigma * sigma * 4096)
+    inv_n = f32(1.0 / 4096)
+
+    def gauss(v):
+        return np.exp(-np.maximum(energies - f32(2.0) * (v * inv_n), 0)
+                      / denom).astype(f32)
+
+    k = (gauss(cross.real) + 1j * gauss(cross.imag)).astype(np.complex64)
+    ka, kb = _unpack(fft64_mirror(k))
+    kr = np.empty((t, 64, 33), np.complex64)
+    kr[:, 0::2], kr[:, 1::2] = ka[..., :33], kb[..., :33]
+    # forward columns: k^ = Re, Im of the transform of K_a + i K_b
+    kc = kr.transpose(0, 2, 1)                               # [T, 33, 64]
+    kf = np.empty((t, 33, 64), f32)
+
+    def pair(a, b):
+        return fft64_mirror(((a.real - b.imag) + 1j * (a.imag + b.real))
+                            .astype(np.complex64))
+
+    both = pair(kc[:, 0], kc[:, 32])
+    kf[:, 0], kf[:, 32] = both.real, both.imag
+    kf[:, 16] = fft64_mirror(kc[:, 16]).real
+    both = pair(kc[:, 1:16], kc[:, 17:32])
+    kf[:, 1:16], kf[:, 17:32] = both.real, both.imag
+    kf = kf.transpose(0, 2, 1)                               # [T, 64, 33]
+    d = kf + f32(lambda_)
+    inv = f32(1.0) / np.maximum(d * d, f32(1e-20))
+    y = yf.astype(np.complex64)
+    new_alphaf = blend(alphaf.astype(np.complex64), y.real * d * inv,
+                       y.imag * d * inv, (t, 1, 1))
     return new_xf, new_alphaf

@@ -179,6 +179,35 @@ def train_blend_auto(model: KCFModel, feat: torch.Tensor, yf: torch.Tensor,
     return blend(model, train(feat, yf, sigma, lambda_), lr)
 
 
+def train_shift_on_kernel(device_type: str, c: int, s: int, width: int,
+                          impl: str) -> bool:
+    """Whether `train_shift_blend_auto` launches the fused kernel K6: a
+    CUDA spectrum of one channel at S = width = 64 under kcf_impl "auto" or
+    "pallas".  "xla", the CPU and every other shape (fHOG's C = 31, other
+    template sizes) take the FFT chain."""
+    return (device_type == "cuda" and c == 1 and s == width == 64
+            and impl in ("auto", "pallas"))
+
+
+def train_shift_blend_auto(model: KCFModel, zf: torch.Tensor,
+                           dy: torch.Tensor, dx: torch.Tensor,
+                           yf: torch.Tensor, sigma: float, lambda_: float,
+                           lr: torch.Tensor, width: int,
+                           impl: str = "auto") -> KCFModel:
+    """Detect-site training: blend(model, train_from_spectrum(
+    shift_spectrum(zf, dy, dx)), lr) on spectra zf [T, C, S, Sf], with
+    dispatch by what the input is (`train_shift_on_kernel`): the kernel
+    wrapper kernels/kcf.train_shift_fused (K6) or the chain here."""
+    if train_shift_on_kernel(zf.device.type, zf.shape[-3], zf.shape[-2],
+                             width, impl):
+        from tpu_mot_torch.kernels import kcf as kcf_kernels
+        return kcf_kernels.train_shift_fused(
+            KCFModel(*[x.contiguous() for x in model]), zf.contiguous(), dy,
+            dx, yf, sigma, lambda_, lr, width)
+    return blend(model, train_from_spectrum(
+        shift_spectrum(zf, dy, dx, width), yf, sigma, lambda_, width), lr)
+
+
 def peak_displacement(response: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Response peak with a parabolic sub-pixel fit per axis, clipped to

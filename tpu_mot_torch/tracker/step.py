@@ -52,10 +52,15 @@ How the port reads the TrackerConfig impl knobs:
                         assign_impl says (it bypasses the kernel in JAX
                         too); a bank whose carry is not [max(T, D)] falls
                         back to the cold solve
-  kcf_impl    "auto"/"xla"  the torch.fft chain
+  kcf_impl    "auto"    the torch.fft chain, except stage 8 under
+                        train_site="detect" on the card for a gray 64 x 64
+                        bank (C = 1, S = 64): K6 (ops/kcf.
+                        train_shift_blend_auto decides by the input)
+              "xla"     the torch.fft chain everywhere
               "pallas"  the fused KCF kernel wrappers: K4 for detect and,
                         under train_site="refined", K5 for train + blend (on
-                        the CPU their plain versions)
+                        the CPU their plain versions); under
+                        train_site="detect", K6 where "auto" takes it
   kcf_precision, kcf_block, scan_unroll: ignored (TPU-only; fp32 here)
 """
 
@@ -474,25 +479,25 @@ def _step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
             # Feature-pixel displacement of the corrected center from the
             # extraction (predicted) center.
             delta = (kf_mean[:, :2] - pred_boxes[:, :2]) * s / win  # [S*T, 2]
-            d_x, d_y = delta[:, 0], delta[:, 1]
             # Beyond ~S/4 the circular wrap stops being a border effect:
             # skip the EMA update (an init overwrite trains unshifted
             # instead).
-            guard = (torch.abs(d_x) < s / 4) & (torch.abs(d_y) < s / 4)
-            d_x = torch.where(guard, d_x, 0.0)
-            d_y = torch.where(guard, d_y, 0.0)
-            zf_a = kcf_ops.shift_spectrum(zf, d_y, d_x, s)
+            guard = (torch.abs(delta) < s / 4).all(dim=1)
+            d_x = torch.where(guard, delta[:, 0], 0.0)
+            d_y = torch.where(guard, delta[:, 1], 0.0)
             # First post-birth frame -> full overwrite; births this frame
             # have no sample yet and keep lr = 0.
-            init_now = live & (per_row(age) == 2) & ~birth_rows
+            fresh = live & ~birth_rows
+            init_now = fresh & (per_row(age) == 2)
             lr = torch.where(
                 init_now, 1.0,
-                torch.where(live & ~birth_rows & guard
-                            & (per_row(is_matched) | kcf_ok),
+                torch.where(fresh & guard & (per_row(is_matched) | kcf_ok),
                             cfg.kcf.interp_factor, 0.0))
-            new_model = kcf_ops.train_from_spectrum(
-                zf_a, yf, cfg.kcf.kernel_sigma, cfg.kcf.lambda_, s)
-            kcf_model = kcf_ops.blend(kcf_rows, new_model, lr)
+            # Phase shift, training and blend: K6 in one launch for a gray
+            # 64 x 64 bank on the card, the FFT chain otherwise.
+            kcf_model = kcf_ops.train_shift_blend_auto(
+                kcf_rows, zf, d_y, d_x, yf, cfg.kcf.kernel_sigma,
+                cfg.kcf.lambda_, lr, s, cfg.kcf_impl)
         elif cfg.use_kcf:
             # Refined-site training: re-extract at the corrected boxes
             # (births already carry their detection box in kf_mean), through
