@@ -241,8 +241,8 @@ def test_step_streams_records_the_eight_stages_in_order(tmp_path,
 def test_detect_then_track_records_the_detector_then_the_tracker(tmp_path,
                                                                  shared):
     """The fused step at dryrun_shared_detector's tiny shapes: serve.detect
-    holds detector.detect and its four stages, then serve.step holds
-    tracker.step."""
+    holds detector.detect and its four stages (the net's backbone and head
+    inside detector.forward), then serve.step holds tracker.step."""
     from tpu_mot_torch.models.detector import YoloDetector, detect_batch
     from tpu_mot_torch.models.yolo import YOLOV2_TINY_ANCHORS, YoloSpec
     from tpu_mot_torch.parallel import serve
@@ -266,15 +266,17 @@ def test_detect_then_track_records_the_detector_then_the_tracker(tmp_path,
                                          detect_fn)
 
     spans = _traced(tmp_path, fused)
-    assert spans[:6] == [
+    assert spans[:8] == [
         ("serve.detect", None), ("detector.detect", "serve.detect"),
         ("detector.preprocess", "detector.detect"),
         ("detector.forward", "detector.detect"),
+        ("detector.backbone", "detector.forward"),
+        ("detector.head0", "detector.forward"),
         ("detector.decode", "detector.detect"),
         ("detector.nms", "detector.detect")]
-    assert spans[6:8] == [("serve.step", None),
-                          ("tracker.step", "serve.step")]
-    assert [n for n, _ in spans[8:]] == STAGES
+    assert spans[8:10] == [("serve.step", None),
+                           ("tracker.step", "serve.step")]
+    assert [n for n, _ in spans[10:]] == STAGES
 
 
 def test_trace_writes_the_programs_spans(tmp_path):

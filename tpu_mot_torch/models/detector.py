@@ -21,6 +21,10 @@ from tpu_mot_torch.ops.nms import nms_classwise
 from tpu_mot_torch.tracker.bank import resolve_device
 from tpu_mot_torch.utils.profiling import span
 
+# Candidates decoded by decode_frames, B x sum of Hg x Wg x A a call (22,743
+# a frame for yolov3 at 608), read by tests and the benchmark's traced runs.
+candidates = 0
+
 
 def _resize(x: torch.Tensor, size: int) -> torch.Tensor:
     """Bilinear resize of [B, C, H, W] to size x size, antialiased where it
@@ -61,6 +65,7 @@ def decode_frames(model, frames: torch.Tensor, frame_hw: tuple):
     takes them -> (boxes [B, N, 4] cxcywh in FRAME pixels, scores [B, N],
     classes [B, N] int64) for the net `model` (models.yolo.build_model;
     its spec is model.spec)."""
+    global candidates
     _check_device(model, frames)
     spec = model.spec
     s = spec.input_size
@@ -74,6 +79,7 @@ def decode_frames(model, frames: torch.Tensor, frame_hw: tuple):
                  for head, anchors, stride in zip(heads, spec.anchors,
                                                    spec.strides)]
         boxes, scores, classes = (torch.cat(p, dim=1) for p in zip(*parts))
+        candidates += scores.numel()
         h, w = frame_hw
         scale = torch.tensor([w / s, h / s, w / s, h / s],
                              dtype=torch.float32, device=boxes.device)

@@ -35,6 +35,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_mot_torch.utils.profiling import span
+
+# Residual shortcut adds run by YoloV3 forwards (23 a forward), read by
+# tests and the benchmark's traced runs, as kernels/kcf counts launches.
+shortcuts = 0
+
 # Canonical anchor sets (pixels at the native 416x416 input), public YOLO
 # releases.
 YOLOV3_TINY_ANCHORS = (
@@ -323,15 +329,18 @@ class YoloV3Tiny(_YoloNet):
 
     def forward(self, x: torch.Tensor) -> tuple:
         b = self._blocks()
-        for _ in range(4):
-            x = _maxpool(next(b)(x))
-        route8 = x = next(b)(x)
-        x = _maxpool(next(b)(_maxpool(x)), stride=1)
-        x = next(b)(x)
-        route13 = next(b)(x)
-        y0 = self.head0(next(b)(route13))
-        u = _upsample2(next(b)(route13))
-        y1 = self.head1(next(b)(torch.cat([u, route8], dim=1)))
+        with span("detector.backbone"):
+            for _ in range(4):
+                x = _maxpool(next(b)(x))
+            route8 = x = next(b)(x)
+            x = _maxpool(next(b)(_maxpool(x)), stride=1)
+            x = next(b)(x)
+            route13 = next(b)(x)
+        with span("detector.head0"):
+            y0 = self.head0(next(b)(route13))
+        with span("detector.head1"):
+            u = _upsample2(next(b)(route13))
+            y1 = self.head1(next(b)(torch.cat([u, route8], dim=1)))
         return self._out(y0, y1)
 
 
@@ -347,12 +356,15 @@ class YoloV2Tiny(_YoloNet):
 
     def forward(self, x: torch.Tensor) -> tuple:
         b = self._blocks()
-        for _ in range(5):
-            x = _maxpool(next(b)(x))
-        x = _maxpool(next(b)(x), stride=1)
-        x = next(b)(x)
-        x = next(b)(x)
-        return self._out(self.head0(x))
+        with span("detector.backbone"):
+            for _ in range(5):
+                x = _maxpool(next(b)(x))
+            x = _maxpool(next(b)(x), stride=1)
+            x = next(b)(x)
+            x = next(b)(x)
+        with span("detector.head0"):
+            y0 = self.head0(x)
+        return self._out(y0)
 
 
 class YoloV2(_YoloNet):
@@ -377,16 +389,19 @@ class YoloV2(_YoloNet):
     def forward(self, x: torch.Tensor) -> tuple:
         b = self._blocks()
         route16 = None
-        for item in self._BODY:
-            if item is None:
-                x = _maxpool(x)
-            elif item == "route16":
-                route16 = x
-            else:
-                x = next(b)(x)
-        p = _reorg(next(b)(route16))
-        x = next(b)(torch.cat([p, x], dim=1))
-        return self._out(self.head0(x))
+        with span("detector.backbone"):
+            for item in self._BODY:
+                if item is None:
+                    x = _maxpool(x)
+                elif item == "route16":
+                    route16 = x
+                else:
+                    x = next(b)(x)
+        with span("detector.head0"):
+            p = _reorg(next(b)(route16))
+            x = next(b)(torch.cat([p, x], dim=1))
+            y0 = self.head0(x)
+        return self._out(y0)
 
 
 class YoloV3(_YoloNet):
@@ -412,25 +427,29 @@ class YoloV3(_YoloNet):
             self._head(f"head{head}", self._cb(f, 2 * f), head)
 
     def forward(self, x: torch.Tensor) -> tuple:
+        global shortcuts
         b = self._blocks()
-        x = next(b)(x)
         routes = []
-        for n_res in (1, 2, 8, 8, 4):
+        with span("detector.backbone"):
             x = next(b)(x)
-            for _ in range(n_res):
-                y = next(b)(x)
-                x = x + next(b)(y)
-            routes.append(x)
+            for n_res in (1, 2, 8, 8, 4):
+                x = next(b)(x)
+                for _ in range(n_res):
+                    y = next(b)(x)
+                    x = x + next(b)(y)
+                    shortcuts += 1
+                routes.append(x)
         route8, route16 = routes[2], routes[3]
         heads = []
         branch = x
         for head, route in enumerate((None, route16, route8)):
-            if route is not None:
-                branch = torch.cat([_upsample2(next(b)(branch)), route],
-                                   dim=1)
-            for _ in range(5):
-                branch = next(b)(branch)
-            heads.append(getattr(self, f"head{head}")(next(b)(branch)))
+            with span(f"detector.head{head}"):
+                if route is not None:
+                    branch = torch.cat([_upsample2(next(b)(branch)), route],
+                                       dim=1)
+                for _ in range(5):
+                    branch = next(b)(branch)
+                heads.append(getattr(self, f"head{head}")(next(b)(branch)))
         return self._out(*heads)
 
 

@@ -24,6 +24,13 @@ thread (one serving call is one request):
                          detector.forward     the net
                          detector.decode      heads -> boxes in frame pixels
                          detector.nms         class-wise NMS, padded output
+  models/yolo.py         detector.backbone    in detector.forward: the trunk
+                                              up to the heads' routes
+                                              (darknet-53 for yolov3)
+                         detector.head0..2    in detector.forward, one a
+                                              head: its upsample conv and
+                                              route concat, conv set,
+                                              pre-head conv, linear head
   tracker/step.py        tracker.step         step_streams (bank and output
                                               assembly in its self time)
                          tracker.frames       gray image or u8 pyramid
