@@ -21,7 +21,9 @@ against the tracker on the CPU: ids and valid exact, boxes 1e-3 (cuFFT
 and the kernels' own transforms against pocketfft); the detector's heads
 on the card against the CPU's within 1e-4 of the largest |head| (cuDNN
 with TF32 off against oneDNN), and NMS on the card equal index for index
-to NMS on the CPU fed the card's own candidates.
+to NMS on the CPU fed the card's own candidates; the ConvBlock epilogue
+(K7) bit for bit the chain it replaces, and the nets' heads bit for bit
+the chain's.
 """
 
 import numpy as np
@@ -35,6 +37,7 @@ from tpu_mot_torch.kernels import auction as t_auction
 from tpu_mot_torch.kernels import kcf as t_kcfk
 from tpu_mot_torch.kernels import roi as t_roi
 from tpu_mot_torch.models import detector as t_det
+from tpu_mot_torch.models import epilogue as t_epi
 from tpu_mot_torch.models import yolo as t_yolo
 from tpu_mot_torch.ops import assignment as t_assign
 from tpu_mot_torch.ops import iou as t_iou
@@ -1007,3 +1010,128 @@ def test_cli_mot_on_card(cuda, capsys):
     assert cli.main(args + ["--device", "cpu"]) == 0
     cpu = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert card["mota"] >= cpu["mota"] - 0.01
+
+
+# K7, the ConvBlock epilogue: every result compared as float32 words.
+EPILOGUE_SHAPES = [(2, 32, 64, 64), (2, 1024, 19, 19), (2, 255, 13, 13),
+                   (3, 1, 1, 1), (2, 3, 40, 33), (1, 64, 152, 152)]
+
+
+def _epilogue_inputs(dev, shape, skip, seed=0):
+    """y with negatives, +-0, values near float32's largest and NaN; mean,
+    mul = rsqrt(var + eps) * weight and bias per channel; skip or None."""
+    rng = np.random.default_rng(seed)
+    c = shape[1]
+    y = (rng.standard_normal(shape) * 3).astype(np.float32)
+    flat = y.reshape(-1)
+    k = rng.permutation(flat.size)[:min(flat.size, 10)]
+    flat[k] = np.array([0.0, -0.0, 3e38, -3e38, np.nan, 1e-40, -1e-40,
+                        np.inf, -np.inf, np.nan], np.float32)[:k.size]
+    mean, var, weight, bias = (torch.as_tensor(v, device=dev) for v in (
+        rng.standard_normal(c), rng.random(c), rng.standard_normal(c),
+        rng.standard_normal(c)))
+    mul = torch.rsqrt(var.float() + 1e-5) * weight.float()
+    s = (torch.as_tensor((rng.standard_normal(shape) * 2).astype(
+        np.float32), device=dev) if skip else None)
+    return (torch.as_tensor(y, device=dev), mean.float(), mul, bias.float(),
+            s)
+
+
+def _words(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["plain", "skip"])
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES, ids=str)
+def test_epilogue_kernel_equals_the_chain(cuda, shape, skip):
+    """K7 in place into y, one launch, bit for bit the chain on the card."""
+    y, mean, mul, bias, s = _epilogue_inputs(cuda, shape, skip)
+    want = t_epi.epilogue_ref(y, mean, mul, bias, s)
+    before = t_epi.launches
+    y2 = y.clone()
+    got = t_epi.fused(y2, mean, mul, bias, s)
+    torch.cuda.synchronize()
+    assert t_epi.launches == before + 1
+    assert got.data_ptr() == y2.data_ptr()
+    assert torch.equal(_words(got), _words(want))
+    assert t_epi.vector_path(y, s) == (shape[2] * shape[3] % 4 == 0)
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["plain", "skip"])
+def test_epilogue_kernel_takes_unaligned_tensors(cuda, skip):
+    """A plane that is a multiple of 4 at an address that is not 16-byte
+    aligned takes the scalar path, bit for bit the chain."""
+    shape = (2, 8, 16, 16)
+    y, mean, mul, bias, s = _epilogue_inputs(cuda, shape, skip, seed=1)
+    off = torch.empty(y.numel() + 1, device=cuda)[1:].view(shape)
+    off.copy_(y)
+    assert not t_epi.vector_path(off, s)
+    got = t_epi.fused(off, mean, mul, bias, s)
+    assert torch.equal(_words(got),
+                       _words(t_epi.epilogue_ref(y, mean, mul, bias, s)))
+
+
+@pytest.mark.parametrize("case", ["kernel", "train", "bfloat16", "float64",
+                                  "non_contiguous", "requires_grad"])
+def test_epilogue_route_on_card(cuda, case):
+    """A float32 eval block on the card launches K7; each other case, where
+    only the named condition differs, runs the chain (a chain block, no
+    launch)."""
+    blk = t_yolo.ConvBlock(4, 5, dtype="bfloat16" if case == "bfloat16"
+                           else "float32").to(cuda).eval()
+    x = torch.randn(2, 4, 8, 8, device=cuda)
+    if case == "float64":
+        blk, x = blk.double(), x.double()
+    if case == "non_contiguous":
+        x = x.contiguous(memory_format=torch.channels_last)
+    if case == "train":
+        blk.train()
+    before = (t_epi.launches, t_epi.chain_blocks)
+    with torch.set_grad_enabled(case == "requires_grad"):
+        blk(x)
+    torch.cuda.synchronize()
+    kernel = case == "kernel"
+    assert (t_epi.launches - before[0],
+            t_epi.chain_blocks - before[1]) == (int(kernel), int(not kernel))
+
+
+@pytest.mark.parametrize("name,bn_blocks", [("yolov3", 72),
+                                            ("yolov3-tiny", 11),
+                                            ("yolov2", 22),
+                                            ("yolov2-tiny", 8)])
+def test_yolo_heads_on_card_equal_the_chains(cuda, monkeypatch, name,
+                                             bn_blocks):
+    """A forward on the card launches K7 in every BatchNorm block and runs
+    no chain; its heads equal, bit for bit, the same forward with the chain
+    in every block."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    model = small_detector(name, cuda).model
+    x = torch.as_tensor(np.random.default_rng(2).random(
+        (2, 1, 64, 64)).astype(np.float32), device=cuda)
+    before = (t_epi.launches, t_epi.chain_blocks)
+    with torch.no_grad():
+        got = model(x)
+    assert (t_epi.launches - before[0],
+            t_epi.chain_blocks - before[1]) == (bn_blocks, 0)
+    monkeypatch.setattr(t_epi, "takes", lambda *a: False)
+    with torch.no_grad():
+        want = model(x)
+    for a, b in zip(want, got):
+        assert torch.equal(_words(b), _words(a))
+
+
+def test_epilogue_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    y, mean, mul, bias, s = _epilogue_inputs(cuda, (2, 4, 8, 8), True)
+    cases = [
+        (dict(mean=mean[:3]), "mean"),
+        (dict(mul=mul.double()), "mul"),
+        (dict(bias=bias.cpu()), "bias"),
+        (dict(y=y.transpose(2, 3)), "contiguous"),
+        (dict(skip=s[:1]), "one shape"),
+        (dict(y=y.clone().requires_grad_()), "gradient"),
+    ]
+    for change, match in cases:
+        kw = dict(dict(y=y.clone(), mean=mean, mul=mul, bias=bias, skip=s),
+                  **change)
+        with pytest.raises(ValueError, match=match):
+            t_epi.fused(**kw)

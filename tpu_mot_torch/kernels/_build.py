@@ -31,6 +31,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry point -> argument types (every pointer and the stream as void*).
 SIGNATURES = {
@@ -61,6 +62,7 @@ SIGNATURES = {
     "tpu_mot_kcf_train_shift_info": (_P,),
     "tpu_mot_kcf_train_shift": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _F, _F, _P),
+    "tpu_mot_epilogue": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
 }
 
 

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_mot_torch.models import epilogue
 from tpu_mot_torch.utils.profiling import span
 
 # Residual shortcut adds run by YoloV3 forwards (23 a forward), read by
@@ -182,6 +183,14 @@ class ConvBlock(nn.Module):
     its duration: sum_fn, a differentiable sum over the ranks, then turns
     the sums into the global batch's, so that the backward pass and the
     running statistics see the global values on every rank.
+
+    `skip`, the operand of a YOLOv3 shortcut, is added last (skip + out).
+    In eval mode, a block with BatchNorm and the activation whose conv
+    output `epilogue.takes` (a contiguous float32 CUDA tensor that needs no
+    gradient) runs BatchNorm, the activation and the add as one kernel in
+    place (models/epilogue.fused, K7: bit for bit the chain below); every
+    other BatchNorm block runs the chain and counts in
+    `epilogue.chain_blocks`.
     """
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
@@ -219,7 +228,8 @@ class ConvBlock(nn.Module):
             bn.num_batches_tracked.add_(1)
         return mean, var
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                skip: torch.Tensor | None = None) -> torch.Tensor:
         conv = self.conv
         w = conv.weight
         fold = x.shape[1] == 1 and w.shape[1] != 1
@@ -243,12 +253,15 @@ class ConvBlock(nn.Module):
             bn = self.bn
             mean, var = ((bn.running_mean, bn.running_var)
                          if not self.training else self._batch_stats(y))
-            c = (slice(None), None, None)
             mul = torch.rsqrt(var + bn.eps) * bn.weight
+            if self.act and not self.training and epilogue.takes(y, skip):
+                return epilogue.fused(y, mean, mul, bn.bias, skip)
+            epilogue.chain_blocks += 1
+            c = (slice(None), None, None)
             y = ((y - mean[c]) * mul[c] + bn.bias[c]).to(dt)
         if self.act:
             y = F.leaky_relu(y, 0.1)
-        return y
+        return y if skip is None else skip + y
 
 
 def _maxpool(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
@@ -436,7 +449,7 @@ class YoloV3(_YoloNet):
                 x = next(b)(x)
                 for _ in range(n_res):
                     y = next(b)(x)
-                    x = x + next(b)(y)
+                    x = next(b)(y, skip=x)
                     shortcuts += 1
                 routes.append(x)
         route8, route16 = routes[2], routes[3]
