@@ -952,6 +952,46 @@ def test_multi_stream_step_on_card_equals_single_steps(cuda, mode):
             assert (out.boxes[s] - o.boxes).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("mode", ["default", "HF"])
+def test_multi_stream_step_makes_no_host_sync(cuda, mode):
+    """After a first step (kernel builds, per-device constants) the
+    serving step queues its work without waiting for the card: no call
+    under torch's sync debug mode "error" synchronises.  (The warm-started
+    auction tests its loops on the host, so AW is left out.)"""
+    h, w, n_str, n = 240, 320, 3, 4
+    frames, d, v = [], [], []
+    for s in range(n_str):
+        rng = np.random.default_rng(30 + s)
+        objs = synthetic.make_objects(8, h, w, rng, max_speed=2.0)
+        fr, boxes, vis = synthetic.render_sequence(objs, n, h, w, seed=s)
+        dl = synthetic.detections_from_gt(boxes, vis, seed=s,
+                                          frame_hw=(h, w))
+        pads = [t_api.pad_detections(dl[f], 16, width=5) for f in range(n)]
+        frames.append((fr * 255).astype(np.uint8))
+        d.append(np.stack([p[0] for p in pads]))
+        v.append(np.stack([p[1] for p in pads]))
+    frames, d, v = (torch.as_tensor(np.stack(x), device=cuda)
+                    for x in (frames, d, v))
+    cfg = TrackerConfig(max_tracks=32, max_detections=16, frame_height=h,
+                        frame_width=w)
+    if mode == "HF":
+        cfg = cfg.replace(kcf=KCFConfig(feature_type="hog", cell_size=4,
+                                        scale_step=1.05),
+                          kcf_impl="pallas", train_site="refined")
+    banks = t_serve.make_stream_banks(n_str, cfg, device=cuda)
+    banks, _ = t_serve.multi_stream_step(banks, frames[:, 0], d[:, 0],
+                                         v[:, 0], cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in range(1, n):
+            banks, out = t_serve.multi_stream_step(banks, frames[:, f],
+                                                   d[:, f], v[:, f], cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(out.n_alive.sum()) > 0
+
+
 def test_train_step_on_card_matches_cpu(cuda):
     """One train step of yolov2-tiny (64 px, 3 classes, momentum 0.9) on
     the card against the same step on the CPU from the same weights: the

@@ -96,7 +96,7 @@ def test_fused_roundtrip_tracks_shift():
     shifted = np.roll(np.roll(patch, 3, axis=0), -2, axis=1)
     resp = t_fused.detect_fused(model, torch.as_tensor(shifted[None, None]),
                                 0.2)
-    dy, dx, peak = t_kcf.peak_displacement(resp)
+    dy, dx, peak, _ = t_kcf.peak_displacement(resp)
     assert abs(float(dy[0]) - 3) < 0.5, float(dy[0])
     assert abs(float(dx[0]) + 2) < 0.5, float(dx[0])
     assert float(peak[0]) > 0.5
@@ -104,18 +104,71 @@ def test_fused_roundtrip_tracks_shift():
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
 def test_detect_scales_auto_matches_jax(impl):
-    """detect_scales_auto over [3, T]: scale-major items against one bank
-    (the fused path reads model row item % T, JAX tiles the model)."""
+    """search's responses over [3, T] against JAX's detect_scales_auto:
+    scale-major items against one bank (the fused path reads model row
+    item % T, JAX tiles the model)."""
     rng = np.random.default_rng(5)
     c, s, t = 31, 16, 4
     jm, tm, _ = _models(rng, t, c, s)
     feat = rng.standard_normal((3, t, c, s, s)).astype(np.float32) * 0.3
     want = np.asarray(j_kcf.detect_scales_auto(jm, jnp.asarray(feat), 0.2,
                                                impl=impl))
-    got = t_kcf.detect_scales_auto(tm, torch.as_tensor(feat), 0.2,
-                                   impl=impl).numpy()
+    got = t_kcf.search(tm, torch.as_tensor(feat), 0.2, torch.ones(3),
+                       impl=impl).response.numpy()
     assert got.shape == (3, t, s, s)
     np.testing.assert_allclose(got, want, **RESP)
+
+
+def _jax_search(jm, feat, wts, impl):
+    """JAX's own composition of the scale search: detect_scales_auto,
+    peak_displacement over the [K*T] responses, the weighted argmax over
+    the scales, and the PSR of the unit-scale response."""
+    k, t = feat.shape[:2]
+    resp = j_kcf.detect_scales_auto(jm, jnp.asarray(feat), 0.2, impl=impl)
+    dys, dxs, peaks = (x.reshape(k, t) for x in j_kcf.peak_displacement(
+        resp.reshape((k * t,) + resp.shape[2:])))
+    best = jnp.argmax(peaks * jnp.asarray(wts)[:, None], axis=0)
+    pick = lambda x: jnp.take_along_axis(x, best[None], axis=0)[0]
+    unit = k // 2
+    psr = j_kcf.psr(resp[unit], peaks[unit])
+    return [np.asarray(x) for x in (pick(dys), pick(dxs), pick(peaks), best,
+                                    resp, psr)]
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_search_matches_jax_composition(k, impl):
+    """ops/kcf.search at K = 1 (unit scale) and K = 3 on the CPU against
+    the JAX package's composition on the same inputs; "pallas" runs K4's
+    plain version and returns no spectra, the chain returns its own."""
+    rng = np.random.default_rng(20 + k)
+    c, s, t = 3, 16, 6
+    jm, tm, _ = _models(rng, t, c, s)
+    feat = rng.standard_normal((k, t, c, s, s)).astype(np.float32) * 0.3
+    vals, _, wts = t_kcf.search_scales(1.0 if k == 1 else 1.05, 0.95, "cpu")
+    assert len(vals) == k
+    dy, dx, peak, best, resp, psr = _jax_search(jm, feat, wts.numpy(), impl)
+    tfeat = torch.as_tensor(feat)
+    got = t_kcf.search(tm, tfeat, 0.2, wts, impl=impl)
+    np.testing.assert_allclose(got.response.numpy(), resp, **RESP)
+    np.testing.assert_array_equal(got.best.numpy(), best)
+    np.testing.assert_array_equal(
+        got.idx.numpy(), resp.reshape(k, t, -1).argmax(axis=-1))
+    np.testing.assert_allclose(got.peak.numpy(), peak, **RESP)
+    for g, w in ((got.dy, dy), (got.dx, dx)):
+        np.testing.assert_allclose(g.numpy(), w, **RESP)
+    unit = k // 2
+    np.testing.assert_allclose(
+        t_kcf.psr(got.response[unit], got.peaks[unit],
+                  got.idx[unit]).numpy(), psr, **RESP)
+    if impl == "pallas":
+        assert got.zf is None
+        assert torch.equal(got.response.reshape(k * t, s, s),
+                           t_fused.detect_fused_ref(
+                               tm, tfeat.reshape(k * t, c, s, s), 0.2))
+    else:
+        assert torch.equal(got.zf, torch.fft.rfft2(tfeat))
+        assert torch.equal(got.response, t_kcf.detect(tm, tfeat, 0.2))
 
 
 def test_dispatch_and_cpu_wrappers_launch_nothing():
@@ -125,11 +178,14 @@ def test_dispatch_and_cpu_wrappers_launch_nothing():
     feat = torch.as_tensor(
         rng.standard_normal((4, 3, 16, 16)).astype(np.float32) * 0.3)
     counts = (t_fused.launches_detect, t_fused.launches_train)
-    assert t_kcf._resolve_impl("auto") == "xla"
-    assert torch.equal(t_kcf.detect_auto(tm, feat[:2], 0.2, "pallas"),
-                       t_fused.detect_fused_ref(tm, feat[:2], 0.2))
-    assert torch.equal(t_kcf.detect_auto(tm, feat[:2], 0.2, "auto"),
-                       t_kcf.detect(tm, feat[:2], 0.2))
+    ones = torch.ones(1)
+    assert torch.equal(
+        t_kcf.search(tm, feat[None, :2], 0.2, ones, "pallas").response[0],
+        t_fused.detect_fused_ref(tm, feat[:2], 0.2))
+    # "auto" resolves to the FFT chain, as in the JAX package
+    assert torch.equal(
+        t_kcf.search(tm, feat[None, :2], 0.2, ones, "auto").response[0],
+        t_kcf.detect(tm, feat[:2], 0.2))
     lr = torch.tensor([0.5, 1.0])
     for impl in ("pallas", "auto"):
         got = t_kcf.train_blend_auto(tm, feat[:2], tyf, 0.2, 1e-4, lr, impl)

@@ -346,8 +346,11 @@ def test_peak_displacement_and_psr():
     want = [np.asarray(x) for x in j_kcf.peak_displacement(jnp.asarray(r))]
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, **LEAF)
+    # the peak's flat index: the first maximum (row 3's tie), as psr takes it
+    np.testing.assert_array_equal(got[3], r.reshape(6, -1).argmax(axis=1))
+    assert got[3][3] == 30 * 64 + 30
     np.testing.assert_allclose(
-        t_kcf.psr(_t(r), _t(want[2])).numpy(),
+        t_kcf.psr(_t(r), _t(want[2]), _t(got[3])).numpy(),
         np.asarray(j_kcf.psr(jnp.asarray(r), jnp.asarray(want[2]))),
         **LEAF)
 

@@ -136,44 +136,80 @@ def detect(model: KCFModel, feat: torch.Tensor, sigma: float
                                 feat.shape[-1])
 
 
-def _resolve_impl(impl: str) -> str:
-    """"auto" resolves to the FFT chain ("xla"), as in the JAX package;
-    "pallas" selects the fused kernels K4/K5."""
-    return "xla" if impl == "auto" else impl
+class Search(NamedTuple):
+    """What `search` found: the chosen scale's displacement and raw peak,
+    and what the tracker reads beside them."""
+    dy: torch.Tensor         # [R] template pixels, at the chosen scale
+    dx: torch.Tensor         # [R]
+    peak: torch.Tensor       # [R] raw peak of the chosen scale
+    best: torch.Tensor       # [R] int64 chosen scale index
+    response: torch.Tensor   # [K, R, S, S]
+    peaks: torch.Tensor      # [K, R] each response's peak value
+    idx: torch.Tensor        # [K, R] int64 each response's first-max index
+    zf: torch.Tensor | None  # [K, R, C, S, Sf] spectra; None when K4 ran
 
 
-def detect_auto(model: KCFModel, feat: torch.Tensor, sigma: float,
-                impl: str = "auto") -> torch.Tensor:
-    """detect() with implementation dispatch: "pallas" = the fused kernel
-    wrapper (kernels/kcf.detect_fused: K4 on the card, its plain version on
-    the CPU), "xla"/"auto" = the FFT chain here."""
-    if _resolve_impl(impl) == "pallas":
+@functools.lru_cache(maxsize=None)
+def search_scales(scale_step: float, scale_weight: float, device: str
+                  ) -> tuple[tuple, torch.Tensor, torch.Tensor]:
+    """The scale search's scales as Python floats, then as float32 [K]
+    tensors the scale values and their hysteresis weights, built once per
+    device: K = 1 ((1.0,) with weight 1.0) at scale_step 1.0, else the
+    3-scale search (1/step, 1, step) with weights (weight, 1, weight).
+    Cached: treat the tensors as read-only."""
+    if scale_step == 1.0:
+        vals, wts = (1.0,), (1.0,)
+    else:
+        vals = (1.0 / scale_step, 1.0, scale_step)
+        wts = (scale_weight, 1.0, scale_weight)
+    return (vals, torch.tensor(vals, dtype=torch.float32).to(device),
+            torch.tensor(wts, dtype=torch.float32).to(device))
+
+
+def search(model: KCFModel, feats: torch.Tensor, sigma: float,
+           scale_wts: torch.Tensor, impl: str = "auto") -> Search:
+    """Correlate ONE model bank [R] against features [K, R, C, S, S] at K
+    scales (scale-major) and keep, per row, the scale of the best peak
+    weighted by `scale_wts` [K] (hysteresis: the first of equal weighted
+    peaks wins).  K = 1 with weight 1.0 is the unit-scale detect: the
+    selection is then the identity, bit for bit.
+
+    impl is TrackerConfig.kcf_impl, which the step passes on here:
+
+      "auto"    the torch.fft chain here (its spectra are returned, and
+                detect-site training reuses them), except detect-site
+                training of a gray 64 x 64 bank on the card, which is K6
+                (`train_shift_on_kernel` decides by the input)
+      "xla"     the torch.fft chain everywhere
+      "pallas"  the fused kernel wrappers, on the CPU their plain versions:
+                K4 for this search (kernels/kcf.detect_fused on the [K*R]
+                items, item k*R + r against model row r), K5 for
+                refined-site training (`train_blend_auto`), and K6 where
+                "auto" takes it"""
+    k, r = feats.shape[:2]
+    if impl == "pallas":
         from tpu_mot_torch.kernels import kcf as kcf_kernels
-        return kcf_kernels.detect_fused(model, feat, sigma)
-    return detect(model, feat, sigma)
-
-
-def detect_scales_auto(model: KCFModel, feat: torch.Tensor, sigma: float,
-                       impl: str = "auto") -> torch.Tensor:
-    """Multi-scale detect: ONE model bank against K feature banks, feat
-    [K, T, C, S, S] -> responses [K, T, S, S].  The fused kernel takes the
-    scales folded scale-major into its item axis (item k*T + t reads model
-    row t); the FFT chain broadcasts the model over the scale axis."""
-    if _resolve_impl(impl) == "pallas":
-        from tpu_mot_torch.kernels import kcf as kcf_kernels
-        k, t = feat.shape[:2]
         flat = kcf_kernels.detect_fused(
-            model, feat.reshape((k * t,) + feat.shape[2:]), sigma)
-        return flat.reshape((k, t) + flat.shape[1:])
-    return detect(model, feat, sigma)
+            model, feats.reshape((k * r,) + feats.shape[2:]), sigma)
+        response = flat.reshape((k, r) + flat.shape[1:])
+        zf = None
+    else:
+        zf = fft_ops.rfft2(feats)
+        response = detect_from_spectrum(model, zf, sigma, feats.shape[-1])
+    dys, dxs, peaks, idx = peak_displacement(response)           # [K, R]
+    best = torch.argmax(peaks * scale_wts[:, None], dim=0)[None]  # [1, R]
+    return Search(dy=dys.gather(0, best)[0], dx=dxs.gather(0, best)[0],
+                  peak=peaks.gather(0, best)[0], best=best[0],
+                  response=response, peaks=peaks, idx=idx, zf=zf)
 
 
 def train_blend_auto(model: KCFModel, feat: torch.Tensor, yf: torch.Tensor,
                      sigma: float, lambda_: float, lr: torch.Tensor,
                      impl: str = "auto") -> KCFModel:
-    """blend(model, train(feat), lr) with implementation dispatch (same
-    convention as detect_auto; "pallas" = kernels/kcf.train_fused)."""
-    if _resolve_impl(impl) == "pallas":
+    """blend(model, train(feat), lr) with implementation dispatch by
+    kcf_impl, as in `search`: "pallas" = kernels/kcf.train_fused (K5 on
+    the card), "auto"/"xla" = the FFT chain here."""
+    if impl == "pallas":
         from tpu_mot_torch.kernels import kcf as kcf_kernels
         return kcf_kernels.train_fused(model, feat, yf, sigma, lambda_, lr)
     return blend(model, train(feat, yf, sigma, lambda_), lr)
@@ -209,11 +245,12 @@ def train_shift_blend_auto(model: KCFModel, zf: torch.Tensor,
 
 
 def peak_displacement(response: torch.Tensor
-                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
     """Response peak with a parabolic sub-pixel fit per axis, clipped to
-    half a pixel: [..., T, S, S] -> (dy, dx, peak), each [..., T], in
-    template pixels relative to the patch center.  The argmax takes the
-    first maximum, as jnp.argmax does."""
+    half a pixel: [..., T, S, S] -> (dy, dx, peak, idx), each [..., T], in
+    template pixels relative to the patch center; idx is the flat index of
+    the peak, the first maximum, as jnp.argmax takes it."""
     lead = response.shape[:-2]
     s = response.shape[-1]
     flat = response.reshape(-1, s * s)
@@ -239,19 +276,20 @@ def peak_displacement(response: torch.Tensor
     rx = flat[rows, py * s + torch.clamp_max(px + 1, s - 1)]
     dy = py.to(torch.float32) + subpixel(py, ly, ry) - (s // 2)
     dx = px.to(torch.float32) + subpixel(px, lx, rx) - (s // 2)
-    return dy.reshape(lead), dx.reshape(lead), peak.reshape(lead)
+    return (dy.reshape(lead), dx.reshape(lead), peak.reshape(lead),
+            idx.reshape(lead))
 
 
-def psr(response: torch.Tensor, peak: torch.Tensor,
+def psr(response: torch.Tensor, peak: torch.Tensor, idx: torch.Tensor,
         exclude: int = 5) -> torch.Tensor:
     """Peak-to-sidelobe ratio (peak - mean_sidelobe) / std_sidelobe with an
     exclusion window of `exclude` pixels around the peak: response
-    [..., T, S, S], peak [..., T] -> [..., T]."""
+    [..., T, S, S], peak [..., T] and its flat index idx [..., T] (from
+    `peak_displacement`) -> [..., T]."""
     lead = response.shape[:-2]
     sz = response.shape[-1]
     response = response.reshape(-1, sz, sz)
-    flat = response.reshape(-1, sz * sz)
-    idx = torch.argmax(flat, dim=1)
+    idx = idx.reshape(-1)
     py = (idx // sz).to(torch.float32)
     px = (idx % sz).to(torch.float32)
     iota = torch.arange(sz, dtype=torch.float32, device=response.device)

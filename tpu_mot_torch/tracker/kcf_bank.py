@@ -74,32 +74,16 @@ def detect_bank(bank: KCFBank, frame_gray: torch.Tensor, cfg: KCFConfig,
     """
     s = cfg.feature_size
     t_cap = bank.boxes.shape[0]
-    dev = bank.boxes.device
-
-    if cfg.scale_step == 1.0:
-        feats_unit = _features_at(frame_gray, bank.boxes, cfg)
-        resp = kcf_ops.detect(bank.model, feats_unit, cfg.kernel_sigma)
-        dy, dx, peak = kcf_ops.peak_displacement(resp)
-        best_scale = torch.ones_like(peak)
-    else:
-        step_ = cfg.scale_step
-        scale_vals = torch.tensor([1.0 / step_, 1.0, step_],
-                                  dtype=torch.float32, device=dev)
-        f3 = _features_at(frame_gray, bank.boxes.repeat(3, 1), cfg,
-                          scale_vals.repeat_interleave(t_cap))     # [3T]
-        f3 = f3.reshape((3, t_cap) + f3.shape[1:])       # [3, T, C, S, S]
-        feats_unit = f3[1]
-        r3 = kcf_ops.detect(bank.model, f3, cfg.kernel_sigma)
-        dys, dxs, peaks = (x.reshape(3, t_cap) for x in
-                           kcf_ops.peak_displacement(
-                               r3.reshape(3 * t_cap, s, s)))
-        wts = torch.tensor([cfg.scale_weight, 1.0, cfg.scale_weight],
-                           dtype=torch.float32, device=dev)[:, None]
-        best = torch.argmax(peaks * wts, dim=0)[None]              # [1, T]
-        dy = dys.gather(0, best)[0]
-        dx = dxs.gather(0, best)[0]
-        peak = peaks.gather(0, best)[0]
-        best_scale = scale_vals[best[0]]
+    scales, scale_vals, wts = kcf_ops.search_scales(
+        cfg.scale_step, cfg.scale_weight, str(bank.boxes.device))
+    k = len(scales)
+    feats = _features_at(frame_gray, bank.boxes.repeat(k, 1), cfg,
+                         None if k == 1 else
+                         scale_vals.repeat_interleave(t_cap))      # [KT]
+    feats = feats.reshape((k, t_cap) + feats.shape[1:])  # [K, T, C, S, S]
+    found = kcf_ops.search(bank.model, feats, cfg.kernel_sigma, wts)
+    dy, dx, peak = found.dy, found.dx, found.peak
+    best_scale = scale_vals[found.best]
 
     cx, cy, w, h = bank.boxes.unbind(1)
     w = w * best_scale
@@ -110,7 +94,7 @@ def detect_bank(bank: KCFBank, frame_gray: torch.Tensor, cfg: KCFConfig,
     new_boxes = torch.where(bank.alive[:, None],
                             torch.stack([cx, cy, w, h], dim=1), bank.boxes)
     if with_aux:
-        return new_boxes, peak, (feats_unit, dy, dx)
+        return new_boxes, peak, (feats[k // 2], dy, dx)
     return new_boxes, peak
 
 

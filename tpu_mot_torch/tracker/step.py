@@ -2,10 +2,10 @@
 
   1. Kalman predict (batched)
   2. KCF detect at the predicted ROIs with the PSR gate -> refined boxes:
-     gray or fHOG-31 features; unit scale, or the 3-scale search (scales
-     folded scale-major into the track axis, hysteresis-weighted best peak,
-     PSR of the unit-scale response).  Under detect-site training a slot's
-     first post-birth frame gets no KCF refinement.
+     gray or fHOG-31 features at one scale or three (ops/kcf.search: the
+     scales folded scale-major beside the track axis, hysteresis-weighted
+     best peak; PSR of the unit-scale response).  Under detect-site
+     training a slot's first post-birth frame gets no KCF refinement.
   3. Cost: IoU (of the "refined" or "predicted" box, or the better of the
      two under assoc_box="best"), blended with the appearance term (each
      track's response read at each detection's place) when
@@ -32,10 +32,11 @@ parallel/serve.py): every bank field gains a leading [S] and the
 per-track math runs on [S*T] rows; `step` is that body at S = 1.
 Under a torch.profiler capture the step is the span `tracker.step` and
 each numbered stage a span inside it (utils/profiling.py lists them).
-Scatters with JAX's mode="drop" write into one extra dump slot per stream
-that is sliced off.
+Scatters with JAX's mode="drop" write into one extra dump column per
+stream that is sliced off.
 
-How the port reads the TrackerConfig impl knobs:
+How the step reads the TrackerConfig impl knobs (kcf_impl is passed on to
+ops/kcf, whose `search` documents it):
 
   roi_impl    "auto"    pyramid + the CUDA ROI kernels (K1; K3 for the
                         3-scale search) for a CUDA frame, the gather path on
@@ -52,15 +53,6 @@ How the port reads the TrackerConfig impl knobs:
                         assign_impl says (it bypasses the kernel in JAX
                         too); a bank whose carry is not [max(T, D)] falls
                         back to the cold solve
-  kcf_impl    "auto"    the torch.fft chain, except stage 8 under
-                        train_site="detect" on the card for a gray 64 x 64
-                        bank (C = 1, S = 64): K6 (ops/kcf.
-                        train_shift_blend_auto decides by the input)
-              "xla"     the torch.fft chain everywhere
-              "pallas"  the fused KCF kernel wrappers: K4 for detect and,
-                        under train_site="refined", K5 for train + blend (on
-                        the CPU their plain versions); under
-                        train_site="detect", K6 where "auto" takes it
   kcf_precision, kcf_block, scan_unroll: ignored (TPU-only; fp32 here)
 """
 
@@ -108,16 +100,31 @@ def _roi_kernel_path(cfg: TrackerConfig, frame: torch.Tensor) -> bool:
     return cfg.roi_impl == "pallas" or frame.is_cuda
 
 
-def _features_at(gray, boxes, cfg: TrackerConfig, levels, frame_hw,
-                 scales=None, frame=None) -> torch.Tensor:
-    """Features [N, C, F, F] of the windows at `boxes`: through the pyramid
-    and the ROI kernel wrapper when `levels` is given (stream-major boxes,
-    N/S a frame), else the gather path (box n in frame `frame[n]`)."""
-    patches = patch_ops.extract_patches_auto(
-        gray, boxes, cfg.kcf.padding, cfg.kcf.template_size, scales=scales,
-        impl="xla" if levels is None else "pallas", levels=levels,
-        frame_hw=frame_hw, frame=frame)
-    return feat_ops.extract_features(patches, cfg.kcf)
+def _features_at(gray, boxes, cfg: TrackerConfig, levels, frame_hw, frame,
+                 scales=(1.0,), scale_vals=None) -> torch.Tensor:
+    """Features [K, N, C, F, F] of the windows at `boxes` [N, 4] at the K
+    `scales` (scale-major): through the pyramid and the ROI kernel wrappers
+    when `levels` is given (stream-major boxes, N/S a frame; K1 at unit
+    scale, else K3, one block per box for all K), else the gather path (box
+    n in frame `frame[n]`, the scales from `scale_vals` [K])."""
+    k, n = len(scales), boxes.shape[0]
+    if k == 1:
+        patches = patch_ops.extract_patches_auto(
+            gray, boxes, cfg.kcf.padding, cfg.kcf.template_size,
+            impl="xla" if levels is None else "pallas", levels=levels,
+            frame_hw=frame_hw, frame=frame)
+    elif levels is not None:
+        patches = roi.extract_patches_scales(
+            gray, boxes, cfg.kcf.padding, cfg.kcf.template_size, scales,
+            levels=levels, frame_hw=frame_hw)
+    else:
+        patches = patch_ops.extract_patches_auto(
+            gray, boxes.repeat(k, 1), cfg.kcf.padding, cfg.kcf.template_size,
+            scales=scale_vals.repeat_interleave(n), impl="xla",
+            frame=frame.repeat(k))
+    feats = feat_ops.extract_features(
+        patches.reshape((k * n,) + patches.shape[-2:]), cfg.kcf)
+    return feats.reshape((k, n) + feats.shape[1:])
 
 
 def _sample_response(response: torch.Tensor, centers: torch.Tensor,
@@ -149,30 +156,14 @@ def _sample_response(response: torch.Tensor, centers: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _scale_consts(scale_step: float, scale_weight: float, device: str):
-    """The 3-scale search's scale values (1/step, 1, step) and hysteresis
-    weights as float32 tensors, built once per device."""
-    vals = torch.tensor([1.0 / scale_step, 1.0, scale_step],
-                        dtype=torch.float32)
-    wts = torch.tensor([scale_weight, 1.0, scale_weight],
-                       dtype=torch.float32)[:, None]
-    return vals.to(device), wts.to(device)
-
-
-@functools.lru_cache(maxsize=None)
 def _stream_consts(n_str: int, t_cap: int, n_det: int, device: str):
     """Per-stream index tensors, built once per shape and device: each
-    track row's stream [S*T] (the gather path's frame index), the offsets
-    of each stream's block in the flattened [S*(T+1)] and [S*(D+1)]
-    dump-slot scatters, and the slot and detection indices of every
-    stream [S*T], [S*D]."""
-    streams = torch.arange(n_str)
+    track row's stream [S*T] (the gather path's frame index), and the slot
+    and detection indices of every stream [S, T], [S, D]."""
     return tuple(x.to(device) for x in (
-        streams.repeat_interleave(t_cap),
-        streams[:, None] * (t_cap + 1),
-        streams[:, None] * (n_det + 1),
-        torch.arange(t_cap).repeat(n_str),
-        torch.arange(n_det).repeat(n_str)))
+        torch.arange(n_str).repeat_interleave(t_cap),
+        torch.arange(t_cap).repeat(n_str, 1),
+        torch.arange(n_det).repeat(n_str, 1)))
 
 
 def step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
@@ -210,8 +201,8 @@ def _step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
     s = cfg.kcf.feature_size
     dev = frames.device
     frame_hw = tuple(frames.shape[1:3])
-    (row_stream, off_t, off_d, slot_iota,
-     det_iota) = _stream_consts(n_str, t_cap, n_det, str(dev))
+    row_stream, slot_iota, det_iota = _stream_consts(n_str, t_cap, n_det,
+                                                     str(dev))
     with span("tracker.frames"):
         if _roi_kernel_path(cfg, frames):
             # The level shapes and block-origin clamps come from the
@@ -252,70 +243,27 @@ def _step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
 
     # ---- 2. KCF detect at predicted ROIs ----------------------------
     with span("tracker.kcf_detect"):
-        use_fft_kcf = kcf_ops._resolve_impl(cfg.kcf_impl) == "xla"
-        zf_div = None          # the unit-scale spectrum, reused by step 8
         if cfg.use_kcf:
-            sigma = cfg.kcf.kernel_sigma
-            wh = pred_boxes[:, 2:4]                    # best-scale box size
-            if cfg.kcf.scale_step == 1.0:
-                feats_unit = _features_at(gray, pred_boxes, cfg, levels,
-                                          frame_hw, frame=row_stream)
-                if use_fft_kcf:
-                    zf_div = fft_ops.rfft2(feats_unit)
-                    response = kcf_ops.detect_from_spectrum(
-                        kcf_rows, zf_div, sigma, s)
-                else:
-                    response = kcf_ops.detect_auto(kcf_rows, feats_unit,
-                                                   sigma, cfg.kcf_impl)
-                dy, dx, peak = kcf_ops.peak_displacement(response)
-                if cfg.confidence_mode == "psr":
-                    peak = kcf_ops.psr(response, peak)
-            else:
-                # The 3-scale search at 1/step, 1, step: the scales fold
-                # into the track axis scale-major ([3, S*T]), and each track
-                # keeps its hysteresis-weighted best peak.
-                sstep = cfg.kcf.scale_step
-                scale_vals, scale_wts = _scale_consts(
-                    sstep, cfg.kcf.scale_weight, str(dev))
-                if levels is not None:
-                    # One block per track feeds the three resamples (K3).
-                    p3 = roi.extract_patches_scales(
-                        gray, pred_boxes, cfg.kcf.padding,
-                        cfg.kcf.template_size, (1.0 / sstep, 1.0, sstep),
-                        levels=levels, frame_hw=frame_hw)
-                    f3 = feat_ops.extract_features(
-                        p3.reshape((3 * rows,) + p3.shape[2:]), cfg.kcf)
-                else:
-                    f3 = _features_at(
-                        gray, pred_boxes.repeat(3, 1), cfg, None, frame_hw,
-                        scales=scale_vals.repeat_interleave(rows),
-                        frame=row_stream.repeat(3))
-                f3 = f3.reshape((3, rows) + f3.shape[1:])  # [3, S*T, C, F, F]
-                feats_unit = f3[1]
-                if use_fft_kcf:
-                    zf3 = fft_ops.rfft2(f3)
-                    r3 = kcf_ops.detect_from_spectrum(kcf_rows, zf3, sigma,
-                                                      s)
-                    zf_div = zf3[1]
-                else:
-                    r3 = kcf_ops.detect_scales_auto(
-                        kcf_rows, f3, sigma, cfg.kcf_impl)  # [3, S*T, S, S]
-                response = r3[1]
-                dys, dxs, peaks = kcf_ops.peak_displacement(r3)  # [3, S*T]
-                best = torch.argmax(peaks * scale_wts,
-                                    dim=0)[None]                 # [1, S*T]
-                dy = dys.gather(0, best)[0]
-                dx = dxs.gather(0, best)[0]
-                peak = peaks.gather(0, best)[0]
-                wh = wh * scale_vals[best[0]][:, None]
-                if cfg.confidence_mode == "psr":
-                    # PSR of the unit-scale response (the scale choice
-                    # itself reads the raw weighted peaks).
-                    peak = kcf_ops.psr(
-                        response, response.reshape(rows, -1).amax(dim=1))
+            # K = 1 scale, or the 3-scale search at 1/step, 1, step; the
+            # unit scale is at K // 2.
+            scales, scale_vals, scale_wts = kcf_ops.search_scales(
+                cfg.kcf.scale_step, cfg.kcf.scale_weight, str(dev))
+            unit = len(scales) // 2
+            feats = _features_at(gray, pred_boxes, cfg, levels, frame_hw,
+                                 row_stream, scales, scale_vals)
+            found = kcf_ops.search(kcf_rows, feats, cfg.kcf.kernel_sigma,
+                                   scale_wts, cfg.kcf_impl)
+            response = found.response[unit]                     # [S*T, S, S]
+            peak = found.peak
+            if cfg.confidence_mode == "psr":
+                # PSR of the unit-scale response (the scale choice itself
+                # reads the raw weighted peaks).
+                peak = kcf_ops.psr(response, found.peaks[unit],
+                                   found.idx[unit])
+            wh = pred_boxes[:, 2:4] * scale_vals[found.best][:, None]
             win = wh * cfg.kcf.padding                           # [S*T, 2]
             kcf_cxy = (pred_boxes[:, :2]
-                       + torch.stack([dx, dy], dim=1) * win / s)
+                       + torch.stack([found.dx, found.dy], dim=1) * win / s)
             # Trust the correlation only for live slots with a solid peak
             # and an in-frame box (a fully clamped patch self-correlates at
             # ~1).
@@ -382,13 +330,11 @@ def _step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
         is_matched = matched_det >= 0                                # [S, T]
         det_idx = matched_det.long().clamp(0, n_det - 1)
         # Scatters with JAX's mode="drop" write the dropped entries into
-        # one dump slot per stream of the flattened [S*(D+1)] (here) and
-        # [S*(T+1)] (births) buffers, sliced off after.
-        det_taken = torch.zeros((n_str * (n_det + 1),), dtype=torch.bool,
-                                device=dev)
-        det_taken[(torch.where(is_matched, matched_det.long(), n_det)
-                   + off_d).reshape(-1)] = True
-        det_taken = det_taken.reshape(n_str, n_det + 1)[:, :n_det]
+        # one dump column of each stream's row, sliced off after.
+        det_taken = torch.zeros((n_str, n_det + 1), dtype=torch.bool,
+                                device=dev).scatter_(
+            1, torch.where(is_matched, matched_det.long(), n_det),
+            True)[:, :n_det]
 
     def det_rows(x, idx):
         """Per-stream detection field x [S, D(, k)] at idx [S, T]."""
@@ -423,11 +369,10 @@ def _step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
         # Births: unmatched valid detections -> lowest-index empty slots.
         empty_slots = state == EMPTY
         free_rank = torch.cumsum(empty_slots.long(), -1) - 1         # [S, T]
-        slot_of_rank = torch.full((n_str * (t_cap + 1),), t_cap,
-                                  dtype=torch.long, device=dev)
-        slot_of_rank[(torch.where(empty_slots, free_rank, t_cap)
-                      + off_t).reshape(-1)] = slot_iota
-        slot_of_rank = slot_of_rank.reshape(n_str, t_cap + 1)[:, :t_cap]
+        slot_of_rank = torch.full((n_str, t_cap + 1), t_cap,
+                                  dtype=torch.long, device=dev).scatter_(
+            1, torch.where(empty_slots, free_rank, t_cap),
+            slot_iota)[:, :t_cap]
         new_det = det_valid & ~det_taken
         birth_rank = torch.cumsum(new_det.long(), -1) - 1            # [S, D]
         n_free = empty_slots.long().sum(dim=-1, keepdim=True)
@@ -436,11 +381,9 @@ def _step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
             can_birth,
             slot_of_rank.gather(1, birth_rank.clamp(0, t_cap - 1)),
             t_cap)                                                   # [S, D]
-        slot_birth_det = torch.full((n_str * (t_cap + 1),), -1,
-                                    dtype=torch.long, device=dev)
-        slot_birth_det[(birth_slot + off_t).reshape(-1)] = det_iota
-        slot_birth_det = slot_birth_det.reshape(n_str,
-                                                t_cap + 1)[:, :t_cap]
+        slot_birth_det = torch.full((n_str, t_cap + 1), -1,
+                                    dtype=torch.long, device=dev).scatter_(
+            1, birth_slot, det_iota)[:, :t_cap]
         is_birth = slot_birth_det >= 0                               # [S, T]
         n_births = is_birth.sum(dim=-1).to(i32)
         bdet = slot_birth_det.clamp(0, n_det - 1)
@@ -473,7 +416,8 @@ def _step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
                                  cfg.kcf.output_sigma_factor, device=dev)
             # The fused detect consumed raw features: take their spectrum
             # here.
-            zf = zf_div if zf_div is not None else fft_ops.rfft2(feats_unit)
+            zf = (found.zf[unit] if found.zf is not None
+                  else fft_ops.rfft2(feats[unit]))
             win = torch.clamp_min(pred_boxes[:, 2:4] * cfg.kcf.padding,
                                   1e-6)
             # Feature-pixel displacement of the corrected center from the
@@ -507,7 +451,7 @@ def _step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
                 torch.where(live & (per_row(is_matched) | kcf_ok),
                             cfg.kcf.interp_factor, 0.0))
             feats_new = _features_at(gray, kf_mean[:, :4], cfg, levels,
-                                     frame_hw, frame=row_stream)
+                                     frame_hw, row_stream)[0]
             yf = kcf_ops.make_yf(s, cfg.kcf.padding,
                                  cfg.kcf.output_sigma_factor, device=dev)
             kcf_model = kcf_ops.train_blend_auto(
