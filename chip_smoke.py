@@ -42,7 +42,12 @@ nonzero exit, no "ok" line):
              train + blend from the spectrum) at the serve cell's 32,768
              rows of gray S = 64 against its plain version (K6_TOL), twice
              (bit-equal), on 4 of its rows alone (equal to the same rows of
-             the batch), one launch a call by its counter;
+             the batch), one launch a call by its counter; K8 (stage 2's
+             gray search) on the gray bank at the serve cell's 32,768 rows
+             (frame 1's windows tiled) and at K = 3 (the windows at the
+             3-scale search's scales, 3 x 128 items on 128 rows) against
+             its plain version (K8_TOL), twice (bit-equal), on 4 rows alone
+             and on each scale's items alone (equal to the batch's);
   epilogue   K7 (the ConvBlock epilogue: BatchNorm, leaky ReLU and the
              shortcut add in place) bit-equal to the chain it replaces
              (float32 words, NaN too; random values with +-0, infinities,
@@ -61,7 +66,7 @@ nonzero exit, no "ok" line):
   e2e        the default configuration on bench.py's fixture (seed 0, 128
              objects, 64 frames, 1080p u8) through tracker.scan.run_sequence
              on cuda:0: MOTA >= the JAX reference's MOTA - 0.01, exactly 64
-             launches of K1, K2 and K6 and none of K3-K5; then
+             launches of K1, K2, K6 and K8 and none of K3-K5; then
              MultiTracker.init + 4 updates must give run_sequence's
              confirmed ids and boxes;
   e2e-heavy  the heavy configuration, fHOG-31 + 3-scale, in modes H (K3,
@@ -89,12 +94,16 @@ nonzero exit, no "ok" line):
              detections against the dump's tracks (ids and valid equal,
              every box within 0.05 px: a free run on frames 0-27, then
              frames 28-31 from JAX's bank after frame 27, which the dump
-             keeps), exact K1, K2, K6 and K7 launches of the fused detect
-             -> track run (K7: 11, one forward) and the same run with every
-             K1, K2 and K6 call held against its plain version (K1 1e-5 and
-             bit-equal to the 4-tap mirror, K2 col_of and iters exactly, K6
-             K6_TOL), the detector call again with each of its 11 K7 calls
-             held word for word against its plain version (the detections
+             keeps, with K8's plain version and with K8, whose slots that
+             follow another auction choice than the plain version's are
+             excused where that choice is a tie on a float64 search's
+             costs, E2E_TIE_EPS), exact K1, K2, K6, K8 and K7 launches of the fused
+             detect -> track run (K7: 11, one forward) and the same run with
+             every K1, K2, K6 and K8 call held against its plain version (K1
+             1e-5 and bit-equal to the 4-tap mirror, K2 col_of and iters
+             exactly, K6 K6_TOL, K8 K8_TOL), the detector call again with
+             each of its 11 K7 calls held word for word against its plain
+             version (the detections
              the counted run's), the strided
              scans (stride 3,
              N = 32 and 30) and the batched form (equal to run_sequence
@@ -118,23 +127,23 @@ nonzero exit, no "ok" line):
   serve      multi-stream serving, BASELINE.json configs[4] on one card:
              8 streams of the bench generator (stream s at seed s, 32
              frames of 1080p u8, 128 tracks) through parallel/serve.py, one
-             set of launches a multi-stream frame (K1, K2 and K6 once a
-             frame for all streams; HF K1-K5): exact launch counts; ids,
+             set of launches a multi-stream frame (K1, K2, K6 and K8 once
+             a frame for all streams; HF K1-K5): exact launch counts; ids,
              valid and
              boxes (0.05 px) and each stream's MOTA against the JAX run's
              dump (tests/golden/serve_jax_v1.npz), stream 0 against the
              default cell; multi_stream_step against 8 single steps from
              the same banks on every frame (default 32, HF 8 frames: ids,
              valid, state, matches and rounds equal, boxes 1e-4; the
-             default bit-equal in every field); every
-             K1-K6 call of a serving run against its plain version (K1, K3
-             1.8e-7 and bit-equal to the 4-tap mirror; K2's batch equal to
-             the plain version and to a launch per problem; K4, K5 as in
+             default bit-equal in every field); every K1-K6 and K8 call
+             of a serving run against its plain version (K1, K3 1.8e-7
+             and bit-equal to the 4-tap mirror; K2's batch equal to the
+             plain version and to a launch per problem; K4, K5, K8 as in
              kcf), K2 batches of odd n (5, 161); the shared yolov3-tiny
              (tools/bench_configs4.py's: 80 classes at 416, 64 detections):
-             the fused shared step's exact launches (K1, K2, K6 once, K7 11
-             times) with every call held against its plain version (K7 word
-             for word), its shared and data-parallel forms equal, the
+             the fused shared step's exact launches (K1, K2, K6, K8 once,
+             K7 11 times) with every call held against its plain version
+             (K7 word for word), its shared and data-parallel forms equal, the
              strided serving (stride 4) equal to the stream sequence fed
              each head frame's detections, class-blind and class-aware, the
              batched forward within 2e-3 of B = 1 forwards; the
@@ -156,8 +165,10 @@ nonzero exit, no "ok" line):
              the per-shard forwards matched to it as sets), the fused
              shared-detector step and strided-4 serving over the mesh
              (every rank's launches counted, K7 11 a forward over 9
-             forwards; K1, K2 and K7 calls held to their plain versions,
-             K7 word for word, K6's printed), gathered in rank order
+             forwards; K1, K2, K7 and K8 calls held to their plain
+             versions, K7 word for word, K8 to K8_TOL or, over its
+             response's limit, to K8_F64_RATIO of its plain version's error
+             against float64; K6's printed), gathered in rank order
              against the serve phase's one-process
              runs (bit for bit at world 1; ids and valid equal, boxes 1e-4
              px at worlds 2 and 4) and the tracker cell against the JAX
@@ -361,6 +372,30 @@ KCF_TOL = {"response": 1e-4, "xf": 1e-4, "alphaf": 1e-3}
 # direct kernel reads 2.6e-4; the float32 chain on the CPU is 5e-5 from
 # float64 on such windows).
 K6_TOL = {"xf": 1e-6, "alphaf": 1e-3}
+# K8 against its plain version (`search_errors`).  z^ and the response
+# relative to each tensor's largest magnitude, 1e-4: KCF_TOL's xf and
+# response, since K8's FFTs round otherwise than cuFFT's as K4's and K6's do
+# (2.7e-6 seen at 32,768 rows).  The first maximum's index exactly, on rows
+# whose two largest values in the plain version part by more than "tie" =
+# 1e-5 of the larger: closer values are a tie that float32 rounding breaks
+# either way.  The peak, its index, dy and dx exactly what
+# ops/kcf.peak_displacement gives on K8's own response, and the PSR within
+# "own" = 1e-5 of psr's there, relative to its largest: the same rules on
+# the same values, the sidelobe sums in another order.  dy, dx and the PSR
+# are not held to the plain version's: a flat peak's parabola divides by a
+# near-zero curvature, which amplifies the response's rounding (2.9e-4 px
+# seen on random windows).
+K8_TOL = {"zf": 1e-4, "response": 1e-4, "tie": 1e-5, "own": 1e-5}
+# Where the bank's alphaf is ill-conditioned (K6's on the random detector's
+# birth windows, see K6 in the dist phase), a response is a sum of terms
+# far larger than itself, and any float32 inverse FFT rounds by the terms'
+# size: K8 and its plain version may then part by more than K8_TOL's
+# response.  Such a call (every other measure within K8_TOL) is held
+# instead against the plain version run in float64: K8's response error
+# there at most K8_F64_RATIO times the float32 plain version's.  Two
+# float32 FFTs of the same sums err by like amounts in random directions;
+# a fault (a lost term, a wrong twiddle) lands orders of magnitude above.
+K8_F64_RATIO = 2.0
 
 # The heavy configuration (tools/bench_variants.py "fhog31 + 3-scale"; the
 # heavy golden's KCFConfig) and its two modes: H (defaults otherwise) and
@@ -414,6 +449,18 @@ E2E_DUMP = HEAVY_DUMP.with_name("detect_e2e_jax_v1.npz")
 # frames from it on are stepped from JAX's bank.  (Past it a slot that has
 # lost its object turns a last-bit difference into pixels; see PERF.md §6.)
 E2E_BANK_FRAME = 28
+# From JAX's bank K8's run is held to the dump but for the slots that follow
+# an auction choice other than its plain version's (which the dump's is)
+# where that choice is a tie.  `step_ties` steps K8's bank on and, from each
+# frame's bank, the plain version and a witness, the FFT chain in float64:
+# where the plain version's matching differs from K8's, both are scored on
+# the witness's cost matrix and tie when they hold as many pairs and their
+# total costs part by at most E2E_TIE_EPS for each slot they match
+# otherwise.  The auction is eps-optimal (ops/assignment.DEFAULT_EPS): under
+# eps-complementary slackness its answer may trail the best matching by eps
+# on each row where the two differ, and its tie-break jitter adds under a
+# quarter eps a pair, so within that bound either matching is its answer.
+E2E_TIE_EPS = 1.25 * assignment.DEFAULT_EPS
 # Bounds of the card against the dump and of int8 against float32 (see
 # PERF.md §6).  int8's scores before NMS must differ from float32's by
 # more than float32's own noise (E2E_INT8_SCORE_MIN; the card against the
@@ -485,9 +532,10 @@ SWEEP_ROWS = {"default": {},
 # extracts a second time at the corrected boxes (K1), the 3-scale search
 # is K3.
 TRAIN_SITE_LAUNCHES = {
-    ("default-gray", "refined"): dict(roi_extract=2, auction_solve=1),
+    ("default-gray", "refined"): dict(roi_extract=2, auction_solve=1,
+                                      kcf_search=1),
     ("default-gray", "detect"): dict(roi_extract=1, auction_solve=1,
-                                     kcf_train_shift=1),
+                                     kcf_train_shift=1, kcf_search=1),
     ("fhog-3scale", "refined"): dict(roi_extract=1, roi_extract_scales=1,
                                      auction_solve=1),
     ("fhog-3scale", "detect"): dict(roi_extract_scales=1, auction_solve=1)}
@@ -519,7 +567,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 KERNELS = ("roi_extract", "roi_extract_scales", "auction_solve",
-           "kcf_detect", "kcf_train", "kcf_train_shift", "epilogue")
+           "kcf_detect", "kcf_train", "kcf_train_shift", "kcf_search",
+           "epilogue")
 
 
 def log(phase: str, msg: str) -> None:
@@ -533,8 +582,8 @@ def reset_counts() -> None:
 def set_counts(counts: dict) -> None:
     (roi_k.launches, roi_k.launches_scales, auction_k.launches,
      kcf_k.launches_detect, kcf_k.launches_train,
-     kcf_k.launches_train_shift, epi_k.launches) = (counts[k]
-                                                     for k in KERNELS)
+     kcf_k.launches_train_shift, kcf_k.launches_search,
+     epi_k.launches) = (counts[k] for k in KERNELS)
 
 
 def read_counts() -> dict:
@@ -542,7 +591,7 @@ def read_counts() -> dict:
                               auction_k.launches, kcf_k.launches_detect,
                               kcf_k.launches_train,
                               kcf_k.launches_train_shift,
-                              epi_k.launches)))
+                              kcf_k.launches_search, epi_k.launches)))
 
 
 def bn_blocks(spec: YoloSpec) -> int:
@@ -1084,7 +1133,71 @@ def shift_inputs(gray_inputs, rows: int = SHIFT_ROWS):
     return (tiled, zf, dy, dx, yf, 0.2, 1e-4, lr.repeat(reps), 64)
 
 
-def phase_kcf(hf_inputs, gray_inputs, cfg_hf, cfg):
+def search_inputs(frames, boxes0, cfg, rows: int = SHIFT_ROWS) -> dict:
+    """K8's cases: the gray bank (trained on frame 0's windows) searched on
+    frame 1's windows at the same boxes, both tiled to `rows` rows ("K=1");
+    the same after K6's plain version trained the tiled bank on shifted
+    spectra as stage 8 does ("K=1, K6's bank": its x^ is not Hermitian in
+    the DC and Nyquist columns); and on frame 1's windows at the boxes
+    scaled by the 3-scale search's scales ("K=3": 3 x T items,
+    scale-major, against the T-row bank)."""
+    gray = gray_kcf_inputs(frames, boxes0, cfg)
+    model, feat = gray[:2]
+    reps = rows // feat.shape[0]
+    tiled = kcf_ops.KCFModel(*[x.repeat((reps,) + (1,) * (x.ndim - 1))
+                               for x in model])
+    trained = kcf_ops.KCFModel(*[x.contiguous() for x in
+                                 kcf_k.train_shift_fused_ref(
+                                     *shift_inputs(gray, rows))])
+    scaled = [feat_ops.extract_features(roi_k.extract_patches_ref(
+        frames[1], boxes0 * torch.tensor([1.0, 1.0, sc, sc],
+                                         device=boxes0.device),
+        cfg.kcf.padding, cfg.kcf.template_size), cfg.kcf) for sc in SCALES]
+    tiled_feat = feat.repeat(reps, 1, 1, 1).contiguous()
+    return {"K=1": (tiled, tiled_feat),
+            "K=1, K6's bank": (trained, tiled_feat),
+            "K=3": (model, torch.cat(scaled).contiguous())}
+
+
+def search_errors(got, want) -> dict:
+    """K8's result against its plain version's (kernels/kcf.SearchRows), by
+    K8_TOL's measures: "zf" and "response" relative to the largest
+    magnitude; "tie_flips" the rows whose first maximum differs where the
+    plain version's two largest values part by more than K8_TOL["tie"];
+    "own" the PSR's error relative to its largest against ops/kcf.psr on
+    K8's own response, inf unless K8's peak, index, dy and dx equal
+    peak_displacement's there bit for bit."""
+    e = {"zf": rel_err(got.zf, want.zf),
+         "response": rel_err(got.response, want.response)}
+    top = want.response.reshape(want.response.shape[0], -1).topk(
+        2, dim=1).values
+    apart = (top[:, 0] - top[:, 1]) > K8_TOL["tie"] * top[:, 0].abs()
+    e["tie_flips"] = int(((got.idx != want.idx) & apart).sum())
+    dy, dx, peak, idx = kcf_ops.peak_displacement(got.response)
+    exact = all(torch.equal(a, b) for a, b in (
+        (got.dy, dy), (got.dx, dx), (got.peak, peak), (got.idx, idx)))
+    e["own"] = (rel_err(got.psr, kcf_ops.psr(got.response, peak, idx))
+                if exact else math.inf)
+    return e
+
+
+def search_ok(e: dict) -> bool:
+    return (e["zf"] <= K8_TOL["zf"] and e["response"] <= K8_TOL["response"]
+            and e["tie_flips"] == 0 and e["own"] <= K8_TOL["own"])
+
+
+def search_float64_errors(model, feat, sigma, got, want) -> tuple:
+    """(K8's, its plain version's) response error against the plain version
+    run in float64 on the same inputs, each relative to the float64
+    response's largest magnitude."""
+    exact = kcf_k.search_fused_ref(
+        kcf_ops.KCFModel(*[x.to(torch.complex128) for x in model]),
+        feat.double(), sigma).response
+    return (rel_err(got.response.double(), exact),
+            rel_err(want.response.double(), exact))
+
+
+def phase_kcf(hf_inputs, gray_inputs, search_cases, cfg_hf, cfg):
     errs = {"response": 0.0, "xf": 0.0, "alphaf": 0.0}
     model, feat = hf_inputs["detect"]
     cases = [("HF", cfg_hf, model, feat, *hf_inputs["train"]),
@@ -1210,6 +1323,54 @@ def phase_kcf(hf_inputs, gray_inputs, cfg_hf, cfg):
                              f"{by_row}, lr = 0 kept {kept}, finite "
                              f"{finite}, launches {calls}")
     errs["shift_xf"], errs["shift_alphaf"] = e["xf"], e["alphaf"]
+
+    # K8 at the serve cell's rows and at K = 3: against the plain version,
+    # twice, and rows alone (K = 1: 4 rows with their bank rows; K = 3: each
+    # scale's items against the whole bank) against the same rows of the
+    # batch.
+    errs["search_zf"] = errs["search_response"] = 0.0
+    sigma = cfg.kcf.kernel_sigma
+    for name, (m, f) in search_cases.items():
+        before = kcf_k.launches_search
+        got = kcf_k.search_fused(m, f, sigma)
+        again = kcf_k.search_fused(m, f, sigma)
+        calls = kcf_k.launches_search - before
+        want = kcf_k.search_fused_ref(m, f, sigma)
+        r = m.xf.shape[0]
+        if r == f.shape[0]:
+            part = slice(5, 9)
+            alone = [(kcf_k.search_fused(
+                kcf_ops.KCFModel(*[x[part].contiguous() for x in m]),
+                f[part].contiguous(), sigma), part)]
+        else:
+            alone = [(kcf_k.search_fused(m, f[k * r:(k + 1) * r].contiguous(),
+                                         sigma), slice(k * r, (k + 1) * r))
+                     for k in range(f.shape[0] // r)]
+        torch.cuda.synchronize()
+        e = search_errors(got, want)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        by_row = all(torch.equal(a, b[part]) for rows, part in alone
+                     for a, b in zip(rows, got))
+        finite = all(torch.isfinite(x).all().item() for x in got)
+        log("kcf", f"K8 search {name}: feat {tuple(f.shape)} on "
+                   f"{r} bank rows: zf error {e['zf']:.3g}, response error "
+                   f"{e['response']:.3g}, first maxima off the plain "
+                   f"version's on rows apart by more than a tie: "
+                   f"{e['tie_flips']} (on ties: "
+                   f"{int((got.idx != want.idx).sum())}); peak, index, dy, "
+                   f"dx as peak_displacement on its response: "
+                   f"{e['own'] < math.inf}, PSR error there {e['own']:.3g} "
+                   f"(limits {K8_TOL}); two runs bit-equal: {same}; rows "
+                   f"alone equal to the batch's: {by_row}; {calls} launches "
+                   f"for 2 calls; "
+                   f"{kernel_line('K8', kcf_k.search_launch_info())}")
+        if not (search_ok(e) and same and by_row and finite and calls == 2):
+            raise AssertionError(f"K8 {name}: errors {e}, bit-equal {same}, "
+                                 f"by row {by_row}, finite {finite}, "
+                                 f"launches {calls}")
+        errs["search_zf"] = max(errs["search_zf"], e["zf"])
+        errs["search_response"] = max(errs["search_response"],
+                                      e["response"])
     return errs
 
 
@@ -1440,7 +1601,7 @@ def phase_e2e(frames, d, v, cfg, gt_boxes, vis, dets_list, frames_np):
                f"kernel launches {launches}")
     want = {k: 0 for k in KERNELS}
     want.update(roi_extract=N_FRAMES, auction_solve=N_FRAMES,
-                kcf_train_shift=N_FRAMES)
+                kcf_train_shift=N_FRAMES, kcf_search=N_FRAMES)
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     check_output(out, cfg, "e2e")
@@ -1531,6 +1692,7 @@ def phase_e2e_assoc(frames, d, v, cfg, gt_boxes, vis):
         checks = assignment.warm_checks
         want = {k: 0 for k in KERNELS}
         want.update(roi_extract=N_FRAMES, kcf_train_shift=N_FRAMES,
+                    kcf_search=N_FRAMES,
                     auction_solve=0 if acfg.auction_warm_start else N_FRAMES)
         log("e2e-assoc", f"{name}: run_sequence {N_FRAMES} frames in "
                          f"{wall:.3f} s (first run); kernel launches "
@@ -1706,17 +1868,23 @@ class KernelChecks:
     where col_of and iters equal the plain version's and a launch per
     problem's, else inf; K4 the response's and K5 the larger of xf's and
     alphaf's error relative to the largest magnitude, inf over KCF_TOL; K6
-    as K5, inf over K6_TOL; K7 0 where its output equals the plain
+    as K5, inf over K6_TOL; K8 the larger of zf's and the response's,
+    inf where `search_ok` fails; K7 0 where its output equals the plain
     version's word for word, else inf);
     rounds: K2's per problem of the checked calls; seen: each kernel's last
-    checked inputs (K7 none).  A shape is (rows, S, "u8" or "f32") for K1,
+    checked inputs (K7 none); k8_f64: for each K8 call that fails
+    `search_ok` by its response alone, the response's error against a
+    float64 search of the same inputs, K8's and its plain version's
+    (`search_float64_errors`).  A shape is (rows, S, "u8" or "f32") for K1,
     (scales, rows, S, ...) for K3, the benefit matrix's for K2, the
-    features' for K4 and K5, the spectrum's for K6, (N, C, H, W, whether a
+    features' for K4, K5 and K8, the spectrum's for K6, (N, C, H, W,
+    whether a
     skip is added) for K7."""
 
     def __init__(self):
         self.calls = collections.Counter()
         self.errs, self.rounds, self.seen = {}, [], {}
+        self.k8_f64 = []
 
     def by_kernel(self) -> dict:
         """{kernel: the errors of its checked calls, at every shape}."""
@@ -1738,6 +1906,7 @@ def kernels_checked(at=None):
     k2 = auction_k.auction_solve
     k4, k5 = kcf_k.detect_fused, kcf_k.train_fused
     k6 = kcf_k.train_shift_fused
+    k8 = kcf_k.search_fused
     k7 = epi_k.fused
 
     def checking(kernel, shape) -> tuple | None:
@@ -1839,6 +2008,23 @@ def kernels_checked(at=None):
             dy.clone(), dx.clone(), yf, sigma, lambda_, lr.clone(), width)
         return got
 
+    def search(model, feat, sigma):
+        got = k8(model, feat, sigma)
+        key = checking("kcf_search", tuple(feat.shape))
+        if key is None:
+            return got
+        want = kcf_k.search_fused_ref(model, feat, sigma)
+        e = search_errors(got, want)
+        st.errs.setdefault(key, []).append(
+            max(e["zf"], e["response"]) if search_ok(e) else math.inf)
+        if not search_ok(e) and search_ok(dict(e, response=0.0)):
+            st.k8_f64.append(search_float64_errors(model, feat, sigma, got,
+                                                   want))
+        st.seen["kcf_search"] = (
+            kcf_ops.KCFModel(*[x.clone() for x in model]), feat.clone(),
+            sigma)
+        return got
+
     def epilogue(y, mean, mul, bias, skip=None):
         key = checking("epilogue", (*y.shape, skip is not None))
         if key is None:
@@ -1853,6 +2039,7 @@ def kernels_checked(at=None):
     auction_k.auction_solve = auction
     kcf_k.detect_fused, kcf_k.train_fused = detect, train
     kcf_k.train_shift_fused = train_shift
+    kcf_k.search_fused = search
     epi_k.fused = epilogue
     try:
         yield st
@@ -1861,6 +2048,7 @@ def kernels_checked(at=None):
         auction_k.auction_solve = k2
         kcf_k.detect_fused, kcf_k.train_fused = k4, k5
         kcf_k.train_shift_fused = k6
+        kcf_k.search_fused = k8
         epi_k.fused = k7
 
 
@@ -1954,25 +2142,61 @@ def phase_e2e_detect(dev, card: str):
 
     # 3. the tracker fed the dump's detections against the dump's tracks:
     # a free run on the frames before E2E_BANK_FRAME, then the frames from
-    # it on stepped from JAX's bank
+    # it on stepped from JAX's bank, with K8's plain version beside K8 there
+    # (see E2E_TIE_EPS)
     k = E2E_BANK_FRAME
     bank0 = bank_mod.empty_bank(cfg, device=dev)
     dump_d = torch.as_tensor(dump["dets"], device=dev)
     dump_v = torch.as_tensor(dump["valid"], device=dev)
     ref = (dump["ids"], dump["track_valid"], dump["boxes"])
+    ref_tail = [x[k:] for x in ref]
     _, free = scan.run_sequence(bank0, frames, dump_d, dump_v, cfg)
     free = triple(free)
     log("e2e-detect", f"run_sequence fed the dump's detections, frames 0-"
                       f"{k - 1} against the dump's tracks: " + same_tracks(
                           [x[:k] for x in free], [x[:k] for x in ref],
                           "tracker vs JAX dump"))
+    _, tail_plain = with_plain_search(lambda: scan.run_sequence(
+        dump_bank(dump, dev), frames[k:], dump_d[k:], dump_v[k:], cfg))
+    log("e2e-detect", f"run_sequence from JAX's bank after frame {k - 1} "
+                      f"with K8's plain version, frames {k}-{E2E_FRAMES - 1}"
+                      " against the dump's tracks: " + same_tracks(
+                          triple(tail_plain), ref_tail,
+                          "plain version from JAX's bank vs JAX dump",
+                          start=k))
     _, tail = scan.run_sequence(dump_bank(dump, dev), frames[k:],
                                 dump_d[k:], dump_v[k:], cfg)
-    log("e2e-detect", f"run_sequence from JAX's bank after frame {k - 1}, "
-                      f"frames {k}-{E2E_FRAMES - 1} against the dump's "
-                      "tracks: " + same_tracks(
-                          triple(tail), [x[k:] for x in ref],
-                          "tracker from JAX's bank vs JAX dump", start=k))
+    steps, ties = step_ties(dump_bank(dump, dev), frames[k:], dump_d[k:],
+                            dump_v[k:], cfg)
+    again = all(torch.equal(getattr(steps, f), getattr(tail, f))
+                for f in ("ids", "valid", "boxes", "matched_det"))
+    # a slot follows another choice from the first frame its match differs
+    # from the plain version's run on
+    follows = np.logical_or.accumulate(
+        (tail.matched_det != tail_plain.matched_det).cpu().numpy(), axis=0)
+    log("e2e-detect", f"the same with K8, excused the {int(follows.sum())} "
+                      "slot-frames that follow another auction choice than "
+                      "the plain version's: " + same_tracks(
+                          triple(tail), ref_tail,
+                          "K8 from JAX's bank vs JAX dump", start=k,
+                          excused=follows)
+                      + f"; stepped from K8's bank, K8 and its plain version"
+                      f" match slots otherwise on frames "
+                      f"{[k + t['frame'] for t in ties]}, each a tie within "
+                      f"{E2E_TIE_EPS:g} a slot on the float64 search's cost"
+                      f" (pairs, total cost): "
+                      f"{[dict(t, frame=k + t['frame']) for t in ties]}; "
+                      "the steps equal the "
+                      f"run: {again}")
+    # every divergence starts at or after a witnessed tie
+    diverge = int(follows.any(axis=1).argmax()) if follows.any() else None
+    if not (again and all(is_tie(t) for t in ties)
+            and (diverge is None or (ties and ties[0]["frame"] <= diverge))):
+        raise AssertionError(f"e2e-detect: K8 from JAX's bank: choices "
+                             f"other than the plain version's {ties}, steps "
+                             f"equal the run {again}, first slot-frame "
+                             f"following another choice on frame "
+                             f"{diverge}")
     log("e2e-detect", "the free run over every frame against the dump "
                       "(printed, not held): " + compare_tracks(free, ref)[1])
 
@@ -1985,7 +2209,8 @@ def phase_e2e_detect(dev, card: str):
     want = {k: 0 for k in KERNELS}
     n_bn = bn_blocks(spec)
     want.update(roi_extract=E2E_FRAMES, auction_solve=E2E_FRAMES,
-                kcf_train_shift=E2E_FRAMES, epilogue=n_bn)
+                kcf_train_shift=E2E_FRAMES, kcf_search=E2E_FRAMES,
+                epilogue=n_bn)
     log("e2e-detect", f"fused detect_batch + run_sequence, {E2E_FRAMES} "
                       f"frames on {frames.device}: kernel launches {counts}; "
                       f"{int(fused.valid.sum())} valid slot-frames")
@@ -2008,13 +2233,14 @@ def phase_e2e_detect(dev, card: str):
     if not (k7_err == {"epilogue": [0] * n_bn} and same_det):
         raise AssertionError(f"e2e-detect: K7 errors {k7_err}, detections "
                              f"equal {same_det}")
-    # the same run again with K1, K2 and K6 held against their plain
+    # the same run again with K1, K2, K6 and K8 held against their plain
     # versions on every call: the path's own pyramids, boxes, benefit
-    # matrices and spectra
+    # matrices, spectra and windows
     checked, errs, rounds, _ = checked_run(scan.run_sequence, bank0, frames,
                                            dets, valid, cfg)
     k1_err, k2_err = errs["roi_extract"], errs["auction_solve"]
     k6_err = errs.get("kcf_train_shift", [])
+    k8_err = errs.get("kcf_search", [])
     same_run = all(torch.equal(getattr(checked, f), getattr(fused, f))
                    for f in ("ids", "valid", "boxes", "assign_iters"))
     log("e2e-detect", f"fused run checked call by call: K1 on the {E2E_H}p "
@@ -2027,15 +2253,19 @@ def phase_e2e_detect(dev, card: str):
                       f"{statistics.median(rounds)}, max {max(rounds)}); "
                       f"K6 {len(k6_err)} calls, largest error "
                       f"{max(k6_err, default=math.inf):.3g} (limit "
-                      f"{K6_TOL['alphaf']:g}); outputs equal the counted "
+                      f"{K6_TOL['alphaf']:g}); K8 {len(k8_err)} calls, "
+                      f"largest error {max(k8_err, default=math.inf):.3g} "
+                      f"(limits {K8_TOL}); outputs equal the counted "
                       f"run's: {same_run}")
-    if not (len(k1_err) == len(k2_err) == len(k6_err) == E2E_FRAMES
+    if not (len(k1_err) == len(k2_err) == len(k6_err) == len(k8_err)
+            == E2E_FRAMES
             and same_run and max(k1_err) <= ROI_TOL and max(k2_err) == 0
             and max(k6_err) <= K6_TOL["alphaf"]
+            and max(k8_err) <= K8_TOL["response"]
             and set(errs) == {"roi_extract", "auction_solve",
-                              "kcf_train_shift"}):
+                              "kcf_train_shift", "kcf_search"}):
         raise AssertionError(f"e2e-detect: K1 errors {k1_err}; K2 {k2_err}; "
-                             f"K6 {k6_err}; "
+                             f"K6 {k6_err}; K8 {k8_err}; "
                              f"same run {same_run}")
 
     # 5. variants: the strided scans, bf16 + fast NMS, int8
@@ -2253,6 +2483,7 @@ def phase_kcf_tracker():
                     f"{counts}")
     want = {k: 0 for k in KERNELS}
     want["roi_extract"] = 1 + 2 * (len(clip) - 1)
+    want["kcf_search"] = len(clip) - 1
     if counts != want or not max(errs) < 2.0:
         raise AssertionError(f"KCFTracker: launches {counts} (expected "
                              f"{want}), centre error {max(errs)} px")
@@ -2266,6 +2497,82 @@ def with_plain_k1(fn):
         return fn()
     finally:
         roi_k._resample_cuda = kernel
+
+
+def with_plain_search(fn):
+    """Run fn() with K8's plain version in K8's place."""
+    kernel = kcf_k.search_fused
+    kcf_k.search_fused = kcf_k.search_fused_ref
+    try:
+        return fn()
+    finally:
+        kcf_k.search_fused = kernel
+
+
+def step_cost(bank, frame, dets, valid, cfg, float64=False):
+    """step_mod.step, and the cost matrix [T, D] (float64 NumPy) and
+    feasibility its auction was given; float64: ops/kcf.search run as the
+    FFT chain in float64 (its results rounded to float32 for the step)."""
+    search, solve, seen = kcf_ops.search, assignment.auction_assign_stats, {}
+
+    def search_f64(model, feats, sigma, wts, impl):
+        found = search(kcf_ops.KCFModel(*[x.to(torch.complex128)
+                                          for x in model]),
+                       feats.double(), sigma, wts.double(), "xla")
+        return found._replace(zf=found.zf.to(torch.complex64), **{
+            f: getattr(found, f).float()
+            for f in ("dy", "dx", "peak", "response", "peaks")})
+
+    def recorded(cost, feasible, *args, **kw):
+        seen["cost"] = cost[0].double().cpu().numpy()
+        seen["feasible"] = feasible[0].cpu().numpy()
+        return solve(cost, feasible, *args, **kw)
+
+    assignment.auction_assign_stats = recorded
+    if float64:
+        kcf_ops.search = search_f64
+    try:
+        bank, out = step_mod.step(bank, frame, dets, valid, cfg)
+    finally:
+        kcf_ops.search, assignment.auction_assign_stats = search, solve
+    return bank, out, seen["cost"], seen["feasible"]
+
+
+def step_ties(bank, frames, dets, valid, cfg):
+    """Step frame by frame with K8, its bank going on, and from each frame's
+    bank also with K8's plain version: K8's stacked StepOutput, and for
+    each frame where the two match slots otherwise the witness (see
+    E2E_TIE_EPS): frame index, slots matched otherwise, pairs and total
+    cost on the float64 search's cost matrix of K8's matching, the plain
+    version's, the float64 step's own and the best (scipy), and slots where
+    the float64 step's matching differs from K8's and from the plain
+    version's."""
+    outs, ties = [], []
+    for i in range(frames.shape[0]):
+        args = (frames[i], dets[i], valid[i], cfg)
+        _, plain, _, _ = with_plain_search(lambda: step_cost(bank, *args))
+        _, f64, cost, feasible = step_cost(bank, *args, float64=True)
+        bank, out, _, _ = step_cost(bank, *args)
+        outs.append(out)
+        m_k8, m_plain, m_f64 = (x.matched_det.cpu().numpy()
+                                for x in (out, plain, f64))
+        if not np.array_equal(m_k8, m_plain):
+            best = assignment.scipy_assign(cost, feasible)
+            score = {name: (int((m >= 0).sum()),
+                            assignment.assignment_cost(cost, m))
+                     for name, m in (("K8", m_k8), ("plain", m_plain),
+                                     ("float64", m_f64), ("best", best))}
+            ties.append(dict(frame=i, slots=int((m_k8 != m_plain).sum()),
+                             **score,
+                             f64_vs_k8=int((m_f64 != m_k8).sum()),
+                             f64_vs_plain=int((m_f64 != m_plain).sum())))
+    return step_mod.StepOutput(*[torch.stack(x) for x in zip(*outs)]), ties
+
+
+def is_tie(t: dict) -> bool:
+    """Whether a `step_ties` witness shows a tie (E2E_TIE_EPS)."""
+    return (t["K8"][0] == t["plain"][0]
+            and abs(t["K8"][1] - t["plain"][1]) <= E2E_TIE_EPS * t["slots"])
 
 
 def bank_lockstep(frames, boxes0, kcfg, train_site):
@@ -2313,6 +2620,7 @@ def phase_kcf_bank(dev, frames, gt_boxes):
         step_boxes, step_plain = bank_lockstep(frames, boxes0, kcfg, site)
         want = {k: 0 for k in KERNELS}
         want["roi_extract"] = 1 + n * (2 if site == "refined" else 1)
+        want["kcf_search"] = n if kcfg.feature_type == "gray" else 0
         again = torch.equal(step_boxes, boxes)
         step_diff = (step_boxes - step_plain).abs().amax(dim=-1)  # [N, T]
         ties = step_diff > BANK_TOL
@@ -2347,7 +2655,7 @@ def phase_kcf_bank(dev, frames, gt_boxes):
                         f"({free[on].max().item():.3g} px on the "
                         f"{100 * on.float().mean().item():.1f}% of "
                         "slot-frames with IoU >= 0.5)")
-        if counts != want or any(plain_counts.values()):
+        if counts != want or plain_counts != dict(want, roi_extract=0):
             raise AssertionError(f"kcf-bank {name}: launches {counts} "
                                  f"(expected {want}); with the plain version "
                                  f"{plain_counts}")
@@ -2474,9 +2782,10 @@ def serve_detector(dev, frames_tm, card):
     torch.cuda.synchronize()
     counts, errs = read_counts(), st.by_kernel()
     want = dict(dict.fromkeys(KERNELS, 0), roi_extract=1, auction_solve=1,
-                kcf_train_shift=1, epilogue=bn_blocks(spec))
+                kcf_train_shift=1, kcf_search=1, epilogue=bn_blocks(spec))
     limits = {"roi_extract": SERVE_ROI_TOL, "auction_solve": 0,
-              "kcf_train_shift": K6_TOL["alphaf"], "epilogue": 0}
+              "kcf_train_shift": K6_TOL["alphaf"],
+              "kcf_search": K8_TOL["response"], "epilogue": 0}
     log("serve", f"detector cell: the fused shared step over {n_str} "
                  f"streams' frames: launches {counts}; every call against "
                  f"its plain version (kernel: calls, largest error) "
@@ -2652,7 +2961,7 @@ def phase_serve(dev, card, default_out):
         if name == "HF":
             want.update(roi_extract_scales=nf, kcf_detect=nf, kcf_train=nf)
         else:
-            want.update(kcf_train_shift=nf)
+            want.update(kcf_train_shift=nf, kcf_search=nf)
         log("serve", f"{name}: multi_stream_sequence {n_str} streams x {nf} "
                      f"frames in {time.perf_counter() - t0:.3f} s (first "
                      f"run); kernel launches {launches[name]} (one set a "
@@ -2708,7 +3017,8 @@ def phase_serve(dev, card, default_out):
               "roi_extract_scales": SERVE_ROI_TOL, "auction_solve": 0,
               "kcf_detect": KCF_TOL["response"],
               "kcf_train": KCF_TOL["alphaf"],
-              "kcf_train_shift": K6_TOL["alphaf"]}
+              "kcf_train_shift": K6_TOL["alphaf"],
+              "kcf_search": K8_TOL["response"]}
     _, errs, _, seen = checked_run(serve.multi_stream_sequence, banks0,
                                    frames, d, v, cfg)
     _, errs_hf, _, seen_hf = checked_run(
@@ -3135,6 +3445,8 @@ def dist_rank(rank: int, world: int, backend: str, with_train: bool) -> dict:
     res["detector_launches"] = read_counts()
     res["detector_errs"] = {key: (len(e), max(e))
                             for key, e in checks.by_kernel().items()}
+    res["detector_k8"] = (sum(math.isinf(x) for x in checks.by_kernel().get(
+        "kcf_search", [])), checks.k8_f64)
     res["fused"], res["strided"] = triple(fused), triple(st)
 
     # aggregate rates over SERVE_WINDOW frames: the tracker from the banks
@@ -3205,16 +3517,18 @@ def phase_dist(dev, card, refs) -> dict:
               + [(n, "gloo", "cuda:0") for n in DIST_GLOO_WORLDS])
     want_t = {k: 0 for k in KERNELS}
     want_t.update(roi_extract=SERVE_FRAMES, auction_solve=SERVE_FRAMES,
-                  kcf_train_shift=SERVE_FRAMES)
+                  kcf_train_shift=SERVE_FRAMES, kcf_search=SERVE_FRAMES)
     # the detector cells: the fused step's forward and strided-4's 8, each
     # a yolov3-tiny forward
     want_d = dict(want_t, roi_extract=SERVE_FRAMES + 1,
                   auction_solve=SERVE_FRAMES + 1,
                   kcf_train_shift=SERVE_FRAMES + 1,
+                  kcf_search=SERVE_FRAMES + 1,
                   epilogue=(1 + SERVE_FRAMES // SERVE_STRIDE) * bn_blocks(
                       YoloSpec("yolov3-tiny", num_classes=80)))
     limits = {"roi_extract": SERVE_ROI_TOL, "auction_solve": 0,
-              "kcf_train_shift": K6_TOL["alphaf"]}
+              "kcf_train_shift": K6_TOL["alphaf"],
+              "kcf_search": K8_TOL["response"]}
     kept = dict(errs={k: 0.0 for k in limits})
     for world, backend, where in worlds:
         t0 = time.perf_counter()
@@ -3245,16 +3559,28 @@ def phase_dist(dev, card, refs) -> dict:
             # K6 is printed there, not held: on the random detector's
             # birth windows alphaf is ill-conditioned, and its float32 plain
             # version is itself up to 4e-3 of the largest |alphaf| from a
-            # float64 run, over K6_TOL (PERF.md section 7)
+            # float64 run, over K6_TOL (PERF.md section 7).  K8, which
+            # searches with that alphaf, is held: each call within K8_TOL,
+            # or over it by the response alone and then within
+            # K8_F64_RATIO of its plain version's error against float64
             det_errs = r["detector_errs"]
+            n_wide, k8_f64 = r["detector_k8"]
+            k8_ok = (det_errs.get("kcf_search", (0, 0))[0]
+                     == want_d["kcf_search"] and n_wide == len(k8_f64)
+                     and all(k8 <= K8_F64_RATIO * plain
+                             for k8, plain in k8_f64))
             if not (set(det_errs) == {*limits, "epilogue"}
                     and det_errs["epilogue"] == (want_d["epilogue"], 0)
                     and all(det_errs[key][1] <= limits[key]
-                            for key in ("roi_extract", "auction_solve"))):
+                            for key in ("roi_extract", "auction_solve"))
+                    and k8_ok):
                 raise AssertionError(f"dist {tag}, rank {r['rank']}: the "
                                      f"detector cells' calls against their "
-                                     f"plain versions {det_errs}")
-        log("dist", f"{tag}: every rank launched K1, K2 and K6 "
+                                     f"plain versions {det_errs}; K8 calls "
+                                     f"over K8_TOL {n_wide}, their response "
+                                     f"errors against float64 (K8, plain) "
+                                     f"{k8_f64}")
+        log("dist", f"{tag}: every rank launched K1, K2, K6 and K8 "
                     f"{SERVE_FRAMES} times in the tracker cell and "
                     f"{SERVE_FRAMES + 1} in the detector cells (fused step "
                     f"+ strided-4), K7 {want_d['epilogue']} times there, "
@@ -3263,8 +3589,13 @@ def phase_dist(dev, card, refs) -> dict:
                     f"tracker {[r['errs'] for r in ranks]}, detector "
                     f"{[r['detector_errs'] for r in ranks]} (K1 limit "
                     f"{SERVE_ROI_TOL:g} and bit-equal to the 4-tap mirror, "
-                    "K2 exact, K7 word for word; K6 held to K6_TOL in the "
-                    "tracker cell, printed in the detector cells)")
+                    "K2 exact, K7 word for word; K6 and K8 held to "
+                    "K6_TOL and K8_TOL in the tracker cell; in the detector "
+                    "cells K6 printed, K8 held, a call over K8_TOL's "
+                    "response to within "
+                    f"{K8_F64_RATIO:g} times its plain version's error "
+                    "against float64: (K8, plain) "
+                    f"{[r['detector_k8'][1] for r in ranks]})")
 
         def cat(key):
             return tuple(np.concatenate([r[key][i] for r in ranks])
@@ -3683,7 +4014,8 @@ def phase_sweeps(card: str, frames, d, v, cfg) -> None:
     through its main at full size on the card, with the gates of each:
     bench_multistream (every stream of every S bit-equal to stream 0 of
     S = 1, which equals run_sequence on the same frames; K1 and K2 once a
-    multi-stream frame, K6 too, K2 [S, 160, 160]), bench_class_cost (each row
+    multi-stream frame, K6 and K8 too, K2 [S, 160, 160]),
+    bench_class_cost (each row
     against SWEEPS_DUMP), bench_train_site (the refined rows against
     SWEEPS_DUMP, the detect rows at the MOTA gate, TRAIN_SITE_LAUNCHES
     exactly) and bench_template_size (48 and 32 against SWEEPS_DUMP, 64 at
@@ -3697,12 +4029,15 @@ def phase_sweeps(card: str, frames, d, v, cfg) -> None:
     n = N_FRAMES
     dump = np.load(SWEEPS_DUMP)
     failures = []
-    # K1, K2 and (gray S = 64, detect-site training) K6 once a frame
-    once = dict(roi_extract=1, auction_solve=1, kcf_train_shift=1)
+    # K1, K2 and (gray S = 64: detect-site training, the search) K6 and K8
+    # once a frame
+    once = dict(roi_extract=1, auction_solve=1, kcf_train_shift=1,
+                kcf_search=1)
     limits = {"roi_extract": ROI_TOL, "roi_extract_scales": ROI_TOL,
               "auction_solve": 0, "kcf_detect": KCF_TOL["response"],
               "kcf_train": KCF_TOL["alphaf"],
-              "kcf_train_shift": K6_TOL["alphaf"]}
+              "kcf_train_shift": K6_TOL["alphaf"],
+              "kcf_search": K8_TOL["response"]}
 
     def against_dump(what, out, row, scores=None, bank=None):
         """ids and valid exact, boxes within SWEEP_BOX_TOL, the auction's
@@ -3843,7 +4178,8 @@ def phase_sweeps(card: str, frames, d, v, cfg) -> None:
                       f"{line['mota']}, HOTA {line['hota']}")
         line_ok(what, line, "fps")
         launches_ok(f"{what} (a frame)", per_frame(counts, runs * n),
-                    once if s == 64 else dict(once, kcf_train_shift=0))
+                    once if s == 64 else dict(once, kcf_train_shift=0,
+                                              kcf_search=0))
         checks_ok(what, st)
         if s == 64:
             if not line["mota"] >= M_REF - 0.01:
@@ -3991,6 +4327,19 @@ def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_bs, hf_inputs,
         f"K6 train_shift zf {tuple(sh[1].shape)}",
         lambda: kcf_k.train_shift_fused_ref(*sh),
         lambda: kcf_k.train_shift_fused(*sh), 20)
+    # K8 at the serve cell's rows: a row reads its windowed features and its
+    # bank row's x^ and alpha^ and writes z^, the response and five scalars;
+    # four real 2-D FFTs, the products, the exp and the peak's passes in
+    # operations.
+    s_model, s_feat = search_inputs(frames, boxes0, cfg)["K=1"]
+    rows = s_feat.shape[0]
+    bounds["kcf_search"] = bound(
+        rows * (2 * 64 * 64 * 4 + 3 * 64 * 33 * 8 + 4 * 4 + 8) + 64 * 8,
+        rows * (4 * fft_flops(64) + 16 * 64 * 33 + 30 * 64 * 64))
+    pairs["kcf_search"] = (
+        f"K8 search feat {tuple(s_feat.shape)}",
+        lambda: kcf_k.search_fused_ref(s_model, s_feat, cfg.kcf.kernel_sigma),
+        lambda: kcf_k.search_fused(s_model, s_feat, cfg.kcf.kernel_sigma), 20)
     times = {}
     for key, (what, plain, kernel, reps) in pairs.items():
         ms, plain_ms = in_turns(plain, kernel, reps)
@@ -4065,7 +4414,9 @@ def phase_times(frames, d, v, cfg, levels_u8, boxes0, bench_bs, hf_inputs,
             ("kcf_train", f"K5 fused train C={c} S={s}",
              kcf_k.train_launch_info(c, s)),
             ("kcf_train_shift", "K6 train_shift C=1 S=64",
-             kcf_k.train_shift_launch_info())):
+             kcf_k.train_shift_launch_info()),
+            ("kcf_search", "K8 search C=1 S=64",
+             kcf_k.search_launch_info())):
         log("times", kernel_line(what, info))
         times[key]["launch"] = info
     return times
@@ -4493,7 +4844,8 @@ def phase_cli(dev, frames, d, v, cfg, sched_check, frames_np, dets_list,
     n = args[args.index("--frames") + 1]
     for name, argv, n_frames, kernels in (
             ("default", args, int(n),
-             ("roi_extract", "auction_solve", "kcf_train_shift")),
+             ("roi_extract", "auction_solve", "kcf_train_shift",
+              "kcf_search")),
             ("HF", [*args[:args.index("--frames")], "--frames", "32",
                     *args[args.index("--frames") + 2:], *CLI_HF], 32,
              KERNELS[:5])):
@@ -4588,7 +4940,7 @@ def cli_with_cv2(frames_u8, dets_list, gt_boxes, vis, dev_args=()):
 OUR_KERNELS = ("roi_kernel", "roi_scales_kernel", "auction_kernel",
                "kcf_detect_kernel", "kcf_detect_fft16_kernel",
                "kcf_train_kernel", "kcf_train_fft16_kernel",
-               "kcf_train_shift_kernel")
+               "kcf_train_shift_kernel", "kcf_search_kernel")
 
 
 def profiled(fn) -> tuple[list, float, object]:
@@ -4679,7 +5031,7 @@ def main() -> int:
     cfg_hf = heavy_config(cfg, "HF")
     hf_inputs = record_kcf_inputs(frames, d, v, cfg_hf, 3)
     kcf_err = phase_kcf(hf_inputs, gray_kcf_inputs(frames, boxes0, cfg),
-                        cfg_hf, cfg)
+                        search_inputs(frames, boxes0, cfg), cfg_hf, cfg)
     epilogue_row = phase_epilogue(dev)
 
     # end to end: default, then the heavy modes
@@ -4766,6 +5118,13 @@ def main() -> int:
          {"err_kind": "relative to the largest |xf| and |alphaf|",
           "rel_err_xf": kcf_err["shift_xf"],
           "rel_err_alphaf": kcf_err["shift_alphaf"]}),
+        ("kcf_search", "tpu_mot_torch/csrc/kcf.cu",
+         "none (stage 2's gray search, left to XLA by the JAX package)",
+         launches["kcf_search"],
+         max(kcf_err["search_zf"], kcf_err["search_response"]),
+         {"err_kind": "relative to the largest |zf| and |response|",
+          "rel_err_zf": kcf_err["search_zf"],
+          "rel_err_response": kcf_err["search_response"]}),
     ]
     print(card)
     print(json.dumps({"kernels": [

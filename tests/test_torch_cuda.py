@@ -16,6 +16,11 @@ for the response and xf, 1e-3 for alphaf (the divide by k^ + lambda
 amplifies float32 error where k^ is small); K6 likewise 1e-6 for xf (its
 phase shift and blend repeat the chain's roundings one by one) and 1e-4
 for alphaf (its own 64-point FFTs against cuFFT's, amplified as for K5);
+K8 1e-4 for z^, the response, the peak and the PSR, 1e-3 px for dy and dx
+(a flat peak's parabola amplifies the response's rounding), the first
+maximum's index exactly where the chain's two largest values part by more
+than 1e-5 of the larger, and the peak, index, dy and dx exactly what
+peak_displacement gives on K8's own response;
 the tracker on the card
 against the tracker on the CPU: ids and valid exact, boxes 1e-3 (cuFFT
 and the kernels' own transforms against pocketfft); the detector's heads
@@ -43,12 +48,14 @@ from tpu_mot_torch.ops import assignment as t_assign
 from tpu_mot_torch.ops import iou as t_iou
 from tpu_mot_torch.ops import kcf as t_kcf
 from tpu_mot_torch.ops import nms as t_nms
+from tpu_mot_torch.ops import features as t_feat
 from tpu_mot_torch.parallel import serve as t_serve
 from tpu_mot_torch.tracker import api as t_api
 from tpu_mot_torch.tracker import bank as t_bank
 from tpu_mot_torch.tracker import kcf_bank as t_kcf_bank
 from tpu_mot_torch.tracker import scan as t_scan
 from tpu_mot_torch.tracker import step as t_step
+from tpu_mot_torch.tools import bench as t_bench
 
 pytestmark = pytest.mark.cuda
 
@@ -256,14 +263,16 @@ def test_tracker_on_card_matches_cpu(cuda):
     _, want = t_scan.run_sequence(t_bank.empty_bank(cpu_cfg, device="cpu"),
                                   frames_u8, d, v, cpu_cfg)
     roi0, auc0 = t_roi.launches, t_auction.launches
-    k6 = t_kcfk.launches_train_shift
+    k6, k8 = t_kcfk.launches_train_shift, t_kcfk.launches_search
     _, got = t_scan.run_sequence(t_bank.empty_bank(cfg, device=cuda),
                                  frames_u8.to(cuda), d.to(cuda), v.to(cuda),
                                  cfg)
     torch.cuda.synchronize()
     assert (t_roi.launches - roi0, t_auction.launches - auc0) == (8, 8)
-    # stage 8 (gray S = 64, detect-site training) is one K6 launch a frame
+    # stages 8 and 2 (gray S = 64: detect-site training, the search) are
+    # one K6 and one K8 launch a frame
     assert t_kcfk.launches_train_shift - k6 == 8
+    assert t_kcfk.launches_search - k8 == 8
     assert torch.equal(got.ids.cpu(), want.ids)
     assert torch.equal(got.valid.cpu(), want.valid)
     assert (got.boxes.cpu() - want.boxes).abs().max().item() <= 1e-3
@@ -618,6 +627,158 @@ def test_kcf_train_shift_wrapper_rejects_what_the_kernel_does_not_take(cuda):
             t_kcfk.train_shift_fused(**kw)
 
 
+K8_TOL = {"zf": 1e-4, "response": 1e-4, "peak": 1e-4, "psr": 1e-4,
+          "shift": 1e-3, "tie": 1e-5}
+
+
+def _search_inputs(dev, k, rows=None, shifted=False):
+    """The windows of bench.py's objects in its generator's first two
+    frames (1080p, 128 objects): a bank trained at frame 0's boxes (with
+    `shifted`, as stage 8 trains it: on their spectra shifted by seeded
+    fractional pixels, which leaves x^ other than Hermitian in the DC and
+    Nyquist columns), searched in frame 1 at the same boxes (k = 1, tiled
+    to `rows` rows with the bank) or at the boxes scaled by 1/1.05, 1, 1.05
+    (k = 3, 3 x 128 items against the 128-row bank)."""
+    fx = t_bench.render(height=1080, width=1920, n_obj=128, n_frames=2,
+                        max_tracks=128, max_dets=160)
+    cfg = KCFConfig()
+    frames = torch.as_tensor(fx.frames, device=dev)
+    boxes = torch.as_tensor(fx.gt_boxes[0], device=dev)
+
+    def windows(f, scale):
+        wh = torch.tensor([1.0, 1.0, scale, scale], device=dev)
+        return t_feat.extract_features(t_roi.extract_patches_ref(
+            frames[f], boxes * wh, cfg.padding, cfg.template_size), cfg)
+
+    yf = t_kcf.make_yf(64, cfg.padding, cfg.output_sigma_factor, device=dev)
+    zf = torch.fft.rfft2(windows(0, 1.0))
+    if shifted:
+        dy, dx = torch.as_tensor(np.random.default_rng(7).uniform(
+            -15.9, 15.9, (2, 128)).astype(np.float32), device=dev)
+        zf = t_kcf.shift_spectrum(zf, dy, dx, 64)
+    model = t_kcf.KCFModel(*[x.contiguous() for x in t_kcf.train_from_spectrum(
+        zf, yf, cfg.kernel_sigma, cfg.lambda_, 64)])
+    if k == 3:
+        return model, torch.cat([windows(1, sc) for sc in SCALES]).contiguous()
+    reps = (rows or 128) // 128
+    return (t_kcf.KCFModel(*[x.repeat((reps,) + (1,) * (x.ndim - 1))
+                             for x in model]),
+            windows(1, 1.0).repeat(reps, 1, 1, 1).contiguous())
+
+
+def _assert_search_close(got, want):
+    assert _rel_err(got.zf, want.zf) <= K8_TOL["zf"]
+    assert _rel_err(got.response, want.response) <= K8_TOL["response"]
+    top = want.response.reshape(want.response.shape[0], -1).topk(
+        2, dim=1).values
+    apart = (top[:, 0] - top[:, 1]) > K8_TOL["tie"] * top[:, 0].abs()
+    assert apart.float().mean().item() >= 0.9
+    assert torch.equal(got.idx[apart], want.idx[apart])
+    same = got.idx == want.idx
+    for name in ("peak", "psr"):
+        assert _rel_err(getattr(got, name)[same],
+                        getattr(want, name)[same]) <= K8_TOL[name], name
+    for name in ("dy", "dx"):
+        assert (getattr(got, name) - getattr(want, name))[same].abs().max(
+        ).item() <= K8_TOL["shift"], name
+    # the tracker's rules on K8's own response: the same values exactly
+    own = t_kcf.peak_displacement(got.response)
+    for g, w in zip((got.dy, got.dx, got.peak, got.idx), own):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("k,rows", [(1, 256 * 128), (3, 128)])
+def test_kcf_search_kernel_matches_plain_version(cuda, k, rows, shifted):
+    """K8 at the serve cell's 256 x 128 rows and at K = 3 on the bench
+    fixture's windows, with a bank trained as stage 8 trains it or not,
+    against its plain version; one launch."""
+    model, feat = _search_inputs(cuda, k, rows, shifted)
+    before = t_kcfk.launches_search
+    got = t_kcfk.search_fused(model, feat, 0.2)
+    want = t_kcfk.search_fused_ref(model, feat, 0.2)
+    torch.cuda.synchronize()
+    assert t_kcfk.launches_search == before + 1
+    assert got.zf.shape == (k * rows, 1, 64, 33)
+    assert got.idx.dtype == torch.int64
+    _assert_search_close(got, want)
+
+
+def test_kcf_search_kernel_is_deterministic_by_row(cuda):
+    """Fixed orders, no atomics, an item from that item and its bank row
+    alone: two runs bit-equal, rows run alone and each scale's items run
+    alone equal to the same rows of the batch."""
+    model, feat = _search_inputs(cuda, 3, shifted=True)
+    first = t_kcfk.search_fused(model, feat, 0.2)
+    second = t_kcfk.search_fused(model, feat, 0.2)
+    part = slice(9, 14)
+    alone = t_kcfk.search_fused(
+        t_kcf.KCFModel(*[x[part].contiguous() for x in model]),
+        feat[128:][part].contiguous(), 0.2)
+    scale = t_kcfk.search_fused(model, feat[256:].contiguous(), 0.2)
+    torch.cuda.synchronize()
+    for a, b, c, d in zip(first, second, alone, scale):
+        assert torch.equal(a, b)
+        assert torch.equal(c, a[128:][part])
+        assert torch.equal(d, a[256:])
+
+
+@pytest.mark.parametrize("c,s,impl,kernel", [
+    (1, 64, "auto", True), (1, 64, "pallas", False), (1, 64, "xla", False),
+    (31, 16, "auto", False), (1, 48, "auto", False), (1, 32, "auto", False)])
+def test_kcf_search_route_on_card(cuda, c, s, impl, kernel):
+    """ops/kcf.search launches K8 for gray S = 64 under "auto" (its PSR in
+    the result) and otherwise runs K4 ("pallas") or the chain, with no
+    PSR, the chain bit for bit search_fused_ref's composition."""
+    model, feat, _ = _kcf_inputs(cuda, 8, c, s, k=3, seed=5)
+    feats = feat.reshape(3, 8, c, s, s)
+    wts = torch.tensor([0.95, 1.0, 0.95], device=cuda)
+    before = t_kcfk.launches_search
+    found = t_kcf.search(model, feats, 0.2, wts, impl)
+    torch.cuda.synchronize()
+    assert t_kcfk.launches_search - before == int(kernel)
+    assert (found.psr is not None) == kernel
+    if kernel:
+        want = t_kcfk.search_fused_ref(model, feat, 0.2)
+        assert _rel_err(found.response.reshape(24, s, s),
+                        want.response) <= K8_TOL["response"]
+        assert torch.equal(found.psr.reshape(-1), t_kcfk.search_fused(
+            model, feat, 0.2).psr)
+    elif impl != "pallas":
+        zf = torch.fft.rfft2(feats)
+        resp = t_kcf.detect_from_spectrum(model, zf, 0.2, s)
+        assert torch.equal(found.response, resp)
+        assert torch.equal(found.idx, t_kcf.peak_displacement(resp)[3])
+
+
+def test_kcf_search_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    model, feat, _ = _kcf_inputs(cuda, 4, 1, 64, k=2)
+    three, feat3, _ = _kcf_inputs(cuda, 4, 3, 64)
+    small, feat48, _ = _kcf_inputs(cuda, 4, 1, 48)
+    flat = torch.zeros(feat.numel() + 1, device=cuda)
+    off = flat[1:].view(feat.shape)
+    off.copy_(feat)
+    cases = [
+        ((model, feat[:7]), "multiple"),
+        ((model, feat.double()), "feat"),
+        ((model, feat.transpose(-1, -2)), "feat"),
+        ((three, feat3), "feat"),
+        ((small, feat48), "feat"),
+        ((t_kcf.KCFModel(model.xf[:, :, :, :32].contiguous(), model.alphaf),
+          feat), "xf"),
+        ((t_kcf.KCFModel(model.xf, model.alphaf[:2]), feat), "alphaf"),
+    ]
+    for (m, f), match in cases:
+        with pytest.raises(ValueError, match=match):
+            t_kcfk.search_fused(m, f, 0.2)
+    # features 4 bytes off a 16-byte boundary are aligned to their
+    # elements: K8 takes them and gives the same result
+    assert off.data_ptr() % 16 == 4
+    for g, w in zip(t_kcfk.search_fused(model, off, 0.2),
+                    t_kcfk.search_fused(model, feat, 0.2)):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("kcf_impl,train_site", [("pallas", "refined"),
                                                  ("auto", "detect")])
 def test_heavy_tracker_on_card_matches_cpu(cuda, kcf_impl, train_site):
@@ -940,10 +1101,12 @@ def test_multi_stream_step_on_card_equals_single_steps(cuda, mode):
     banks = t_serve.make_stream_banks(n_str, cfg, device=cuda)
     singles = [t_bank.empty_bank(cfg, device=cuda) for _ in range(n_str)]
     for f in range(n):
-        before = t_roi.launches
+        before, k8 = t_roi.launches, t_kcfk.launches_search
         banks, out = t_serve.multi_stream_step(banks, frames[:, f], d[:, f],
                                                v[:, f], cfg)
         assert t_roi.launches == before + 1     # K1 once for all streams
+        # K8 once for all streams at gray S = 64 ("HF" is K4's)
+        assert t_kcfk.launches_search - k8 == int(mode != "HF")
         for s in range(n_str):
             singles[s], o = t_step.step(singles[s], frames[s, f], d[s, f],
                                         v[s, f], cfg)

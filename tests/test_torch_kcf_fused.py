@@ -11,6 +11,8 @@ seeded NumPy features ~N(0, 0.09) handed to both packages; the model is
 trained by each package from the same features.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,8 +22,12 @@ from tpu_mot.kernels import kcf as j_fused
 from tpu_mot.ops import kcf as j_kcf
 from tpu_mot.ops.cfloat import CF
 from tpu_mot_torch import interop
+from tpu_mot_torch.config import KCFConfig
 from tpu_mot_torch.kernels import kcf as t_fused
+from tpu_mot_torch.kernels import roi as roi_k
+from tpu_mot_torch.ops import features as feat_ops
 from tpu_mot_torch.ops import kcf as t_kcf
+from tpu_mot_torch.tools import bench as bench_tool
 
 torch.set_num_threads(1)
 
@@ -433,3 +439,236 @@ def test_train_shift_route(device, c, s, width, impl, kernel):
     """K6 for a CUDA spectrum of one channel at S = 64 under "auto" or
     "pallas"; the chain for "xla", the CPU and every other shape."""
     assert t_kcf.train_shift_on_kernel(device, c, s, width, impl) is kernel
+
+
+# ---- K8: stage 2's search at gray S = 64 (the mirror, the route) ---------
+# K8 runs its eight passes on K6's fft64 groups; the mirror repeats them and
+# the peak, sub-pixel and PSR rules in numpy float32.  Tolerances: KCF_TOL's
+# response limit, relative to the largest magnitude of each tensor, for the
+# response, z^, dy, dx, the peak and the PSR; the first maximum's index
+# exactly on rows whose top two response values part by more than 1e-5
+# relative in the plain version (closer values are a tie that rounding may
+# break either way).
+
+K8_RESP = 1e-4
+
+
+def _search_case(kind, k):
+    """(model, feat [k * R, 1, 64, 64]) of one kind: "random", a bank
+    trained on seeded features searched on shifted, noisy copies of them
+    (a solid peak per row); "shifted", the same with the bank trained as
+    stage 8 trains it, on the features' spectra shifted by fractional
+    pixels (its x^ is not Hermitian in the DC and Nyquist columns); or
+    "bench", the windows of bench.py's objects in its generator's first two
+    frames (1080p, 128 objects): the bank trained at frame 0's boxes,
+    searched in frame 1 at the same boxes scaled by the 3-scale search's
+    1/1.05, 1, 1.05 (k = 3) or 1 (k = 1)."""
+    if kind in ("random", "shifted"):
+        rng = np.random.default_rng(40 + k)
+        feat0 = torch.as_tensor(
+            rng.standard_normal((8, 1, 64, 64)).astype(np.float32) * 0.3)
+        moved = torch.roll(feat0, shifts=(3, -5), dims=(-2, -1))
+        feat = torch.cat([moved + torch.as_tensor(rng.standard_normal(
+            moved.shape).astype(np.float32) * 0.05) for _ in range(k)])
+    else:
+        fx = bench_tool.render(height=1080, width=1920, n_obj=128,
+                               n_frames=2, max_tracks=128, max_dets=160)
+        cfg = KCFConfig()
+        frames = torch.as_tensor(fx.frames)
+        boxes = torch.as_tensor(fx.gt_boxes[0])
+        scales = (1.0,) if k == 1 else (1 / 1.05, 1.0, 1.05)
+
+        def windows(f, scale):
+            wh = torch.tensor([1.0, 1.0, scale, scale])
+            return feat_ops.extract_features(roi_k.extract_patches_ref(
+                frames[f], boxes * wh, cfg.padding, cfg.template_size), cfg)
+
+        feat0 = windows(0, 1.0)
+        feat = torch.cat([windows(1, sc) for sc in scales]).contiguous()
+    yf = t_kcf.make_yf(64, 2.5, 0.125)
+    zf = torch.fft.rfft2(feat0)
+    if kind == "shifted":
+        shift = torch.linspace(-7.3, 7.7, feat0.shape[0])
+        zf = t_kcf.shift_spectrum(zf, shift, shift.flip(0), 64)
+    model = t_kcf.KCFModel(*[x.contiguous() for x in t_kcf.train_from_spectrum(
+        zf, yf, 0.2, 1e-4, 64)])
+    return model, feat
+
+
+def _separated(response):
+    """Rows whose two largest values part by more than 1e-5 relative."""
+    top = response.reshape(response.shape[0], -1).topk(2, dim=1).values
+    return (top[:, 0] - top[:, 1]) > 1e-5 * top[:, 0].abs()
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("kind", ["random", "shifted", "bench"])
+def test_search64_mirror_matches_plain_version(kind, k):
+    model, feat = _search_case(kind, k)
+    want = t_fused.search_fused_ref(model, feat, 0.2)
+    got = t_fused.search64_mirror(model.xf.numpy(), model.alphaf.numpy(),
+                                  feat.numpy(), 0.2)
+    got = t_fused.SearchRows(*got)
+    n = feat.shape[0]
+    assert got.zf.shape == (n, 1, 64, 33) and got.response.shape == (n, 64,
+                                                                     64)
+    assert got.idx.dtype == np.int64 and got.psr.dtype == np.float32
+    sep = _separated(want.response).numpy()
+    assert sep.mean() >= 0.9
+    np.testing.assert_array_equal(got.idx[sep], want.idx.numpy()[sep])
+    same = got.idx == want.idx.numpy()
+    for name in ("zf", "response"):
+        assert _max_rel(getattr(got, name),
+                        getattr(want, name).numpy()) <= K8_RESP, name
+    for name in ("dy", "dx", "peak", "psr"):
+        assert _max_rel(getattr(got, name)[same],
+                        getattr(want, name).numpy()[same]) <= K8_RESP, name
+
+
+def test_search_plain_version_is_the_chain():
+    """search_fused_ref, the CPU wrapper and ops/kcf.search on the CPU under
+    every impl give the chain's values bit for bit: rfft2,
+    detect_from_spectrum, peak_displacement, psr; the CPU launches
+    nothing, and the chain's Search carries no PSR."""
+    model, feat = _search_case("random", 3)
+    r = model.xf.shape[0]
+    zf = torch.fft.rfft2(feat.reshape(3, r, 1, 64, 64))
+    resp = t_kcf.detect_from_spectrum(model, zf, 0.2, 64).reshape(3 * r, 64,
+                                                                  64)
+    dy, dx, peak, idx = t_kcf.peak_displacement(resp)
+    chain = (zf.reshape(3 * r, 1, 64, 33), resp, dy, dx, peak, idx,
+             t_kcf.psr(resp, peak, idx))
+    before = t_fused.launches_search
+    for rows in (t_fused.search_fused_ref(model, feat, 0.2),
+                 t_fused.search_fused(model, feat, 0.2)):
+        for g, w in zip(rows, chain):
+            assert torch.equal(g, w)
+    wts = torch.tensor([0.95, 1.0, 0.95])
+    for impl in ("auto", "xla", "pallas"):
+        found = t_kcf.search(model, feat.reshape(3, r, 1, 64, 64), 0.2, wts,
+                             impl)
+        assert found.psr is None
+        if impl != "pallas":
+            assert torch.equal(found.response.reshape(3 * r, 64, 64), resp)
+            assert torch.equal(found.idx.reshape(-1), idx)
+    with pytest.raises(ValueError, match="multiple"):
+        t_fused.search_fused(model, feat[:5], 0.2)
+    assert t_fused.launches_search == before
+
+
+@pytest.mark.parametrize("device,c,s,width,impl,kernel", [
+    ("cuda", 1, 64, 64, "auto", True),
+    ("cuda", 1, 64, 64, "pallas", False),    # K4
+    ("cuda", 1, 64, 64, "xla", False),
+    ("cpu", 1, 64, 64, "auto", False),
+    ("cpu", 1, 64, 64, "pallas", False),
+    ("cuda", 31, 16, 16, "auto", False),     # fHOG-31
+    ("cuda", 1, 48, 48, "auto", False),      # bench_template_size
+    ("cuda", 1, 32, 32, "auto", False),
+    ("cuda", 3, 64, 64, "auto", False),
+])
+def test_search_route(device, c, s, width, impl, kernel):
+    """K8 for CUDA features of one channel at S = 64 under "auto"; K4 for
+    "pallas"; the chain for "xla", the CPU and every other shape."""
+    assert t_kcf.search_on_kernel(device, c, s, width, impl) is kernel
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_unit_psr_reads_the_kernel_psr_or_computes_it(k):
+    """ops/kcf.unit_psr: the chain's Search (no PSR) gives psr of the
+    unit-scale response (K // 2) bit for bit; a Search that carries a PSR,
+    as K8's does, gives that row of it."""
+    model, feat = _search_case("random", k)
+    r = model.xf.shape[0]
+    wts = torch.ones(k) if k == 1 else torch.tensor([0.95, 1.0, 0.95])
+    found = t_kcf.search(model, feat.reshape(k, r, 1, 64, 64), 0.2, wts,
+                         "auto")
+    unit = k // 2
+    assert torch.equal(t_kcf.unit_psr(found), t_kcf.psr(
+        found.response[unit], found.peaks[unit], found.idx[unit]))
+    carried = torch.arange(k * r, dtype=torch.float32).reshape(k, r)
+    assert torch.equal(t_kcf.unit_psr(found._replace(psr=carried)),
+                       carried[unit])
+
+
+@pytest.mark.parametrize("fault", [None, "response"])
+def test_smoke_holds_each_search_call(monkeypatch, fault):
+    """chip_smoke.kernels_checked on the K8 wrapper: each call is filed at
+    its shape and held to K8_TOL against the plain version; a call over it
+    by its response alone also gets its float64 readings (`k8_f64`: K8's
+    and the plain version's response error against the chain in float64),
+    which the dist phase's detector cells hold to K8_F64_RATIO.  On the CPU
+    the wrapper computes the plain version; a wrapper whose response is
+    3e-4 off, its peak, fit and PSR recomputed from it, stands in for a
+    faulty kernel."""
+    import chip_smoke
+
+    model, feat = _search_case("random", 1)
+    fused = t_fused.search_fused
+    if fault:
+        def off(m, f, sigma):
+            rows = fused(m, f, sigma)
+            resp = rows.response * (1.0 + 3e-4)
+            dy, dx, peak, idx = t_kcf.peak_displacement(resp)
+            return t_fused.SearchRows(rows.zf, resp, dy, dx, peak, idx,
+                                      t_kcf.psr(resp, peak, idx))
+        monkeypatch.setattr(t_fused, "search_fused", off)
+    wrapper = t_fused.search_fused
+    with chip_smoke.kernels_checked() as st:
+        t_fused.search_fused(model, feat, 0.2)
+    assert t_fused.search_fused is wrapper
+    assert st.calls == {("kcf_search", tuple(feat.shape)): 1}
+    (err,) = st.by_kernel()["kcf_search"]
+    if fault is None:
+        assert err == 0.0 and st.k8_f64 == []
+    else:
+        assert err == math.inf and len(st.k8_f64) == 1
+        k8, plain = st.k8_f64[0]
+        assert plain < 1e-5 < 2e-4 < k8
+        assert k8 > chip_smoke.K8_F64_RATIO * plain
+
+
+@pytest.mark.parametrize("pairs,totals,slots,tie", [
+    ((40, 40), (16.2802, 16.3224), 11, True),    # 0.042 over 11 slots
+    ((40, 40), (16.2802, 16.2802), 2, True),
+    ((40, 40), (10.0, 10.06), 2, False),          # over 1.25 eps a slot
+    ((40, 39), (16.2802, 16.2802), 2, False),     # another number of pairs
+])
+def test_smoke_tie_rule(pairs, totals, slots, tie):
+    """chip_smoke.is_tie: two matchings from one bank tie when they hold as
+    many pairs and their float64-scored totals part by at most
+    E2E_TIE_EPS (1.25 auction eps) for each slot they match otherwise."""
+    import chip_smoke
+
+    t = dict(frame=0, slots=slots, K8=(pairs[0], totals[0]),
+             plain=(pairs[1], totals[1]))
+    assert chip_smoke.is_tie(t) is tie
+
+
+def test_smoke_step_ties_on_the_cpu():
+    """chip_smoke.step_ties on a small clip on the CPU, where K8's wrapper
+    and its plain version are the same chain: the steps equal run_sequence
+    (every output field) and no frame has a choice to witness."""
+    import chip_smoke
+    from tpu_mot_torch.config import TrackerConfig
+    from tpu_mot_torch.data import synthetic
+    from tpu_mot_torch.tracker import api, bank as bank_mod, scan
+
+    h, w, n = 96, 128, 4
+    objs = synthetic.make_objects(3, h, w, np.random.default_rng(1))
+    frames, boxes, vis = synthetic.render_sequence(objs, n, h, w, seed=1)
+    cfg = TrackerConfig(max_tracks=8, max_detections=8, frame_height=h,
+                        frame_width=w)
+    dets = synthetic.detections_from_gt(boxes, vis, seed=1, frame_hw=(h, w))
+    d = np.zeros((n, 8, 5), np.float32)
+    v = np.zeros((n, 8), bool)
+    for f in range(n):
+        d[f], v[f] = api.pad_detections(dets[f], 8)
+    frames, d, v = (torch.as_tensor(x) for x in (frames, d, v))
+    bank = bank_mod.empty_bank(cfg, device="cpu")
+    _, run = scan.run_sequence(bank, frames, d, v, cfg)
+    steps, ties = chip_smoke.step_ties(bank, frames, d, v, cfg)
+    assert ties == []
+    for g, want in zip(steps, run):
+        assert torch.equal(g, want)
+    assert int(run.valid.sum()) > 0

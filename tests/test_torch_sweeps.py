@@ -383,9 +383,10 @@ def test_class_aware_decisions_against_class_blind(runs):
                               chip_smoke.TRAIN_SITE_LAUNCHES])
 def test_train_site_launches_a_frame(monkeypatch, row):
     """Each kernel wrapper's calls in a --small run of the row on the CPU
-    through the kernel path (roi_impl="pallas"), over its frames.  K6 is
-    chosen by the device, so its count is of the calls whose input would
-    take it on the card (`ops/kcf.train_shift_on_kernel` with "cuda")."""
+    through the kernel path (roi_impl="pallas"), over its frames.  K6 and
+    K8 are chosen by the device, so their counts are of the calls whose
+    input would take them on the card (`ops/kcf.train_shift_on_kernel` and
+    `ops/kcf.search_on_kernel` with "cuda")."""
     calls = dict.fromkeys(chip_smoke.KERNELS, 0)
     for mod, attr, kernel in (
             (roi_k, "extract_patches", "roi_extract"),
@@ -406,6 +407,13 @@ def test_train_site_launches_a_frame(monkeypatch, row):
         return blend_auto(model, zf, dy, dx, yf, sigma, lambda_, lr, width,
                           impl)
     monkeypatch.setattr(kcf_ops, "train_shift_blend_auto", shift_counted)
+    search = kcf_ops.search
+
+    def search_counted(model, feats, sigma, scale_wts, impl="auto"):
+        calls["kcf_search"] += kcf_ops.search_on_kernel(
+            "cuda", *feats.shape[2:], impl)
+        return search(model, feats, sigma, scale_wts, impl)
+    monkeypatch.setattr(kcf_ops, "search", search_counted)
     fx = bench.fixture(small=True)
     cfg = bench_train_site.config(fx, *row).replace(roi_impl="pallas")
     t_scan.run_sequence(t_bank.empty_bank(cfg, device="cpu"),

@@ -1,7 +1,7 @@
-// Fused KCF detect (K4), train + blend (K5) and detect-site train + blend
-// from a spectrum (K6, at the end of the file): the whole FFT-domain chain
-// of one item in one CTA, with only the inputs read from and the results
-// written to device memory.
+// Fused KCF detect (K4), train + blend (K5), detect-site train + blend from
+// a spectrum (K6) and stage 2's gray search (K8; K6 and K8 at the end of the
+// file): the whole FFT-domain chain of one item in one CTA, with only the
+// inputs read from and the results written to device memory.
 //
 // Replaces the TPU kernels tpu_mot/kernels/kcf.py:detect_fused (body
 // _detect_kernel) and tpu_mot/kernels/kcf.py:train_fused (body
@@ -1309,6 +1309,485 @@ kcf_train_shift_kernel(const float4* __restrict__ zf,
   }
 }
 
+// ---- K8: stage 2's search at S = 64, C = 1 -------------------------------
+//
+// Stage 2 of the tracker step at the default gray 64 x 64 template: the
+// correlation of the windowed features of item i = k R + r (scale-major)
+// with model row r, and what the tracker reads of the response, i.e.
+// ops/kcf.search's chain rfft2 -> detect_from_spectrum (eqs. 31, 22) ->
+// peak_displacement -> psr, on [K R, 1, 64, 64] features.  It replaces no
+// TPU kernel (the JAX package leaves the unit-scale gray search to XLA); it
+// was added because the chain ran as ~190 launches (a dozen full-size
+// intermediates, two cuFFT round trips, psr's masks), ~15.4 ms a step at
+// R = 32,768 on the H100, about 19 times its bound.
+//
+// Bound: bytes.  An item reads its features (16,384 B), the model's x^ and
+// alpha^ (2 x 16,896 B) and writes z^ (16,896 B, which stage 8's K6 reads)
+// and the response (16,384 B, which the appearance term reads) and five
+// scalars: 83.5 KB, 2.74 GB at 32,768 items, 0.82 ms at 3.35 TB/s.  The
+// arithmetic (eight passes of 32 64-point FFTs, 4,096 exp, the peak and
+// two sidelobe sums) is ~0.4 ms at the float32 peak; counted in issued
+// instructions (the transposes through shared memory, the shuffles, the
+// index arithmetic) it is near 1 ms, so the design keeps every pass in
+// registers and shared memory and several items in flight per SM.  On an
+// H100 (700 W) it takes 1.53 ms at 32,768 items, 53% of the byte bound,
+// against 16.8 ms for the chain.
+//
+// Design: K6's (one CTA of 256 threads per item, four CTAs per SM, the same
+// `fft64` on groups of 8 lanes, the same planes at row stride 36, the same
+// transpose scratch); no intermediate leaves the SM.
+//   0. The model row's x^ and alpha^ (264 lines) are prefetched into L2 at
+//      entry; each is read in the column pass that uses it.
+//   1. Rows 2p and 2p + 1 of the features (group p) go through one complex
+//      transform; z's energy is summed from the features (Parseval's other
+//      side).  The half spectra land in the planes.
+//   2. Columns (group g takes column g; group 0 takes the real columns 0
+//      and 32 as one complex transform and splits them through the planes'
+//      spare columns 33-35): forward -> z^, stored to device memory -> c^ =
+//      z^ conj(x^) and x's Parseval energy -> inverse, in registers (a
+//      transform leaves lane j with the outputs j + 8 k, the order the next
+//      transform of the same lane takes).
+//      Columns 0 and 32 of c^ go back through one transform as h0 + i h32,
+//      their Hermitian parts, whose inverses are the real parts of theirs
+//      (C2R semantics: the imaginary parts of DC and Nyquist are dropped).
+//      x^ need not be Hermitian there: K6 trains the bank on a fractionally
+//      shifted spectrum.
+//   3. Per row pair: inverse -> k = exp(-max(zz + xx - 2 cross, 0) /
+//      (sigma^2 4096)) -> forward, as K6's pass 3.
+//   4. Columns: forward -> k^ alpha^ -> inverse, as pass 2 (no energy).
+//   5. Per row pair: inverse -> the response, to device memory and to the
+//      group's own scratch (its last transform is done with it).
+//   6. On the response in shared memory: the first maximum in torch.argmax's
+//      order (NaN first, then the larger value, then the lower flat index;
+//      a total order, so any reduction tree gives the same index), the
+//      parabolic sub-pixel fit of peak_displacement (1e-8 guard, +-0.5 clip,
+//      interior rule) and psr's ratio over the sidelobe outside the 5-pixel
+//      exclusion (its size counted from the window's clipped extent, its
+//      mean, then the sum of squared deviations: two passes, as psr).
+// Sums run in a fixed order and nothing is atomic: an item's result depends
+// on that item alone, bit for bit.  Against the chain (cuFFT) the FFTs round
+// otherwise, so the response parts by float32 rounding and a first maximum
+// of two values within that rounding may fall on the other one.
+
+constexpr int kSCtasPerSm = 4;
+constexpr int kSN = kGS * kGS;         // 4096 response points
+constexpr int kSPerThread = kSN / kGThreads;  // 16
+constexpr int kSExclude = 5;           // psr's exclusion window
+
+// torch.argmax's order (GreaterOrNan): whether (a, ia) comes first.
+__device__ __forceinline__ bool first_max_before(float a, int ia, float b,
+                                                 int ib) {
+  if (isnan(a)) return isnan(b) ? ia < ib : true;
+  return a == b ? ia < ib : a > b;
+}
+
+// Response point f (flat index) from the scratch of the row pair's group:
+// row 2p in xre, row 2p + 1 in xim.
+__device__ __forceinline__ float response_at(const float* xre,
+                                             const float* xim, int f) {
+  const int y = f >> 6;
+  return ((y & 1) ? xim : xre)[(y >> 1) * kGX + (f & 63)];
+}
+
+// Fixed-order block sum of one float per thread into red[0..kGWarps); the
+// total is returned to every thread.
+__device__ __forceinline__ float search_block_sum(float s, float* red,
+                                                  int lane, int warp) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) red[warp] = s;
+  __syncthreads();
+  float t = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kGWarps; ++w) t += red[w];
+  return t;
+}
+
+// peak_displacement's sub-pixel offset along one axis.
+__device__ __forceinline__ float subpixel(int p, float peak, float left,
+                                          float right) {
+  const float den = __fsub_rn(__fsub_rn(__fmul_rn(2.0f, peak), left), right);
+  float d = fabsf(den) > 1e-8f
+                ? __fdiv_rn(__fmul_rn(0.5f, __fsub_rn(right, left)),
+                            fmaxf(den, 1e-8f))
+                : 0.0f;
+  d = d < -0.5f ? -0.5f : (d > 0.5f ? 0.5f : d);  // NaN stays NaN
+  return (p > 0 && p < kGS - 1) ? d : 0.0f;
+}
+
+// A group's half spectrum row pair (rows r1, r1 + 1 of the planes) as one
+// complex 64-point input: Q1 + i Q2 for kx <= 31, conj Q1 + i conj Q2 at
+// 64 - kx above.
+__device__ __forceinline__ void load_row_pair(const float* wre,
+                                              const float* wim, int r1,
+                                              int j, float2 (&v)[8]) {
+  const float* a1r = wre + r1 * kGW;
+  const float* a1i = wim + r1 * kGW;
+  const float* a2r = a1r + kGW;
+  const float* a2i = a1i + kGW;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if (n < 4) {
+      const int c = j + 8 * n;
+      v[n] = make_float2(a1r[c] - a2i[c], a1i[c] + a2r[c]);
+    } else {
+      const int c = kGS - j - 8 * n;
+      v[n] = make_float2(a1r[c] + a2i[c], a2r[c] - a1i[c]);
+    }
+  }
+}
+
+// The transform of two real rows (v = a + i b, forward, natural lanes)
+// split into their half spectra, written to rows r1 and r1 + 1.
+__device__ __forceinline__ void store_row_pair(float* wre, float* wim,
+                                               int r1, int j, int lane,
+                                               const float2 (&v)[8]) {
+  float2 m[8];
+  mirrored(v, j, lane, m);
+  float* b1r = wre + r1 * kGW;
+  float* b1i = wim + r1 * kGW;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int c = j + 8 * k;
+    if (k < 4 || j == 0) {
+      b1r[c] = 0.5f * (v[k].x + m[k].x);
+      b1i[c] = 0.5f * (v[k].y - m[k].y);
+      b1r[c + kGW] = 0.5f * (v[k].y + m[k].y);
+      b1i[c + kGW] = 0.5f * (m[k].x - v[k].x);
+    }
+  }
+}
+
+// Group g's column of the planes (group 0: the real columns 0 and 32 as
+// one complex input), lane j taking rows 8 n + j.
+__device__ __forceinline__ void load_column(const float* wre,
+                                            const float* wim, int g, int j,
+                                            float2 (&v)[8]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int at = (8 * n + j) * kGW;
+    v[n] = make_float2(wre[at + g], g == 0 ? wre[at + 32] : wim[at + g]);
+  }
+}
+
+// The inverse column transform's outputs (lane j: rows j + 8 k) back to the
+// planes; group 0's real and imaginary parts are columns 0 and 32, whose
+// own imaginary parts are dropped.
+__device__ __forceinline__ void store_column(float* wre, float* wim, int g,
+                                             int j, const float2 (&v)[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int at = (j + 8 * k) * kGW;
+    if (g == 0) {
+      wre[at] = v[k].x;
+      wim[at] = 0.0f;
+      wre[at + 32] = v[k].y;
+      wim[at + 32] = 0.0f;
+    } else {
+      wre[at + g] = v[k].x;
+      wim[at + g] = v[k].y;
+    }
+  }
+}
+
+// Group 0's real columns 0 and 32 between a forward and an inverse column
+// transform, through the planes' spare columns 33-35, which no other group
+// touches (the row passes read columns 0-32).  On entry v holds Z = A + i B,
+// the forward transform of the two columns (lane j: rows ky = j + 8 k);
+// mul(k, ky, A, B, pa, pb) gives the two products at ky.  On return v holds
+// h_a + i h_b, the Hermitian parts (c(ky) + conj c(-ky)) / 2 of both
+// products, whose one inverse has the real parts of the two columns' own
+// inverses as its real and imaginary parts: C2R semantics, which drop the
+// imaginary parts of DC and Nyquist after the column transform.  (A bank
+// trained on a fractionally shifted spectrum, K6's in stage 8, is not
+// Hermitian in these columns.)  Group 0 alone calls it: lanes 0-7 of warp 0.
+template <class Mul>
+__device__ __forceinline__ void dc_nyquist_columns(float2 (&v)[8], int j,
+                                                   float* wre, float* wim,
+                                                   Mul mul) {
+  constexpr unsigned kGroup0 = 0xffu;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int at = (j + 8 * k) * kGW + 33;
+    wre[at] = v[k].x;
+    wim[at] = v[k].y;
+  }
+  __syncwarp(kGroup0);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int ky = j + 8 * k;
+    const int neg = ((kGS - ky) & (kGS - 1)) * kGW + 33;
+    const float mx = wre[neg], my = wim[neg];
+    float2 pa, pb;
+    mul(k, ky, make_float2(0.5f * (v[k].x + mx), 0.5f * (v[k].y - my)),
+        make_float2(0.5f * (v[k].y + my), 0.5f * (mx - v[k].x)), pa, pb);
+    wre[ky * kGW + 34] = pa.x;
+    wim[ky * kGW + 34] = pa.y;
+    wre[ky * kGW + 35] = pb.x;
+    wim[ky * kGW + 35] = pb.y;
+  }
+  __syncwarp(kGroup0);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int at = (j + 8 * k) * kGW;
+    const int neg = ((kGS - j - 8 * k) & (kGS - 1)) * kGW;
+    const float ax = 0.5f * (wre[at + 34] + wre[neg + 34]);
+    const float ay = 0.5f * (wim[at + 34] - wim[neg + 34]);
+    const float bx = 0.5f * (wre[at + 35] + wre[neg + 35]);
+    const float by = 0.5f * (wim[at + 35] - wim[neg + 35]);
+    v[k] = make_float2(ax - by, ay + bx);
+  }
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
+  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
+}
+
+// K8: grid = N items; item i against model row i % R.
+__global__ void __launch_bounds__(kGThreads, kSCtasPerSm)
+kcf_search_kernel(const float* __restrict__ feat,
+                  const float2* __restrict__ xf,
+                  const float2* __restrict__ alphaf,
+                  const float2* __restrict__ twg,
+                  float2* __restrict__ out_zf, float* __restrict__ out_resp,
+                  float* __restrict__ out_stats,
+                  long long* __restrict__ out_idx, int N, int R,
+                  float denom) {
+  __shared__ float wre[kGS * kGW];   // [ky or y][kx] planes
+  __shared__ float wim[kGS * kGW];
+  __shared__ float xre[32 * kGX];    // a group's transpose scratch; at the
+  __shared__ float xim[32 * kGX];    // end its rows of the response
+  __shared__ float2 tw[kGS];
+  __shared__ float red[4 * kGWarps];
+  __shared__ int red_i[kGWarps];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int j = tid & 7;
+  const int grp = tid >> 3;
+  float* sr = xre + grp * kGX;
+  float* si = xim + grp * kGX;
+  const size_t item = blockIdx.x;
+  const size_t mrow = item % (size_t)R;
+  const float2* xm = xf + mrow * (kGS * kGSf);
+  const float2* am = alphaf + mrow * (kGS * kGSf);
+
+  // 0. x^ is read in pass 2, alpha^ in pass 4: their 2 x 132 lines into L2.
+  for (int q = tid; q < 2 * (kGN4 / 8); q += kGThreads) {
+    const float2* p = q < kGN4 / 8 ? xm + 16 * q : am + 16 * (q - kGN4 / 8);
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+  }
+  if (tid < kGS) tw[tid] = twg[tid];
+
+  // 1. Forward rows 2 p, 2 p + 1 (p = grp) as one complex transform.
+  float2 v[8];
+  float ez = 0.0f;
+  {
+    const float* fr = feat + item * kSN + (2 * grp) * kGS;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float a = __ldcs(fr + 8 * n + j);
+      const float b = __ldcs(fr + kGS + 8 * n + j);
+      v[n] = make_float2(a, b);
+      ez += a * a + b * b;
+    }
+  }
+  __syncthreads();  // the twiddles
+  fft64<false>(v, j, sr, si, tw);
+  store_row_pair(wre, wim, 2 * grp, j, lane, v);
+  __syncthreads();
+
+  // 2. Columns: forward -> z^ (stored) -> z^ conj(x^) -> inverse.
+  float ex = 0.0f;
+  {
+    const int g = grp;
+    float2 xv[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) xv[k] = __ldg(xm + (j + 8 * k) * kGSf + g);
+    load_column(wre, wim, g, j, v);
+    fft64<false>(v, j, sr, si, tw);
+    float2* zo = out_zf + item * (kGS * kGSf);
+    if (g == 0) {
+      dc_nyquist_columns(v, j, wre, wim,
+                         [&](int k, int ky, float2 z0, float2 z32,
+                             float2& c0, float2& c32) {
+                           const float2 x32 = __ldg(xm + ky * kGSf + 32);
+                           zo[ky * kGSf] = z0;
+                           zo[ky * kGSf + 32] = z32;
+                           ex += (xv[k].x * xv[k].x + xv[k].y * xv[k].y) +
+                                 (x32.x * x32.x + x32.y * x32.y);
+                           c0 = cmul_conj(z0, xv[k]);
+                           c32 = cmul_conj(z32, x32);
+                         });
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        zo[(j + 8 * k) * kGSf + g] = v[k];
+        ex += 2.0f * (xv[k].x * xv[k].x + xv[k].y * xv[k].y);
+        v[k] = cmul_conj(v[k], xv[k]);
+      }
+    }
+    fft64<true>(v, j, sr, si, tw);
+    store_column(wre, wim, g, j, v);
+  }
+  // Both energies, in a fixed order (the barrier publishes pass 2 too).
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    ez += __shfl_xor_sync(0xffffffffu, ez, o);
+    ex += __shfl_xor_sync(0xffffffffu, ex, o);
+  }
+  if (lane == 0) {
+    red[warp] = ez;
+    red[kGWarps + warp] = ex;
+  }
+  __syncthreads();
+  float zz = 0.0f, xx = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kGWarps; ++w) {
+    zz += red[w];
+    xx += red[kGWarps + w];
+  }
+  const float energies = zz + xx * (1.0f / (float)kSN);
+  const float inv_n = 1.0f / (float)kSN;
+
+  // 3. Rows: inverse -> the Gaussian kernel -> forward.
+  load_row_pair(wre, wim, 2 * grp, j, v);
+  fft64<true>(v, j, sr, si, tw);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    v[k] = make_float2(
+        expf(-fmaxf(energies - 2.0f * (v[k].x * inv_n), 0.0f) / denom),
+        expf(-fmaxf(energies - 2.0f * (v[k].y * inv_n), 0.0f) / denom));
+  }
+  fft64<false>(v, j, sr, si, tw);
+  store_row_pair(wre, wim, 2 * grp, j, lane, v);
+  __syncthreads();
+
+  // 4. Columns: forward -> k^ alpha^ -> inverse.
+  {
+    const int g = grp;
+    float2 av[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) av[k] = __ldg(am + (j + 8 * k) * kGSf + g);
+    load_column(wre, wim, g, j, v);
+    fft64<false>(v, j, sr, si, tw);
+    if (g == 0) {
+      dc_nyquist_columns(v, j, wre, wim,
+                         [&](int k, int ky, float2 k0, float2 k32,
+                             float2& r0, float2& r32) {
+                           r0 = cmul(k0, av[k]);
+                           r32 = cmul(k32, __ldg(am + ky * kGSf + 32));
+                         });
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = cmul(v[k], av[k]);
+    }
+    fft64<true>(v, j, sr, si, tw);
+    store_column(wre, wim, g, j, v);
+  }
+  __syncthreads();
+
+  // 5. Rows: inverse -> the response, out and into the group's scratch.
+  load_row_pair(wre, wim, 2 * grp, j, v);
+  fft64<true>(v, j, sr, si, tw);
+  {
+    float* ro = out_resp + item * kSN + (2 * grp) * kGS;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      v[k] = make_float2(v[k].x * inv_n, v[k].y * inv_n);
+      __stcs(ro + j + 8 * k, v[k].x);
+      __stcs(ro + kGS + j + 8 * k, v[k].y);
+    }
+    __syncwarp();  // the transform's last scratch reads are done
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      sr[j + 8 * k] = v[k].x;
+      si[j + 8 * k] = v[k].y;
+    }
+  }
+  __syncthreads();
+
+  // 6. First maximum, sub-pixel fit, PSR.
+  float best = response_at(xre, xim, tid);
+  int bi = tid;
+#pragma unroll
+  for (int i = 1; i < kSPerThread; ++i) {
+    const int f = tid + i * kGThreads;
+    const float r = response_at(xre, xim, f);
+    if (first_max_before(r, f, best, bi)) {
+      best = r;
+      bi = f;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    if (first_max_before(ov, oi, best, bi)) {
+      best = ov;
+      bi = oi;
+    }
+  }
+  if (lane == 0) {
+    red[2 * kGWarps + warp] = best;
+    red_i[warp] = bi;
+  }
+  __syncthreads();
+  best = red[2 * kGWarps];
+  bi = red_i[0];
+#pragma unroll
+  for (int w = 1; w < kGWarps; ++w) {
+    if (first_max_before(red[2 * kGWarps + w], red_i[w], best, bi)) {
+      best = red[2 * kGWarps + w];
+      bi = red_i[w];
+    }
+  }
+  const int py = bi >> 6;
+  const int px = bi & 63;
+  const int wy = min(py + kSExclude, kGS - 1) - max(py - kSExclude, 0) + 1;
+  const int wx = min(px + kSExclude, kGS - 1) - max(px - kSExclude, 0) + 1;
+  const float count = fmaxf((float)(kSN - wy * wx), 1.0f);
+  float s1 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kSPerThread; ++i) {
+    const int f = tid + i * kGThreads;
+    if (abs((f >> 6) - py) > kSExclude || abs((f & 63) - px) > kSExclude) {
+      s1 += response_at(xre, xim, f);
+    }
+  }
+  const float mean =
+      search_block_sum(s1, red + 3 * kGWarps, lane, warp) / count;
+  float s2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kSPerThread; ++i) {
+    const int f = tid + i * kGThreads;
+    if (abs((f >> 6) - py) > kSExclude || abs((f & 63) - px) > kSExclude) {
+      const float d = response_at(xre, xim, f) - mean;
+      s2 += d * d;
+    }
+  }
+  const float var = search_block_sum(s2, red, lane, warp) / count;
+  if (tid == 0) {
+    const float ly = response_at(xre, xim, max(py - 1, 0) * kGS + px);
+    const float ry = response_at(xre, xim, min(py + 1, kGS - 1) * kGS + px);
+    const float lx = response_at(xre, xim, py * kGS + max(px - 1, 0));
+    const float rx = response_at(xre, xim, py * kGS + min(px + 1, kGS - 1));
+    const float half = (float)(kGS / 2);
+    out_stats[item] =
+        __fsub_rn(__fadd_rn((float)py, subpixel(py, best, ly, ry)), half);
+    out_stats[N + item] =
+        __fsub_rn(__fadd_rn((float)px, subpixel(px, best, lx, rx)), half);
+    out_stats[2 * (size_t)N + item] = best;
+    out_stats[3 * (size_t)N + item] =
+        __fdiv_rn(__fsub_rn(best, mean), sqrtf(__fadd_rn(var, 1e-8f)));
+    out_idx[item] = bi;
+  }
+}
+
 // Opt `kernel` in to `bytes` of dynamic shared memory (above 48 KB this
 // must be asked for).  The attribute is a ceiling: `prepared` holds, per
 // device, what was last asked for, and it is raised only when a larger
@@ -1519,5 +1998,42 @@ extern "C" int tpu_mot_kcf_train_shift(const void* zf, const void* xf,
       static_cast<const float*>(lr), static_cast<const float2*>(tw),
       static_cast<float4*>(out_xf), static_cast<float4*>(out_alphaf), denom,
       lambda);
+  return (int)cudaGetLastError();
+}
+
+// What K8 launches, as tpu_mot_kcf_train_shift_info.  Returns a CUDA error
+// code.
+extern "C" int tpu_mot_kcf_search_info(int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, (const void*)kcf_search_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, (const void*)kcf_search_kernel, kGThreads, 0);
+  info[0] = 0;
+  info[1] = kGThreads;
+  info[2] = attr.numRegs;
+  info[3] = (int)attr.sharedSizeBytes;
+  info[4] = ctas;
+  return (int)err;
+}
+
+// K8.  feat [N, 1, 64, 64] float32; xf [R, 1, 64, 33], alphaf [R, 64, 33]
+// complex64 (interleaved); tw [64] complex64 e^{-2 pi i j / 64}; out_zf
+// [N, 1, 64, 33] complex64; out_resp [N, 64, 64] float32; out_stats [4, N]
+// float32 (dy, dx, peak, psr); out_idx [N] int64; N a multiple of R; denom
+// = sigma^2 4096.  Returns cudaGetLastError().
+extern "C" int tpu_mot_kcf_search(const void* feat, const void* xf,
+                                  const void* alphaf, const void* tw,
+                                  void* out_zf, void* out_resp,
+                                  void* out_stats, void* out_idx, int N,
+                                  int R, float denom, void* stream) {
+  kcf_search_kernel<<<N, kGThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(feat), static_cast<const float2*>(xf),
+      static_cast<const float2*>(alphaf), static_cast<const float2*>(tw),
+      static_cast<float2*>(out_zf), static_cast<float*>(out_resp),
+      static_cast<float*>(out_stats), static_cast<long long*>(out_idx), N, R,
+      denom);
   return (int)cudaGetLastError();
 }

@@ -62,6 +62,8 @@ SIGNATURES = {
     "tpu_mot_kcf_train_shift_info": (_P,),
     "tpu_mot_kcf_train_shift": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _F, _F, _P),
+    "tpu_mot_kcf_search_info": (_P,),
+    "tpu_mot_kcf_search": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "tpu_mot_epilogue": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
 }
 
@@ -153,8 +155,8 @@ def load() -> ctypes.CDLL:
 def launch_info(fn, *shape: int) -> dict:
     """What one of the `*_info` entry points says a kernel launches at
     `shape`: code path (int), threads per CTA, registers per thread,
-    shared memory per CTA (dynamic; K6's is static), CTAs resident per
-    SM."""
+    shared memory per CTA (dynamic; K6's and K8's are static), CTAs
+    resident per SM."""
     info = (ctypes.c_int * 5)()
     check(fn(*shape, info), fn.__name__)
     return dict(zip(("path", "threads", "registers", "smem_bytes",

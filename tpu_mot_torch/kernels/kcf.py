@@ -1,6 +1,6 @@
-"""Fused KCF detect and train: the CUDA kernels K4, K5 and K6 (csrc/kcf.cu)
-and their plain torch versions (K4 and K5 are the counterparts of
-tpu_mot/kernels/kcf.py; K6 has no TPU kernel).
+"""Fused KCF detect, train and search: the CUDA kernels K4, K5, K6 and K8
+(csrc/kcf.cu) and their plain torch versions (K4 and K5 are the
+counterparts of tpu_mot/kernels/kcf.py; K6 and K8 have no TPU kernel).
 
   detect_fused : feat [N, C, S, S] against a model bank of T rows (N a
                  multiple of T; item i reads model row i % T, the
@@ -11,10 +11,15 @@ tpu_mot/kernels/kcf.py; K6 has no TPU kernel).
   train_shift_fused : detect-site training, C = 1 and S = 64 only: the
                  spectrum zf [T, 1, 64, 33] phase-shifted by (dy, dx) [T],
                  trained as train_fused and blended with lr [T]
+  search_fused : stage 2's search, C = 1 and S = 64 only: feat [N, 1, 64,
+                 64] against a bank of R rows (item i, row i % R) -> z^,
+                 the response, its first-max peak with the sub-pixel fit,
+                 and its PSR                    (eqs. 31, 22; `SearchRows`)
 
 The plain versions are the torch.fft chain of ops/kcf.py: `detect` on the
-tiled model, `blend(model, train(feat), lr)`, and blend(model,
-train_from_spectrum(shift_spectrum(zf, dy, dx)), lr).  The wrappers launch the
+tiled model, `blend(model, train(feat), lr)`, blend(model,
+train_from_spectrum(shift_spectrum(zf, dy, dx)), lr), and rfft2 ->
+detect_from_spectrum -> peak_displacement -> psr.  The wrappers launch the
 kernel for CUDA tensors and run the plain version for CPU tensors, as the
 JAX package runs its Pallas kernels in interpret mode on the CPU; for a
 CUDA tensor they launch or raise, never fall back.
@@ -23,11 +28,13 @@ CUDA tensor they launch or raise, never fall back.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from tpu_mot_torch.kernels import _build
+from tpu_mot_torch.ops import fft as fft_ops
 from tpu_mot_torch.ops import kcf as kcf_ops
 
 MAX_S = 64          # direct row/column DFTs: S <= 64
@@ -42,8 +49,10 @@ PATHS = ("direct DFTs", "FFTs in registers (S = 16, C <= 32)")
 launches_detect = 0
 launches_train = 0
 launches_train_shift = 0
+# Kernel launches made by `search_fused` (K8).
+launches_search = 0
 
-# K6's one shape: a gray (C = 1) 64 x 64 template.
+# K6's and K8's one shape: a gray (C = 1) 64 x 64 template.
 SHIFT_S = 64
 
 
@@ -86,6 +95,32 @@ def train_shift_fused_ref(model: kcf_ops.KCFModel, zf: torch.Tensor,
     return kcf_ops.blend(model, kcf_ops.train_from_spectrum(
         kcf_ops.shift_spectrum(zf, dy, dx, width), yf, sigma, lambda_,
         width), lr)
+
+
+class SearchRows(NamedTuple):
+    """What `search_fused` finds for each of its N items."""
+    zf: torch.Tensor         # [N, 1, 64, 33] complex64 feature spectra
+    response: torch.Tensor   # [N, 64, 64]
+    dy: torch.Tensor         # [N] sub-pixel peak offsets from the center
+    dx: torch.Tensor         # [N]
+    peak: torch.Tensor       # [N] peak value
+    idx: torch.Tensor        # [N] int64 flat index of the first maximum
+    psr: torch.Tensor        # [N] peak-to-sidelobe ratio
+
+
+def search_fused_ref(model: kcf_ops.KCFModel, feat: torch.Tensor,
+                     sigma: float) -> SearchRows:
+    """Plain version of `search_fused`: the chain ops/kcf.search runs, on
+    the items as [N / R, R] against the bank: rfft2, detect_from_spectrum,
+    peak_displacement and psr."""
+    n, r = feat.shape[0], model.xf.shape[0]
+    width = feat.shape[-1]
+    zf = fft_ops.rfft2(feat.reshape((n // r, r) + feat.shape[1:]))
+    response = kcf_ops.detect_from_spectrum(model, zf, sigma, width)
+    response = response.reshape((n,) + response.shape[2:])
+    dy, dx, peak, idx = kcf_ops.peak_displacement(response)
+    return SearchRows(zf.reshape((n,) + zf.shape[2:]), response, dy, dx,
+                      peak, idx, kcf_ops.psr(response, peak, idx))
 
 
 def _check(what: str, name: str, t: torch.Tensor, dtype, shape, dev) -> None:
@@ -135,6 +170,11 @@ def train_shift_launch_info() -> dict:
     """What K6 launches, as `detect_launch_info` (its one code path is
     0; shared memory is static)."""
     return _build.launch_info(_build.load().tpu_mot_kcf_train_shift_info)
+
+
+def search_launch_info() -> dict:
+    """What K8 launches, as `train_shift_launch_info`."""
+    return _build.launch_info(_build.load().tpu_mot_kcf_search_info)
 
 
 def _check_shape(what: str, c: int, s: int) -> None:
@@ -266,6 +306,52 @@ def train_shift_fused(model: kcf_ops.KCFModel, zf: torch.Tensor,
             float(sigma * sigma * (s * s)), float(lambda_), stream)
     _build.check(rc, what)
     launches_train_shift += 1
+    return out
+
+
+def search_fused(model: kcf_ops.KCFModel, feat: torch.Tensor,
+                 sigma: float) -> SearchRows:
+    """Stage 2's search of a gray 64 x 64 bank of R rows on feat [N, 1, 64,
+    64], item i against row i % R (N a multiple of R): the feature spectra,
+    the response and what the tracker reads of it (`SearchRows`), into new
+    tensors.  K8 for CUDA tensors (contiguous; K8 reads them element by
+    element, so it needs no alignment beyond their elements'), the plain
+    version for CPU tensors."""
+    global launches_search
+    what = "search_fused"
+    n = feat.shape[0]
+    r = model.xf.shape[0]
+    if r < 1 or n % r:
+        raise ValueError(f"{what}: {n} items is not a multiple of the "
+                         f"model's {r} rows")
+    if not _build.on_card(what, feat):
+        return search_fused_ref(model, feat, sigma)
+    dev = feat.device
+    s, sf = SHIFT_S, SHIFT_S // 2 + 1
+    _check(what, "feat", feat, torch.float32, (n, 1, s, s), dev)
+    _check(what, "xf", model.xf, torch.complex64, (r, 1, s, sf), dev)
+    _check(what, "alphaf", model.alphaf, torch.complex64, (r, s, sf), dev)
+    if n >= 2 ** 31:
+        raise ValueError(f"{what}: {n} items, the grid takes < 2^31")
+    zf = torch.empty((n, 1, s, sf), dtype=torch.complex64, device=dev)
+    response = torch.empty((n, s, s), dtype=torch.float32, device=dev)
+    stats = torch.empty((4, n), dtype=torch.float32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int64, device=dev)
+    out = SearchRows(zf, response, stats[0], stats[1], stats[2], idx,
+                     stats[3])
+    if n == 0:
+        return out
+    lib = _build.load()
+    tw = _twiddles(s, str(dev))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tpu_mot_kcf_search(
+            feat.data_ptr(), model.xf.data_ptr(), model.alphaf.data_ptr(),
+            tw.data_ptr(), zf.data_ptr(), response.data_ptr(),
+            stats.data_ptr(), idx.data_ptr(), n, r,
+            float(sigma * sigma * (s * s)), stream)
+    _build.check(rc, what)
+    launches_search += 1
     return out
 
 
@@ -598,3 +684,130 @@ def train_shift_fused_mirror(xf: np.ndarray, alphaf: np.ndarray,
     new_alphaf = blend(alphaf.astype(np.complex64), y.real * d * inv,
                        y.imag * d * inv, (t, 1, 1))
     return new_xf, new_alphaf
+
+
+# ---- numpy mirror of K8's schedule (csrc/kcf.cu, S = 64) ---------------
+#
+# K8 runs its passes on K6's fft64 groups: rows in pairs through one complex
+# transform (split with `_unpack`), columns one to a group with the real
+# columns 0 and 32 paired, columns 0 and 32 of a product back through one
+# inverse as the sum h0 + i h32 of their Hermitian parts.  `search64_mirror` repeats the passes
+# and the peak, sub-pixel and PSR rules in numpy float32.
+
+def _rows_to_halves(x: np.ndarray) -> np.ndarray:
+    """Real rows [N, 64, 64] -> half spectra [N, 64, 33], rows 2p and 2p + 1
+    through one forward transform."""
+    a, b = _unpack(fft64_mirror((x[:, 0::2] + 1j * x[:, 1::2])
+                                .astype(np.complex64)))
+    out = np.empty((x.shape[0], 64, 33), np.complex64)
+    out[:, 0::2], out[:, 1::2] = a[..., :33], b[..., :33]
+    return out
+
+
+def _halves_to_rows(h: np.ndarray) -> np.ndarray:
+    """Half spectra [N, 64, 33] -> [N, 32, 64] complex, the unnormalised
+    inverse of rows 2p (real part) and 2p + 1 (imaginary part), the
+    imaginary parts of DC and Nyquist not read."""
+    q1, q2 = h[:, 0::2], h[:, 1::2]
+    v = np.empty((h.shape[0], 32, 64), np.complex64)
+    v[..., :32] = (q1.real[..., :32] - q2.imag[..., :32]) + 1j * (
+        q1.imag[..., :32] + q2.real[..., :32])
+    m1, m2 = h[:, 0::2, 32:0:-1], h[:, 1::2, 32:0:-1]
+    v[..., 32:] = (m1.real + m2.imag) + 1j * (m2.real - m1.imag)
+    return fft64_mirror(v, inverse=True)
+
+
+def _columns_forward(h: np.ndarray) -> np.ndarray:
+    """Forward column transforms of row half spectra [N, 64, 33] whose
+    columns 0 and 32 are real -> [N, 33, 64] (kx, ky)."""
+    c = h.transpose(0, 2, 1)
+    out = np.empty(c.shape, np.complex64)
+    out[:, 1:32] = fft64_mirror(np.ascontiguousarray(c[:, 1:32]))
+    out[:, 0], out[:, 32] = _unpack(fft64_mirror(
+        (c[:, 0].real + 1j * c[:, 32].real).astype(np.complex64)))
+    return out
+
+
+def _columns_inverse(c: np.ndarray) -> np.ndarray:
+    """Inverse column transforms of [N, 33, 64] (kx, ky) -> [N, 64, 33]
+    (y, kx); columns 0 and 32 go through one transform as h0 + i h32, their
+    Hermitian parts (c(k) + conj c(-k)) / 2, and come back as the real
+    parts of their own inverses (C2R semantics)."""
+    out = np.empty(c.shape, np.complex64)
+    out[:, 1:32] = fft64_mirror(np.ascontiguousarray(c[:, 1:32]), True)
+    neg = (-np.arange(64)) % 64
+    half = np.float32(0.5)
+    h0, h32 = ((half * (x.real + x.real[..., neg])
+                + 1j * (half * (x.imag - x.imag[..., neg])))
+               .astype(np.complex64) for x in (c[:, 0], c[:, 32]))
+    both = fft64_mirror((h0 + 1j * h32).astype(np.complex64), inverse=True)
+    out[:, 0], out[:, 32] = both.real, both.imag
+    return out.transpose(0, 2, 1)
+
+
+def search64_mirror(xf: np.ndarray, alphaf: np.ndarray, feat: np.ndarray,
+                    sigma: float) -> tuple:
+    """K8 in numpy float32, pass by pass: feat [N, 1, 64, 64] against xf
+    [R, 1, 64, 33] and alphaf [R, 64, 33] (item i, row i % R) -> (zf [N, 1,
+    64, 33], response [N, 64, 64], dy, dx, peak, idx, psr [N]), the fields
+    of `SearchRows`.  z's energy comes from the features, x's from the
+    spectrum."""
+    f32 = np.float32
+    n = feat.shape[0]
+    rows = np.arange(n) % xf.shape[0]
+    x = xf[rows, 0].astype(np.complex64)
+    a = alphaf[rows].astype(np.complex64)
+    p = feat[:, 0].astype(f32)
+    zz = np.sum(p * p, axis=(1, 2), dtype=f32)
+    z = _columns_forward(_rows_to_halves(p))                 # [N, 33, 64]
+    zf = z.transpose(0, 2, 1)[:, None].astype(np.complex64)
+    xc = x.transpose(0, 2, 1)
+    q = _columns_inverse((z * np.conj(xc)).astype(np.complex64))
+    fold = np.array([1.0] + [2.0] * 31 + [1.0], f32)
+    xx = np.sum((x.real * x.real + x.imag * x.imag) * fold, axis=(1, 2),
+                dtype=f32)
+    energies = (zz + xx * f32(1.0 / 4096))[:, None, None]
+    cross = _halves_to_rows(q)
+    denom = f32(sigma * sigma * 4096)
+    inv_n = f32(1.0 / 4096)
+
+    def gauss(v):
+        return np.exp(-np.maximum(energies - f32(2.0) * (v * inv_n), 0)
+                      / denom).astype(f32)
+
+    k = np.empty((n, 64, 64), f32)
+    k[:, 0::2], k[:, 1::2] = gauss(cross.real), gauss(cross.imag)
+    kf = _columns_forward(_rows_to_halves(k))
+    r = _columns_inverse((kf * a.transpose(0, 2, 1)).astype(np.complex64))
+    back = _halves_to_rows(r)
+    response = np.empty((n, 64, 64), f32)
+    response[:, 0::2], response[:, 1::2] = back.real * inv_n, back.imag * inv_n
+    flat = response.reshape(n, 4096)
+    idx = np.argmax(flat, axis=1)
+    at = np.arange(n)
+    peak = flat[at, idx]
+    py, px = idx // 64, idx % 64
+
+    def subpixel(pos, left, right):
+        den = f32(2.0) * peak - left - right
+        with np.errstate(divide="ignore", invalid="ignore"):
+            d = f32(0.5) * (right - left) / np.maximum(den, f32(1e-8))
+        d = np.clip(np.where(np.abs(den) > f32(1e-8), d, f32(0)), -0.5, 0.5)
+        return np.where((pos > 0) & (pos < 63), d, f32(0)).astype(f32)
+
+    dy = (py.astype(f32) + subpixel(
+        py, flat[at, np.maximum(py - 1, 0) * 64 + px],
+        flat[at, np.minimum(py + 1, 63) * 64 + px])) - f32(32)
+    dx = (px.astype(f32) + subpixel(
+        px, flat[at, py * 64 + np.maximum(px - 1, 0)],
+        flat[at, py * 64 + np.minimum(px + 1, 63)])) - f32(32)
+    yy, xs = np.divmod(np.arange(4096), 64)
+    side = ((np.abs(yy[None] - py[:, None]) > 5)
+            | (np.abs(xs[None] - px[:, None]) > 5))
+    count = np.maximum(side.sum(axis=1), 1).astype(f32)
+    mean = np.where(side, flat, f32(0)).sum(axis=1, dtype=f32) / count
+    var = np.where(side, (flat - mean[:, None]) ** 2,
+                   f32(0)).sum(axis=1, dtype=f32) / count
+    psr = (peak - mean) / np.sqrt(var + f32(1e-8))
+    return (zf, response, dy.astype(f32), dx.astype(f32), peak,
+            idx.astype(np.int64), psr.astype(f32))

@@ -147,6 +147,8 @@ class Search(NamedTuple):
     peaks: torch.Tensor      # [K, R] each response's peak value
     idx: torch.Tensor        # [K, R] int64 each response's first-max index
     zf: torch.Tensor | None  # [K, R, C, S, Sf] spectra; None when K4 ran
+    psr: torch.Tensor | None  # [K, R] each response's PSR when K8 ran, else
+                              # None (`unit_psr` reads either)
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,9 +179,12 @@ def search(model: KCFModel, feats: torch.Tensor, sigma: float,
     impl is TrackerConfig.kcf_impl, which the step passes on here:
 
       "auto"    the torch.fft chain here (its spectra are returned, and
-                detect-site training reuses them), except detect-site
-                training of a gray 64 x 64 bank on the card, which is K6
-                (`train_shift_on_kernel` decides by the input)
+                detect-site training reuses them), except a gray 64 x 64
+                bank on the card, whose search is K8 (kernels/kcf.
+                search_fused on the [K*R] items, which also returns the
+                spectra and each response's PSR; `search_on_kernel`
+                decides by the input) and whose detect-site training is K6
+                (`train_shift_on_kernel`)
       "xla"     the torch.fft chain everywhere
       "pallas"  the fused kernel wrappers, on the CPU their plain versions:
                 K4 for this search (kernels/kcf.detect_fused on the [K*R]
@@ -187,20 +192,54 @@ def search(model: KCFModel, feats: torch.Tensor, sigma: float,
                 refined-site training (`train_blend_auto`), and K6 where
                 "auto" takes it"""
     k, r = feats.shape[:2]
-    if impl == "pallas":
+    items = (k * r,) + feats.shape[2:]
+    psr_kr = None
+    if search_on_kernel(feats.device.type, *feats.shape[2:], impl):
         from tpu_mot_torch.kernels import kcf as kcf_kernels
-        flat = kcf_kernels.detect_fused(
-            model, feats.reshape((k * r,) + feats.shape[2:]), sigma)
-        response = flat.reshape((k, r) + flat.shape[1:])
-        zf = None
+        rows = kcf_kernels.search_fused(
+            KCFModel(*[x.contiguous() for x in model]),
+            feats.reshape(items).contiguous(), sigma)
+        response = rows.response.reshape((k, r) + rows.response.shape[1:])
+        zf = rows.zf.reshape((k, r) + rows.zf.shape[1:])
+        dys, dxs, peaks, idx, psr_kr = (
+            x.reshape(k, r)
+            for x in (rows.dy, rows.dx, rows.peak, rows.idx, rows.psr))
     else:
-        zf = fft_ops.rfft2(feats)
-        response = detect_from_spectrum(model, zf, sigma, feats.shape[-1])
-    dys, dxs, peaks, idx = peak_displacement(response)           # [K, R]
+        if impl == "pallas":
+            from tpu_mot_torch.kernels import kcf as kcf_kernels
+            flat = kcf_kernels.detect_fused(model, feats.reshape(items),
+                                            sigma)
+            response = flat.reshape((k, r) + flat.shape[1:])
+            zf = None
+        else:
+            zf = fft_ops.rfft2(feats)
+            response = detect_from_spectrum(model, zf, sigma,
+                                            feats.shape[-1])
+        dys, dxs, peaks, idx = peak_displacement(response)       # [K, R]
     best = torch.argmax(peaks * scale_wts[:, None], dim=0)[None]  # [1, R]
     return Search(dy=dys.gather(0, best)[0], dx=dxs.gather(0, best)[0],
                   peak=peaks.gather(0, best)[0], best=best[0],
-                  response=response, peaks=peaks, idx=idx, zf=zf)
+                  response=response, peaks=peaks, idx=idx, zf=zf,
+                  psr=psr_kr)
+
+
+def unit_psr(found: Search) -> torch.Tensor:
+    """The PSR [R] of `search`'s unit-scale responses (at K // 2): K8's own
+    where it ran, else `psr` of the responses."""
+    unit = found.response.shape[0] // 2
+    if found.psr is not None:
+        return found.psr[unit]
+    return psr(found.response[unit], found.peaks[unit], found.idx[unit])
+
+
+def search_on_kernel(device_type: str, c: int, s: int, width: int,
+                     impl: str) -> bool:
+    """Whether `search` launches the fused kernel K8: CUDA features of one
+    channel at S = width = 64 under kcf_impl "auto".  "pallas" keeps K4;
+    "xla", the CPU and every other shape (fHOG's C = 31, other template
+    sizes) take the FFT chain."""
+    return (device_type == "cuda" and c == 1 and s == width == 64
+            and impl == "auto")
 
 
 def train_blend_auto(model: KCFModel, feat: torch.Tensor, yf: torch.Tensor,

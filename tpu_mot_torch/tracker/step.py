@@ -258,8 +258,7 @@ def _step_streams(bank: TrackBank, frames: torch.Tensor, dets: torch.Tensor,
             if cfg.confidence_mode == "psr":
                 # PSR of the unit-scale response (the scale choice itself
                 # reads the raw weighted peaks).
-                peak = kcf_ops.psr(response, found.peaks[unit],
-                                   found.idx[unit])
+                peak = kcf_ops.unit_psr(found)
             wh = pred_boxes[:, 2:4] * scale_vals[found.best][:, None]
             win = wh * cfg.kcf.padding                           # [S*T, 2]
             kcf_cxy = (pred_boxes[:, :2]
