@@ -48,21 +48,23 @@ nonzero exit, no "ok" line):
              3-scale search's scales, 3 x 128 items on 128 rows) against
              its plain version (K8_TOL), twice (bit-equal), on 4 rows alone
              and on each scale's items alone (equal to the batch's);
-  epilogue   K7 (the ConvBlock epilogue: BatchNorm, leaky ReLU and the
-             shortcut add in place) bit-equal to the chain it replaces
-             (float32 words, NaN too; random values with +-0, infinities,
-             values near float32's largest) at every BatchNorm block's
-             output shape of YOLOv3-608 and yolov3-tiny-416 at batch 2, with
-             the skip where YOLOv3 has one, and at 182 x 32 x 608 x 608 with
-             a skip (past 2^31 elements); then detect_batch on 720p u8
-             frames at the benchmark cells' batches (YOLOv3-608 x 128,
-             yolov3-tiny-416 x 256): launches counted from 0 (72 / 11 K7
-             and no other kernel, no chain block), every K7 call held word
-             for word against the plain version on the path's own inputs,
-             and the detections bit-equal to the chain's; device ms of K7
-             and the chain, and the byte bound, at YOLOv3-608's layer 0 at
-             batch 128 and at its first residual block's shape with the
-             skip;
+  epilogue   K7 (the ConvBlock epilogue: BatchNorm, leaky ReLU or Mish
+             and the shortcut add in place) bit-equal to the chain it
+             replaces (float32 words, NaN too; random values with +-0,
+             infinities, values near float32's largest) at every BatchNorm
+             block's output shape of YOLOv3-608, yolov3-tiny-416 and
+             YOLOv4-608 at batch 2, with the skip where YOLOv3 and YOLOv4
+             have one and Mish where YOLOv4 has it, and at 182 x 32 x 608 x
+             608 with a skip (past 2^31 elements); then detect_batch on 720p
+             u8 frames at the benchmark cells' batches (YOLOv3-608 x 128,
+             yolov3-tiny-416 x 256, YOLOv4-608 x 128): launches counted from
+             0 (72 / 11 / 107 K7, 72 of YOLOv4's with Mish, and no other
+             kernel, no chain block), every K7 call held word for word
+             against the plain version on the path's own inputs, and the
+             detections bit-equal to the chain's; device ms of K7 and the
+             chain, and the byte bound, at YOLOv3-608's and YOLOv4-608's
+             layer 0 at batch 128, at their first residual block's shape
+             with the skip, and at YOLOv4's largest leaky block;
   e2e        the default configuration on bench.py's fixture (seed 0, 128
              objects, 64 frames, 1080p u8) through tracker.scan.run_sequence
              on cuda:0: MOTA >= the JAX reference's MOTA - 0.01, exactly 64
@@ -550,16 +552,23 @@ SWEEP_CHECK_AT = frozenset((0, 1, 2, 3, 20, 21, 22, 23))
 
 
 # K7 (the ConvBlock epilogue).  The nets whose every BatchNorm block's
-# output shape it is checked at (batch 2), with their BatchNorm blocks (K7
-# launches a forward on the card) and the frames a detect_batch call takes
-# in their benchmark cell; the timed shapes (YOLOv3-608's layer 0 at the
-# benchmark's 128 frames, and the second block of its first residual unit
-# with the skip); the shape past 2^31 elements (182 frames of layer 0, 8.6
-# GB).
+# output shape it is checked at (batch 2, with the block's activation), with
+# their BatchNorm blocks (K7 launches a forward on the card) and the frames
+# a detect_batch call takes in their benchmark cell; YOLOv4's Mish blocks
+# (K7's Mish launches a forward); the timed (shape, skip, activation) cases
+# (YOLOv3-608's layer 0 at the benchmark's 128 frames, the second block of
+# its first residual unit with the skip, the same two of YOLOv4-608 with
+# Mish, and YOLOv4's largest leaky block, a 3x3 conv of 256 at stride 8);
+# the shape past 2^31 elements (182 frames of layer 0, 8.6 GB).
 EPILOGUE_NETS = ((YoloSpec("yolov3", input_size=608), 72, 128),
-                 (YoloSpec("yolov3-tiny", input_size=416), 11, 256))
-EPILOGUE_TIMED = (((128, 32, 608, 608), False),
-                  ((128, 64, 304, 304), True))
+                 (YoloSpec("yolov3-tiny", input_size=416), 11, 256),
+                 (YoloSpec("yolov4", input_size=608), 107, 128))
+EPILOGUE_MISH = {"yolov4": 72}
+EPILOGUE_TIMED = (((128, 32, 608, 608), False, "leaky"),
+                  ((128, 64, 304, 304), True, "leaky"),
+                  ((128, 32, 608, 608), False, "mish"),
+                  ((128, 64, 304, 304), True, "mish"),
+                  ((128, 256, 76, 76), False, "leaky"))
 EPILOGUE_BIG = (182, 32, 608, 608)
 
 # Published H100 SXM peaks (the least-time bound of each kernel).
@@ -1374,17 +1383,19 @@ def phase_kcf(hf_inputs, gray_inputs, search_cases, cfg_hf, cfg):
     return errs
 
 
-def block_shapes(spec: YoloSpec, batch: int) -> list[tuple[tuple, bool]]:
-    """(output shape, whether it takes a skip) of every BatchNorm ConvBlock
-    of a forward of `spec` at `batch` gray frames, in order (a forward on
-    the meta device: nothing is allocated)."""
+def block_shapes(spec: YoloSpec, batch: int) -> list[tuple[tuple, bool,
+                                                         str]]:
+    """(output shape, whether it takes a skip, activation) of every
+    BatchNorm ConvBlock of a forward of `spec` at `batch` gray frames, in
+    order (a forward on the meta device: nothing is allocated)."""
     with torch.device("meta"):
         model = yolo_mod.build_model(spec)
     seen = []
 
     def hook(block, args, kwargs, out):
         if block.bn is not None:
-            seen.append((tuple(out.shape), kwargs.get("skip") is not None))
+            seen.append((tuple(out.shape), kwargs.get("skip") is not None,
+                         block.act))
 
     for block in model.modules():
         if isinstance(block, yolo_mod.ConvBlock):
@@ -1441,29 +1452,32 @@ def epilogue_chain():
 
 def phase_epilogue(dev) -> dict:
     """K7 against the chain it replaces: bit-equal at every BatchNorm
-    block's output shape of YOLOv3-608 and yolov3-tiny-416 (batch 2; the
-    skip where YOLOv3 has one) and past 2^31 elements; detect_batch at the
-    benchmark cells' batches with its launches counted (72 / 11 K7, no chain
-    block), every K7 call held to the plain version and the detections
-    equal to the chain's; kernel, bound and chain times.  Returns its row of
-    the kernels line."""
+    block's output shape of YOLOv3-608, yolov3-tiny-416 and YOLOv4-608
+    (batch 2; the skip where YOLOv3 and YOLOv4 have one, Mish where YOLOv4
+    has it) and past 2^31 elements; detect_batch at the benchmark cells'
+    batches with its launches counted (72 / 11 / 107 K7, 72 of them Mish in
+    YOLOv4, no chain block), every K7 call held to the plain version and
+    the detections equal to the chain's; kernel, bound and chain times.
+    Returns its row of the kernels line."""
     t_phase = time.perf_counter()
     batch = 2
     for spec, n_bn, _ in EPILOGUE_NETS:
         blocks = block_shapes(spec, batch)
         assert len(blocks) == bn_blocks(spec) == n_bn, spec.name
         shapes = list(dict.fromkeys(blocks))
-        for i, (shape, skip) in enumerate(shapes):
+        for i, (shape, skip, act) in enumerate(shapes):
             y, mean, mul, bias, s = epilogue_inputs(dev, shape, skip, i)
-            want = epi_k.epilogue_ref(y, mean, mul, bias, s)
+            want = epi_k.epilogue_ref(y, mean, mul, bias, s, act)
             vector = epi_k.vector_path(y, s)
-            got = epi_k.fused(y, mean, mul, bias, s)
+            got = epi_k.fused(y, mean, mul, bias, s, act)
             torch.cuda.synchronize()
             assert got.data_ptr() == y.data_ptr(), shape
-            assert words_equal(got, want), (spec.name, shape, skip, vector)
+            assert words_equal(got, want), (spec.name, shape, skip, act,
+                                            vector)
         log("epilogue", f"{spec.name} {spec.input_size} batch {batch}: K7 "
                         f"bit-equal to the chain at all {len(shapes)} "
-                        f"(shape, skip) cases of its BatchNorm blocks: "
+                        f"(shape, skip, activation) cases of its BatchNorm "
+                        f"blocks: "
                         f"{shapes}")
         del y, s, want, got
     torch.cuda.empty_cache()
@@ -1497,9 +1511,10 @@ def phase_epilogue(dev) -> dict:
             return out
 
         reset_counts()
-        epi_k.chain_blocks = 0
+        epi_k.chain_blocks = epi_k.mish_launches = 0
         got = detect()
         counts, chain = read_counts(), epi_k.chain_blocks
+        mish = epi_k.mish_launches
         with kernels_checked() as st:
             checked = detect()
         errs = st.by_kernel()
@@ -1508,34 +1523,38 @@ def phase_epilogue(dev) -> dict:
         same = [detections_equal(got, x) for x in (checked, want)]
         log("epilogue", f"{spec.name} {spec.input_size}: detect_batch of "
                         f"{frames_n} u8 frames {E2E_H}x{E2E_W}: launches "
-                        f"{counts}, chain blocks {chain}; the K7 calls held "
+                        f"{counts} ({mish} with Mish), chain blocks {chain}; "
+                        f"the K7 calls held "
                         f"to the plain version word for word: "
                         f"{len(errs.get('epilogue', []))}, equal "
                         f"{errs.get('epilogue', []).count(0)}; detections "
                         f"equal to the unchecked run's {same[0]} and to the "
                         f"chain's {same[1]}")
         if not (counts == dict(dict.fromkeys(KERNELS, 0), epilogue=n_bn)
+                and mish == EPILOGUE_MISH.get(spec.name, 0)
                 and chain == 0 and errs == {"epilogue": [0] * n_bn}
                 and all(same)):
             raise AssertionError(f"epilogue: {spec.name} detect_batch: "
-                                 f"launches {counts}, chain blocks {chain}, "
-                                 f"K7 errors {errs}, equal {same}")
+                                 f"launches {counts}, Mish {mish}, chain "
+                                 f"blocks {chain}, K7 errors {errs}, equal "
+                                 f"{same}")
         main_launches.append(counts["epilogue"])
         del model, frames, got, checked, want
         torch.cuda.empty_cache()
 
     row = {}
-    for shape, skip in EPILOGUE_TIMED:
+    for shape, skip, act in EPILOGUE_TIMED:
         y, mean, mul, bias, s = epilogue_inputs(dev, shape, skip)
         reps = 10
-        kernel_ms = device_ms(lambda: epi_k.fused(y, mean, mul, bias, s),
-                              reps)
+        kernel_ms = device_ms(
+            lambda: epi_k.fused(y, mean, mul, bias, s, act), reps)
         chain_ms = device_ms(
-            lambda: epi_k.epilogue_ref(y, mean, mul, bias, s), reps)
+            lambda: epi_k.epilogue_ref(y, mean, mul, bias, s, act), reps)
         b_ms, b_by = bound(y.numel() * 4 * (3 if skip else 2),
                            y.numel() * (6 if skip else 5))
-        log("epilogue", f"{shape} {'with' if skip else 'without'} skip "
-                        f"(vector path {epi_k.vector_path(y, s)}): device "
+        log("epilogue", f"{shape} {act} {'with' if skip else 'without'} "
+                        f"skip (vector path {epi_k.vector_path(y, s)}): "
+                        f"device "
                         f"ms per call (profiler) K7 {kernel_ms:.4f}, bound "
                         f"{b_ms:.4f} ({b_by}; {100 * b_ms / kernel_ms:.1f}% "
                         f"of it), chain {chain_ms:.4f}")
@@ -2025,12 +2044,14 @@ def kernels_checked(at=None):
             sigma)
         return got
 
-    def epilogue(y, mean, mul, bias, skip=None):
-        key = checking("epilogue", (*y.shape, skip is not None))
+    def epilogue(y, mean, mul, bias, skip=None, act="leaky"):
+        key = checking("epilogue", (*y.shape, skip is not None)
+                       + ((act,) if act != "leaky" else ()))
         if key is None:
-            return k7(y, mean, mul, bias, skip)
-        want = epi_k.epilogue_ref(y, mean, mul, bias, skip)  # K7 is in place
-        got = k7(y, mean, mul, bias, skip)
+            return k7(y, mean, mul, bias, skip, act)
+        # K7 is in place
+        want = epi_k.epilogue_ref(y, mean, mul, bias, skip, act)
+        got = k7(y, mean, mul, bias, skip, act)
         st.errs.setdefault(key, []).append(
             0 if words_equal(got, want) else math.inf)
         return got

@@ -27,8 +27,8 @@ and the kernels' own transforms against pocketfft); the detector's heads
 on the card against the CPU's within 1e-4 of the largest |head| (cuDNN
 with TF32 off against oneDNN), and NMS on the card equal index for index
 to NMS on the CPU fed the card's own candidates; the ConvBlock epilogue
-(K7) bit for bit the chain it replaces, and the nets' heads bit for bit
-the chain's.
+(K7, leaky ReLU and Mish) bit for bit the chain it replaces, and the nets'
+heads bit for bit the chain's.
 """
 
 import numpy as np
@@ -1260,6 +1260,44 @@ def test_epilogue_kernel_equals_the_chain(cuda, shape, skip):
     assert t_epi.vector_path(y, s) == (shape[2] * shape[3] % 4 == 0)
 
 
+# Every Mish block's output shape of YOLOv4-608 at one frame (planes of
+# 19 x 19 take the scalar path, the others the vector path).
+MISH_SHAPES = [(1, 32, 608, 608), (1, 64, 304, 304), (1, 32, 304, 304),
+               (1, 128, 152, 152), (1, 64, 152, 152), (1, 256, 76, 76),
+               (1, 128, 76, 76), (1, 512, 38, 38), (1, 256, 38, 38),
+               (1, 1024, 19, 19), (1, 512, 19, 19)]
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["plain", "skip"])
+@pytest.mark.parametrize("shape", MISH_SHAPES, ids=str)
+def test_epilogue_mish_kernel_equals_the_chain(cuda, shape, skip):
+    """K7's Mish path in place into y, one launch counted as Mish, bit for
+    bit the chain (F.mish) on the card."""
+    y, mean, mul, bias, s = _epilogue_inputs(cuda, shape, skip, seed=3)
+    want = t_epi.epilogue_ref(y, mean, mul, bias, s, "mish")
+    before = (t_epi.launches, t_epi.mish_launches)
+    got = t_epi.fused(y.clone(), mean, mul, bias, s, "mish")
+    torch.cuda.synchronize()
+    assert (t_epi.launches, t_epi.mish_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    assert torch.equal(_words(got), _words(want))
+    assert t_epi.vector_path(y, s) == (shape[2] * shape[3] % 4 == 0)
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["plain", "skip"])
+def test_epilogue_mish_kernel_takes_unaligned_tensors(cuda, skip):
+    """Mish on the scalar path for a plane that is a multiple of 4 at an
+    address that is not 16-byte aligned, bit for bit the chain."""
+    shape = (2, 8, 16, 16)
+    y, mean, mul, bias, s = _epilogue_inputs(cuda, shape, skip, seed=4)
+    off = torch.empty(y.numel() + 1, device=cuda)[1:].view(shape)
+    off.copy_(y)
+    assert not t_epi.vector_path(off, s)
+    got = t_epi.fused(off, mean, mul, bias, s, "mish")
+    assert torch.equal(_words(got), _words(
+        t_epi.epilogue_ref(y, mean, mul, bias, s, "mish")))
+
+
 @pytest.mark.parametrize("skip", [False, True], ids=["plain", "skip"])
 def test_epilogue_kernel_takes_unaligned_tensors(cuda, skip):
     """A plane that is a multiple of 4 at an address that is not 16-byte
@@ -1301,21 +1339,24 @@ def test_epilogue_route_on_card(cuda, case):
 @pytest.mark.parametrize("name,bn_blocks", [("yolov3", 72),
                                             ("yolov3-tiny", 11),
                                             ("yolov2", 22),
-                                            ("yolov2-tiny", 8)])
+                                            ("yolov2-tiny", 8),
+                                            ("yolov4", 107)])
 def test_yolo_heads_on_card_equal_the_chains(cuda, monkeypatch, name,
                                              bn_blocks):
-    """A forward on the card launches K7 in every BatchNorm block and runs
-    no chain; its heads equal, bit for bit, the same forward with the chain
-    in every block."""
+    """A forward on the card launches K7 in every BatchNorm block (Mish in
+    YOLOv4's 72 backbone blocks) and runs no chain; its heads equal, bit for
+    bit, the same forward with the chain in every block."""
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     model = small_detector(name, cuda).model
     x = torch.as_tensor(np.random.default_rng(2).random(
         (2, 1, 64, 64)).astype(np.float32), device=cuda)
-    before = (t_epi.launches, t_epi.chain_blocks)
+    before = (t_epi.launches, t_epi.chain_blocks, t_epi.mish_launches)
     with torch.no_grad():
         got = model(x)
     assert (t_epi.launches - before[0],
             t_epi.chain_blocks - before[1]) == (bn_blocks, 0)
+    assert t_epi.mish_launches - before[2] == (72 if name == "yolov4"
+                                               else 0)
     monkeypatch.setattr(t_epi, "takes", lambda *a: False)
     with torch.no_grad():
         want = model(x)

@@ -6,7 +6,14 @@ K7's calls.  K7 itself runs only on a CUDA card (tests/test_torch_cuda.py).
 
 Every comparison is bit for bit (the float32 words, so NaN too): K7 runs
 the chain's operations in its order, each rounded on its own, and so do the
-mirror and the plain version.
+mirror and the plain version.  One exception: the Mish mirror computes
+exp, log1p and tanh with NumPy, whose float32 functions are neither
+libdevice's (K7) nor the CPU's vectorised ones (F.mish), so it is held to
+the chain within MISH_MIRROR_ULPS units in the last place (measured: 5 over
+t in [-87, 100], 4 on these inputs), and within 1e-40 where exp(t) is
+subnormal (t < -87, a result under 1e-36 whose last bits are lost in the
+subnormal intermediate: 100 ulps measured); the skip add on top of it is
+exact.
 """
 
 import math
@@ -28,6 +35,7 @@ torch.set_num_threads(1)
 # that is a multiple of 4 but not of the vector tile (40 x 33 = 1320).
 SHAPES = [(2, 3, 19, 19), (1, 255, 13, 13), (3, 1, 1, 1), (2, 1, 48, 48),
           (2, 3, 40, 33), (1, 255, 2, 2)]
+MISH_MIRROR_ULPS = 8
 
 
 def bits(t) -> np.ndarray:
@@ -56,13 +64,68 @@ def inputs(shape, seed, skip):
     return y, mean, mul.numpy(), bias, s
 
 
-def chain(y, mean, mul, bias, skip):
+def chain(y, mean, mul, bias, skip, act="leaky"):
     """ConvBlock's eval chain and YoloV3's shortcut as the nets ran them
-    before K7: (y - mean) * mul + bias, leaky ReLU 0.1, x + block(y)."""
+    before K7: (y - mean) * mul + bias, leaky ReLU 0.1 (or F.mish), x +
+    block(y)."""
     y, mean, mul, bias = map(torch.as_tensor, (y, mean, mul, bias))
     c = (slice(None), None, None)
-    out = F.leaky_relu((y - mean[c]) * mul[c] + bias[c], 0.1)
+    t = (y - mean[c]) * mul[c] + bias[c]
+    out = F.mish(t) if act == "mish" else F.leaky_relu(t, 0.1)
     return out if skip is None else torch.as_tensor(skip) + out
+
+
+def ulps(a, b) -> np.ndarray:
+    """Units in the last place between float32 arrays (+0 and -0 one
+    apart; equal NaN positions 0)."""
+    def order(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF) - 1, i)
+    nan = np.isnan(a) & np.isnan(b)
+    return np.where(nan, 0, np.abs(order(a) - order(b)))
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["plain", "skip"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_mish_ref_equals_the_chain(shape, skip):
+    y, mean, mul, bias, s = inputs(shape, sum(shape) + 1, skip)
+    got = epilogue.epilogue_ref(*map(torch.as_tensor, (y, mean, mul, bias)),
+                                None if s is None else torch.as_tensor(s),
+                                act="mish")
+    assert np.array_equal(bits(got),
+                          bits(chain(y, mean, mul, bias, s, "mish")))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_mish_mirror_is_the_chain_within_ulps(shape):
+    y, mean, mul, bias, s = inputs(shape, sum(shape) + 2, True)
+    want = chain(y, mean, mul, bias, None, "mish").numpy()
+    got = epilogue.mirror(y, mean, mul, bias, act="mish")
+    c = (slice(None), None, None)
+    with np.errstate(all="ignore"):
+        t = (y - mean[c]) * mul[c] + bias[c]
+        gap = np.nan_to_num(np.abs(got - want))
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    normal = ~(t < -87.0)
+    assert ulps(got, want)[normal].max(initial=0) <= MISH_MIRROR_ULPS
+    assert gap[~normal].max(initial=0) <= 1e-40
+    # the skip add on top is exact in both
+    with np.errstate(all="ignore"):
+        assert np.array_equal(
+            bits(epilogue.mirror(y, mean, mul, bias, s, act="mish")),
+            bits(s + got))
+    assert np.array_equal(bits(chain(y, mean, mul, bias, s, "mish")),
+                          bits(torch.as_tensor(s) + torch.as_tensor(want)))
+
+
+def test_unknown_activation_is_refused():
+    y, mean, mul, bias = map(torch.as_tensor,
+                             inputs((1, 2, 3, 3), 0, False)[:4])
+    for fn in (epilogue.fused, epilogue.epilogue_ref):
+        with pytest.raises(ValueError, match="unknown activation"):
+            fn(y, mean, mul, bias, None, "relu")
+    with pytest.raises(ValueError, match="unknown activation"):
+        t_yolo.ConvBlock(2, 2, act="relu")
 
 
 @pytest.mark.parametrize("skip", [False, True], ids=["plain", "skip"])
@@ -109,6 +172,28 @@ def test_block_is_its_conv_then_the_plain_version(skip):
             assert np.array_equal(bits(got), bits(r + blk(x)))
 
 
+@pytest.mark.parametrize("skip", [False, True], ids=["plain", "skip"])
+def test_mish_block_is_its_conv_then_the_plain_version(skip):
+    blk = block(act="mish")
+    x = torch.randn(2, 4, 9, 7, generator=torch.Generator().manual_seed(3))
+    r = torch.randn(2, 5, 9, 7) if skip else None
+    before = (epilogue.launches, epilogue.mish_launches,
+              epilogue.chain_blocks)
+    with torch.no_grad():
+        got = blk(x, skip=r)
+        bn = blk.bn
+        y = F.conv2d(x, blk.conv.weight, None, 1, 1)
+        want = epilogue.epilogue_ref(
+            y, bn.running_mean, torch.rsqrt(bn.running_var + bn.eps)
+            * bn.weight, bn.bias, r, "mish")
+    assert np.array_equal(bits(got), bits(want))
+    assert (epilogue.launches, epilogue.mish_launches,
+            epilogue.chain_blocks) == (*before[:2], before[2] + 1)
+    leaky = epilogue.epilogue_ref(y, bn.running_mean, torch.rsqrt(
+        bn.running_var + bn.eps) * bn.weight, bn.bias, r)
+    assert not torch.equal(got, leaky)
+
+
 def test_wrapper_on_the_cpu_is_the_plain_version():
     y, mean, mul, bias, s = map(
         lambda a: None if a is None else torch.as_tensor(a),
@@ -153,7 +238,8 @@ def test_route_keeps_the_chain(case):
 @pytest.mark.parametrize("name,bn_blocks", [("yolov3", 72),
                                             ("yolov3-tiny", 11),
                                             ("yolov2", 22),
-                                            ("yolov2-tiny", 8)])
+                                            ("yolov2-tiny", 8),
+                                            ("yolov4", 107)])
 def test_cpu_forward_runs_the_chain_in_every_batchnorm_block(name,
                                                              bn_blocks):
     spec = t_yolo.YoloSpec(name, num_classes=3, input_size=64)
@@ -199,3 +285,25 @@ def test_smoke_holds_each_epilogue_call_to_the_plain_version(monkeypatch,
     assert np.array_equal(bits(got) != bits(want),
                           np.arange(got.numel()).reshape(shape) == 7
                           if fault else np.zeros(shape, bool))
+
+
+@pytest.mark.parametrize("fault", [False, True], ids=["faithful", "fault"])
+def test_smoke_holds_each_mish_epilogue_call_to_the_plain_version(
+        monkeypatch, fault):
+    """The same for a Mish call: filed under its shape, the skip and the
+    activation, held to the Mish plain version."""
+    shape = (2, 3, 19, 19)
+    y, mean, mul, bias, s = (torch.as_tensor(a)
+                             for a in inputs(shape, 6, True))
+    fused = epilogue.fused
+    if fault:           # a kernel that runs leaky ReLU in a Mish block
+        monkeypatch.setattr(epilogue, "fused",
+                            lambda y, m, k, b, s=None, act="leaky":
+                            fused(y, m, k, b, s))
+    with chip_smoke.kernels_checked() as st:
+        got = epilogue.fused(y, mean, mul, bias, s, "mish")
+    assert st.by_kernel() == {"epilogue": [math.inf if fault else 0]}
+    assert st.calls == {("epilogue", (*shape, True, "mish")): 1}
+    if not fault:
+        assert np.array_equal(bits(got), bits(epilogue.epilogue_ref(
+            y, mean, mul, bias, s, "mish")))

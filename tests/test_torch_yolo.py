@@ -104,11 +104,14 @@ def test_spec_parity(name, kw):
     ("yolov9000", {}), ("yolov3", dict(stem="s2d4")),
     ("yolov2", dict(stem="s2d4", dtype="int8")), ("yolov2", dict(stem="x"))])
 def test_spec_errors_match(name, kw):
+    """The port's messages are JAX's word for word; the list of known
+    variants also names yolov4, which only the port has."""
     with pytest.raises(ValueError) as je:
         j_yolo.YoloSpec(name, **kw)
     with pytest.raises(ValueError) as te:
         t_yolo.YoloSpec(name, **kw)
-    assert str(te.value) == str(je.value)
+    want = str(je.value).replace("'yolov3-tiny']", "'yolov3-tiny', 'yolov4']")
+    assert str(te.value) == want
 
 
 def test_build_model_errors_match():

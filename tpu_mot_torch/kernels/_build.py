@@ -64,7 +64,7 @@ SIGNATURES = {
                                 _F, _F, _P),
     "tpu_mot_kcf_search_info": (_P,),
     "tpu_mot_kcf_search": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
-    "tpu_mot_epilogue": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "tpu_mot_epilogue": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
 }
 
 

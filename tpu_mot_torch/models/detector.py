@@ -22,7 +22,8 @@ from tpu_mot_torch.tracker.bank import resolve_device
 from tpu_mot_torch.utils.profiling import span
 
 # Candidates decoded by decode_frames, B x sum of Hg x Wg x A a call (22,743
-# a frame for yolov3 at 608), read by tests and the benchmark's traced runs.
+# a frame for yolov3 and yolov4 at 608), read by tests and the benchmark's
+# traced runs.
 candidates = 0
 
 
@@ -75,9 +76,9 @@ def decode_frames(model, frames: torch.Tensor, frame_hw: tuple):
         heads = model(x)
     with span("detector.decode"):
         parts = [decode_head(head, anchors, stride, spec.num_classes, s,
-                             cls_act=spec.cls_activation)
-                 for head, anchors, stride in zip(heads, spec.anchors,
-                                                   spec.strides)]
+                             cls_act=spec.cls_activation, scale_xy=sxy)
+                 for head, anchors, stride, sxy in zip(
+                     heads, spec.anchors, spec.strides, spec.scale_x_y)]
         boxes, scores, classes = (torch.cat(p, dim=1) for p in zip(*parts))
         candidates += scores.numel()
         h, w = frame_hw
@@ -239,6 +240,17 @@ def _conv_layers_in_call_order(spec: YoloSpec):
                 + [("head1", False)]
                 + [(f"ConvBlock_{i}", True) for i in range(65, 72)]
                 + [("head2", False)])
+    if spec.name == "yolov4":
+        # cfg/yolov4.cfg: CSPDarknet53 (72 convs), the SPP neck (6), the
+        # top-down path (14) and the stride-8 3x3 conv, head2 (layer 138);
+        # the stride-16 downsample, conv set and 3x3 conv, head1 (149); the
+        # stride-32 downsample, conv set and 3x3 conv, head0 (160).
+        return ([(f"ConvBlock_{i}", True) for i in range(93)]
+                + [("head2", False)]
+                + [(f"ConvBlock_{i}", True) for i in range(93, 100)]
+                + [("head1", False)]
+                + [(f"ConvBlock_{i}", True) for i in range(100, 107)]
+                + [("head0", False)])
     raise ValueError(spec.name)
 
 

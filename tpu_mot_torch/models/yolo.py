@@ -1,5 +1,6 @@
 """The YOLO detector family (counterpart of tpu_mot/models/yolo.py):
-yolov3, yolov3-tiny, yolov2 and yolov2-tiny as `nn.Module`s over NCHW.
+yolov3, yolov3-tiny, yolov2 and yolov2-tiny as `nn.Module`s over NCHW, and
+yolov4, which only the port has (AlexeyAB/darknet cfg/yolov4.cfg).
 
 Each net builds its blocks in the JAX package's construction order, so
 block i is the flax module `ConvBlock_{i}` and the heads are `head0..2`
@@ -38,8 +39,9 @@ from torch import nn
 from tpu_mot_torch.models import epilogue
 from tpu_mot_torch.utils.profiling import span
 
-# Residual shortcut adds run by YoloV3 forwards (23 a forward), read by
-# tests and the benchmark's traced runs, as kernels/kcf counts launches.
+# Residual shortcut adds run by YoloV3 and YoloV4 forwards (23 a forward
+# each), read by tests and the benchmark's traced runs, as kernels/kcf
+# counts launches.
 shortcuts = 0
 
 # Canonical anchor sets (pixels at the native 416x416 input), public YOLO
@@ -60,12 +62,21 @@ YOLOV3_ANCHORS = (
     ((30, 61), (62, 45), (59, 119)),         # head 1, stride 16
     ((10, 13), (16, 30), (33, 23)),          # head 2, stride 8
 )
+# cfg/yolov4.cfg's anchors, in input pixels at its 608 x 608.
+YOLOV4_ANCHORS = (
+    ((142, 110), (192, 243), (459, 401)),    # head 0, stride 32
+    ((36, 75), (76, 55), (72, 146)),         # head 1, stride 16
+    ((12, 16), (19, 36), (40, 28)),          # head 2, stride 8
+)
+# The grid sensitivity of each yolov4 head ([yolo] scale_x_y), by head.
+YOLOV4_SCALE_X_Y = (1.05, 1.1, 1.2)
 
 _CANONICAL_ANCHORS = {
     "yolov3": YOLOV3_ANCHORS,
     "yolov3-tiny": YOLOV3_TINY_ANCHORS,
     "yolov2": YOLOV2_ANCHORS,
     "yolov2-tiny": YOLOV2_TINY_ANCHORS,
+    "yolov4": YOLOV4_ANCHORS,
 }
 
 
@@ -94,11 +105,11 @@ class YoloSpec:
             raise ValueError(f"unknown stem {self.stem!r}; "
                              "have ('auto', 'direct', 's2d4')")
         if self.stem == "s2d4":
-            if self.name == "yolov3":
-                raise ValueError("yolov3's strided-conv stem has no pools "
-                                 "to collapse; stem='s2d4' supports the "
-                                 "pooled variants (yolov3-tiny, yolov2, "
-                                 "yolov2-tiny)")
+            if self.name in ("yolov3", "yolov4"):
+                raise ValueError(f"{self.name}'s strided-conv stem has no "
+                                 "pools to collapse; stem='s2d4' supports "
+                                 "the pooled variants (yolov3-tiny, "
+                                 "yolov2, yolov2-tiny)")
             if self.dtype == "int8":
                 raise ValueError("stem='s2d4' is implemented for the "
                                  "f32/bf16 conv path (int8 serves the "
@@ -117,9 +128,19 @@ class YoloSpec:
 
     @property
     def cls_activation(self) -> str:
-        """v3 heads score classes with independent sigmoids, v2 heads with
-        a softmax."""
-        return "sigmoid" if self.name.startswith("yolov3") else "softmax"
+        """v3 and v4 heads score classes with independent sigmoids, v2
+        heads with a softmax."""
+        return ("sigmoid" if self.name.startswith(("yolov3", "yolov4"))
+                else "softmax")
+
+    @property
+    def scale_x_y(self) -> tuple:
+        """Each head's grid sensitivity (darknet's [yolo] scale_x_y): the
+        box centre is (grid + sigmoid(t) * s - (s - 1) / 2) * stride; 1.0,
+        the plain decode, but for yolov4."""
+        if self.name == "yolov4":
+            return YOLOV4_SCALE_X_Y[: len(self.anchors)]
+        return (1.0,) * len(self.anchors)
 
 
 def resolved_stem(spec: YoloSpec, train: bool = False, hw=None) -> str:
@@ -130,7 +151,7 @@ def resolved_stem(spec: YoloSpec, train: bool = False, hw=None) -> str:
     composition whatever this says."""
     if spec.stem != "auto":
         return spec.stem
-    if train or spec.dtype == "int8" or spec.name == "yolov3":
+    if train or spec.dtype == "int8" or spec.name in ("yolov3", "yolov4"):
         return "direct"
     if hw is not None and (hw[0] % 4 or hw[1] % 4):
         return "direct"
@@ -163,7 +184,11 @@ def _quant_conv(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
 
 
 class ConvBlock(nn.Module):
-    """Conv + BatchNorm + LeakyReLU(0.1), darknet's block.
+    """Conv + BatchNorm + the activation, darknet's block.
+
+    `act` is the activation: "leaky" (LeakyReLU(0.1); also `True`),
+    "mish" (x * tanh(softplus(x)), F.mish, YOLOv4's backbone) or `False`
+    (linear, the heads).
 
     The conv pads k//2 on both sides at every stride (darknet's padding;
     XLA's SAME pads (0, 1) at stride 2); it has a bias only where there is
@@ -184,19 +209,23 @@ class ConvBlock(nn.Module):
     the sums into the global batch's, so that the backward pass and the
     running statistics see the global values on every rank.
 
-    `skip`, the operand of a YOLOv3 shortcut, is added last (skip + out).
-    In eval mode, a block with BatchNorm and the activation whose conv
-    output `epilogue.takes` (a contiguous float32 CUDA tensor that needs no
-    gradient) runs BatchNorm, the activation and the add as one kernel in
-    place (models/epilogue.fused, K7: bit for bit the chain below); every
-    other BatchNorm block runs the chain and counts in
+    `skip`, the operand of a YOLOv3 or YOLOv4 shortcut, is added last
+    (skip + out).  In eval mode, a block with BatchNorm and an activation
+    whose conv output `epilogue.takes` (a contiguous float32 CUDA tensor
+    that needs no gradient) runs BatchNorm, the activation and the add as
+    one kernel in place (models/epilogue.fused, K7: bit for bit the chain
+    below); every other BatchNorm block runs the chain and counts in
     `epilogue.chain_blocks`.
     """
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 use_bn: bool = True, act: bool = True,
+                 use_bn: bool = True, act: bool | str = True,
                  dtype: str = "float32", bn_momentum: float = 0.99):
         super().__init__()
+        act = "leaky" if act is True else act
+        if act not in (False, "leaky", "mish"):
+            raise ValueError(f"unknown activation {act!r}; have 'leaky', "
+                             "'mish' (or True, False)")
         self.conv = nn.Conv2d(cin, cout, kernel, stride, padding=kernel // 2,
                               bias=not use_bn)
         self.bn = (nn.BatchNorm2d(cout, eps=1e-5, momentum=1.0 - bn_momentum)
@@ -255,12 +284,14 @@ class ConvBlock(nn.Module):
                          if not self.training else self._batch_stats(y))
             mul = torch.rsqrt(var + bn.eps) * bn.weight
             if self.act and not self.training and epilogue.takes(y, skip):
-                return epilogue.fused(y, mean, mul, bn.bias, skip)
+                return epilogue.fused(y, mean, mul, bn.bias, skip, self.act)
             epilogue.chain_blocks += 1
             c = (slice(None), None, None)
             y = ((y - mean[c]) * mul[c] + bn.bias[c]).to(dt)
-        if self.act:
+        if self.act == "leaky":
             y = F.leaky_relu(y, 0.1)
+        elif self.act == "mish":
+            y = F.mish(y)
         return y if skip is None else skip + y
 
 
@@ -304,10 +335,10 @@ class _YoloNet(nn.Module):
         self.spec = spec
         self._names = []
 
-    def _cb(self, cin: int, cout: int, kernel: int = 3,
-            stride: int = 1) -> int:
+    def _cb(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+            act: str = "leaky") -> int:
         name = f"ConvBlock_{len(self._names)}"
-        self.add_module(name, ConvBlock(cin, cout, kernel, stride,
+        self.add_module(name, ConvBlock(cin, cout, kernel, stride, act=act,
                                         dtype=self.spec.dtype,
                                         bn_momentum=self.spec.bn_momentum))
         self._names.append(name)
@@ -466,9 +497,107 @@ class YoloV3(_YoloNet):
         return self._out(*heads)
 
 
+def _spp(x: torch.Tensor) -> torch.Tensor:
+    """YOLOv4's spatial pyramid pooling: max pools of 13, 9 and 5 at stride
+    1, padded k//2 with -inf (darknet's -FLT_MAX), concatenated before x."""
+    return torch.cat([F.max_pool2d(x, k, 1, k // 2) for k in (13, 9, 5)]
+                     + [x], dim=1)
+
+
+class YoloV4(_YoloNet):
+    """Full YOLOv4 (AlexeyAB/darknet cfg/yolov4.cfg): CSPDarknet53 with
+    Mish, the SPP neck, PANet and three heads (stride 32/16/8), 110 convs
+    in cfg order (107 BatchNorm convs and the three heads, registered where
+    the cfg places them: head2 after the stride-8 set's 3x3 conv, head1
+    after the stride-16 set's, head0 last).
+
+    A CSP stage of width f: a stride-2 3x3 conv to f; two 1x1 convs of h
+    on its output (part 2, then the main branch; h = f in stage 1, else
+    f/2); the residual units on the main branch (1x1, 3x3, skip + out;
+    stage 1's unit narrows to 32); a 1x1 conv of h; concat [main, part 2];
+    a 1x1 transition conv to f.  The unit's 1x1 conv is f/2 wide.  Leaky
+    ReLU from the neck on."""
+
+    STAGES = ((64, 1), (128, 2), (256, 8), (512, 8), (1024, 4))
+
+    def __init__(self, spec: YoloSpec):
+        super().__init__(spec)
+        c = self._cb(3, 32, act="mish")                 # layer 0
+        for stage, (f, n_res) in enumerate(self.STAGES):
+            h = f if stage == 0 else f // 2
+            self._cb(c, f, stride=2, act="mish")        # downsample
+            self._cb(f, h, 1, act="mish")               # part 2
+            self._cb(f, h, 1, act="mish")               # main branch
+            for _ in range(n_res):
+                self._cb(h, f // 2, 1, act="mish")
+                self._cb(f // 2, h, act="mish")
+            self._cb(h, h, 1, act="mish")
+            c = self._cb(2 * h, f, 1, act="mish")       # transition
+        for k, f in ((1, 512), (3, 1024), (1, 512)):   # layers 105-107
+            c = self._cb(c, f, k)
+        c *= 4                                          # the SPP concat
+        for k, f in ((1, 512), (3, 1024), (1, 512)):   # layers 114-116
+            c = self._cb(c, f, k)
+        for f in (256, 128):                            # top-down
+            self._cb(2 * f, f, 1)                       # on the branch
+            self._cb(2 * f, f, 1)                       # lateral
+            c = 2 * f
+            for k in (1, 3, 1, 3, 1):
+                c = self._cb(c, f if k == 1 else 2 * f, k)
+        self._head("head2", self._cb(128, 256), 2)      # layers 137-138
+        for head, f in ((1, 256), (0, 512)):            # bottom-up
+            c = self._cb(f // 2, f, stride=2) + f
+            for k in (1, 3, 1, 3, 1):
+                c = self._cb(c, f if k == 1 else 2 * f, k)
+            self._head(f"head{head}", self._cb(f, 2 * f), head)
+
+    def forward(self, x: torch.Tensor) -> tuple:
+        global shortcuts
+        b = self._blocks()
+        routes = []
+        with span("detector.backbone"):
+            x = next(b)(x)
+            for _, n_res in self.STAGES:
+                x = next(b)(x)
+                part2 = next(b)(x)
+                x = next(b)(x)
+                for _ in range(n_res):
+                    y = next(b)(x)
+                    x = next(b)(y, skip=x)
+                    shortcuts += 1
+                x = torch.cat([next(b)(x), part2], dim=1)
+                x = next(b)(x)                          # transition
+                routes.append(x)
+        with span("detector.spp"):
+            for _ in range(3):
+                x = next(b)(x)
+            x = _spp(x)
+            for _ in range(3):
+                x = next(b)(x)
+        neck = [x]                                      # layer 116
+        with span("detector.pan"):
+            for route in (routes[3], routes[2]):        # layers 85, 54
+                up = _upsample2(next(b)(x))
+                x = torch.cat([next(b)(route), up], dim=1)
+                for _ in range(5):
+                    x = next(b)(x)
+                neck.append(x)                          # layers 126, 136
+        heads = {}
+        with span("detector.head2"):
+            heads[2] = self.head2(next(b)(x))
+        for head in (1, 0):
+            with span(f"detector.head{head}"):
+                x = torch.cat([next(b)(x), neck[head]], dim=1)
+                for _ in range(5):
+                    x = next(b)(x)
+                heads[head] = getattr(self, f"head{head}")(next(b)(x))
+        return self._out(heads[0], heads[1], heads[2])
+
+
 _BUILDERS = {"yolov3": YoloV3, "yolov3-tiny": YoloV3Tiny,
-             "yolov2": YoloV2, "yolov2-tiny": YoloV2Tiny}
-_N_HEADS = {"yolov3": 3, "yolov3-tiny": 2, "yolov2": 1, "yolov2-tiny": 1}
+             "yolov2": YoloV2, "yolov2-tiny": YoloV2Tiny, "yolov4": YoloV4}
+_N_HEADS = {"yolov3": 3, "yolov3-tiny": 2, "yolov2": 1, "yolov2-tiny": 1,
+            "yolov4": 3}
 
 
 def build_model(spec: YoloSpec) -> _YoloNet:
@@ -500,15 +629,17 @@ def layer_shapes(spec: YoloSpec) -> list[tuple[str, tuple, bool]]:
 
 def decode_head(raw: torch.Tensor, anchors: Sequence, stride: int,
                 num_classes: int, input_size: int,
-                cls_act: str = "softmax"):
+                cls_act: str = "softmax", scale_xy: float = 1.0):
     """Raw head [B, Hg, Wg, A*(5+C)] -> (boxes [B, N, 4] cxcywh in input
     pixels, scores [B, N], classes [B, N] int64), N = Hg*Wg*A in (cy, cx,
     anchor)-major order.
 
     sigmoid xy + the grid, times the stride; anchor * exp(clip(wh, -10,
     8)); score = sigmoid objectness * the largest class probability
-    (softmax for the v2 lineage, sigmoid for v3, 1 when num_classes <= 1);
-    the class is the first maximum."""
+    (softmax for the v2 lineage, sigmoid for v3 and v4, 1 when num_classes
+    <= 1); the class is the first maximum.  A grid sensitivity `scale_xy`
+    other than 1 (YOLOv4's scale_x_y) takes sigmoid xy to sigmoid xy * s -
+    (s - 1) / 2 before the grid is added; at 1 no operation is added."""
     b, hg, wg, _ = raw.shape
     a = len(anchors)
     raw = raw.reshape(b, hg, wg, a, 5 + num_classes)
@@ -519,6 +650,8 @@ def decode_head(raw: torch.Tensor, anchors: Sequence, stride: int,
     anc = torch.tensor(anchors, dtype=torch.float32, device=dev)   # [A, 2]
 
     xy = torch.sigmoid(raw[..., 0:2])
+    if scale_xy != 1.0:
+        xy = xy * scale_xy - 0.5 * (scale_xy - 1.0)
     cx = (gx[None, :, :, None] + xy[..., 0]) * stride
     cy = (gy[None, :, :, None] + xy[..., 1]) * stride
     wh = torch.exp(torch.clamp(raw[..., 2:4], -10.0, 8.0)) * anc

@@ -26,11 +26,22 @@ thread (one serving call is one request):
                          detector.nms         class-wise NMS, padded output
   models/yolo.py         detector.backbone    in detector.forward: the trunk
                                               up to the heads' routes
-                                              (darknet-53 for yolov3)
+                                              (darknet-53 for yolov3,
+                                              CSPDarknet53 for yolov4)
+                         detector.spp         yolov4: the six neck convs,
+                                              the three pools and their
+                                              concat
+                         detector.pan         yolov4: PANet's top-down
+                                              path (two upsamples, two
+                                              lateral convs, two conv sets)
                          detector.head0..2    in detector.forward, one a
                                               head: its upsample conv and
                                               route concat, conv set,
                                               pre-head conv, linear head
+                                              (yolov4: head2, head1, head0
+                                              in that order, each with its
+                                              bottom-up downsample conv,
+                                              concat and conv set)
   tracker/step.py        tracker.step         step_streams (bank and output
                                               assembly in its self time)
                          tracker.frames       gray image or u8 pyramid
